@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them through ctypes.
 
-Every ``*.cu`` file under ``csrc/`` is compiled for Hopper (``sm_90a``) into
-one shared library with a plain C interface. The library lands in
-``build/repro_torch/<hash>/`` under the repository root, keyed by a hash of
-the sources and the flags, so a changed source rebuilds and an unchanged one
-is loaded as it is. The build runs at the first launch of a kernel, never at
-import: the CPU tests import every module on machines without ``nvcc``.
+Every ``*.cu`` file under ``csrc/`` is compiled for Hopper (``sm_90a``), one
+``nvcc`` process per source, all started together, and the objects are
+linked into one shared library with a plain C interface. The library lands
+in ``build/repro_torch/<hash>/`` under the repository root, keyed by a hash
+of the sources, the headers and the flags, so a changed source rebuilds and
+an unchanged one is loaded as it is. The build runs at the first launch of a
+kernel, never at import: the CPU tests import every module on machines
+without ``nvcc``.
 """
 from __future__ import annotations
 
@@ -24,7 +26,17 @@ REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_ROOT = REPO_ROOT / "build" / "repro_torch"
 LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
+
+_I64 = ctypes.c_longlong
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+# C symbol -> argument types (every function returns a cudaError_t as int)
+SYMBOLS = {
+    "repro_dominance_matrix": [_PTR, _PTR, _INT, _INT, _PTR],
+    "repro_flash_attention": [_PTR] * 4 + [_INT] * 7 + [_I64] * 12 + [_PTR],
+    "repro_gqa_decode": [_PTR] * 5 + [_INT] * 6 + [_I64] * 10 + [_PTR],
+}
 
 _LIB: Optional[ctypes.CDLL] = None
 #: seconds the last ``load()`` spent compiling (0.0 when the cache was hit)
@@ -33,6 +45,10 @@ BUILD_SECONDS = 0.0
 
 def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> List[Path]:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def find_nvcc() -> str:
@@ -50,16 +66,35 @@ def find_nvcc() -> str:
                        "built on the machine with the card")
 
 
-def nvcc_command(nvcc: str, srcs: List[Path], out: Path) -> List[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, srcs)]
+def compile_command(nvcc: str, src: Path, obj: Path) -> List[str]:
+    return [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
 
 
-def _digest(srcs: List[Path]) -> str:
+def link_command(nvcc: str, objs: List[Path], out: Path) -> List[str]:
+    return [nvcc, "-shared", "-o", str(out), *map(str, objs)]
+
+
+def _digest(files: List[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in files:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _run_all(cmds: List[List[str]]) -> None:
+    """Run the commands side by side; raise with the stderr of each that
+    failed, after all have ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    errors = []
+    for cmd, p in zip(cmds, procs):
+        _, err = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"{' '.join(cmd)}\n-> exit {p.returncode}:\n{err}")
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
 
 
 def build(nvcc: Optional[str] = None) -> Path:
@@ -67,26 +102,20 @@ def build(nvcc: Optional[str] = None) -> Path:
     its path. A failed build raises with nvcc's stderr."""
     global BUILD_SECONDS
     srcs = sources()
-    out_dir = BUILD_ROOT / _digest(srcs)
+    out_dir = BUILD_ROOT / _digest(srcs + headers())
     lib = out_dir / LIB_NAME
     if lib.is_file():
         BUILD_SECONDS = 0.0
         return lib
     nvcc = nvcc or find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(nvcc_command(nvcc, srcs, Path(tmp)),
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / (s.stem + ".o") for s in srcs]
+        _run_all([compile_command(nvcc, s, o) for s, o in zip(srcs, objs)])
+        so = Path(tmp) / LIB_NAME
+        _run_all([link_command(nvcc, objs, so)])
+        os.replace(so, lib)
     BUILD_SECONDS = time.perf_counter() - t0
     return lib
 
@@ -96,9 +125,9 @@ def load() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
-        fn = lib.repro_dominance_matrix
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        for name, argtypes in SYMBOLS.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
