@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout and runs
-the port's two paths on the card, the routing loop and the serving engine,
-in phases that each print one JSON line:
+the port's paths on the card, the routing loop, the serving engine and its
+prefix reuse on session traffic, in phases that each print one JSON line
+(run in the order 1-5, 9, 6, 10, 7, 8, 11, 12):
 
 1. card: ``nvidia-smi`` name and power limit, torch/CUDA versions, build time;
 2. kernels: the dominance kernel against its plain PyTorch version on the
@@ -35,10 +36,34 @@ in phases that each print one JSON line:
 8. serve check: every served token is a teacher-forced maximum of
    ``train_logits`` on the card (within 2e-2 of the row's max|logit|), and
    the same engine at full width and 2 layers gives the CPU's greedy
-   tokens, except at the CPU's own near-ties.
+   tokens, except at the CPU's own near-ties;
+9. counts kernel: the dominator-counts kernel exactly equal to its plain
+   version and to the column sums of the matrix kernel, over P in {1, 63,
+   64, 65, 200, 4096, 4099}, M 1-8, f32/bf16/f16, ties, duplicates and NaN
+   rows, and on every objective matrix that phases 3 and 5 sorted; timed at
+   P = 200 and 4096;
+10. paged kernel: the paged decode kernel against its plain version (2e-5
+   f32, 2e-2 bf16) and against the decode kernel on the gathered cache, in
+   the TPU pool layout and the serving store's, block sizes 8 and 16, pad
+   entries, negative ids, kv_len 0, NaN in unreferenced blocks (output bit
+   for bit unchanged);
+11. serve sessions: the 47 requests of the multi-turn session trace with
+   the same model on 8 slots of 1,088 positions, with the paged prefix
+   cache (16-token blocks) and without, in turns (on, off, off, on);
+   in every run flash launches = 28 per admission, decode launches = 28
+   per iteration, paged and counts kernels never; the cache counters, zero leaked blocks, every token a
+   teacher-forced maximum, the two runs' tokens parting only at near-ties;
+   one decode iteration profiled; the flash kernel's prefix-extend variant
+   timed at the run's median admission;
+12. paged on pools: block tables from the served prompts' cached blocks,
+   8 rows a batch, the paged kernel held on all 28 layers of the store's
+   pools against the decode kernel on the gathered cache and against the
+   plain version (one row ending mid-block), and timed there.
 
-Then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-line. Any failure raises and exits non-zero. Without a CUDA device, or
+Phase 6 also holds the flash kernel's prefix-extend variant against its
+plain version (bucketed and exact-length, garbage and NaN past prefix_len).
+Then the ``{"kernels": [...]}`` line (all five kernels) and, last, the
+``{"ok": true, ...}`` line. Any failure raises and exits non-zero. Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero before
 printing anything.
 """
@@ -64,6 +89,16 @@ SERVE_MODEL, SERVE_REQUESTS = "qwen3-1.7b", 32
 CHECK_LAYERS, CHECK_REQUESTS = 2, 8
 DOM_CASES_P = (1, 7, 100, 130, 200, 1000, 4096, 4099)
 DOM_CASES_M = (1, 2, 3, 4, 8)
+COUNT_CASES_P = (1, 63, 64, 65, 200, 4096, 4099)
+COUNT_CASES_M = tuple(range(1, 9))
+# (B, Hq, Hkv, n_blocks, block_size, max_blocks, D): tests/test_kernels.py's
+# shapes, and the serving heads at block sizes 8 and 16
+PAGED_CASES = ((1, 8, 8, 16, 16, 4, 64), (2, 8, 2, 24, 16, 4, 64),
+               (3, 4, 1, 12, 8, 6, 32), (8, 16, 8, 96, 8, 40, 128),
+               (8, 16, 8, 96, 16, 24, 128))
+# (S_pre, Sq, prefix_len): prefix_len None is the exact-length extend
+EXT_CASES = ((16, 8, None), (200, 1, None), (64, 17, 40), (32, 33, 0),
+             (1088, 64, 16), (1088, 64, 512), (1088, 128, 960))
 QUICKSTART = dict(n_requests=500, pop_size=100, n_generations=60)
 LARGE_POP, LARGE_GENS = 2048, 5
 
@@ -179,29 +214,59 @@ def phase_kernels():
 
 
 def zero_launches():
-    from repro_torch.kernels import decode_attention, dominance, flash_attention
-    dominance.LAUNCHES = flash_attention.LAUNCHES = 0
-    decode_attention.LAUNCHES = 0
+    from repro_torch.kernels import (decode_attention, dominance,
+                                     flash_attention, paged_attention)
+    dominance.LAUNCHES = dominance.COUNTS_LAUNCHES = 0
+    flash_attention.LAUNCHES = decode_attention.LAUNCHES = 0
+    paged_attention.LAUNCHES = 0
 
 
 def launch_counts(**expected):
     """Every kernel's launch count since ``zero_launches``; a kernel not
     named in ``expected`` must not have launched."""
-    from repro_torch.kernels import decode_attention, dominance, flash_attention
+    from repro_torch.kernels import (decode_attention, dominance,
+                                     flash_attention, paged_attention)
     got = {"dominance_matrix": dominance.LAUNCHES,
+           "dominance_counts": dominance.COUNTS_LAUNCHES,
            "flash_attention": flash_attention.LAUNCHES,
-           "gqa_decode_attention": decode_attention.LAUNCHES}
+           "gqa_decode_attention": decode_attention.LAUNCHES,
+           "paged_gqa_decode_attention": paged_attention.LAUNCHES}
     want = {k: expected.get(k, 0) for k in got}
     assert got == want, f"launches {got}, want {want}"
     return got
 
 
-def phase_main_path():
+class SortedObjectives:
+    """Keeps a copy of every objective matrix the NSGA-II sort hands to the
+    dominance kernel while it is entered (the counts phase holds the counts
+    kernel on them); the sort itself runs unchanged."""
+
+    def __init__(self):
+        self.Fs = []
+
+    def __enter__(self):
+        from repro_torch.core import pareto
+        self._orig = orig = pareto.dominance_matrix
+
+        def record(F):
+            self.Fs.append(F.detach().clone())
+            return orig(F)
+
+        pareto.dominance_matrix = record
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import pareto
+        pareto.dominance_matrix = self._orig
+
+
+def phase_main_path(sorted_F):
     import numpy as np
     from repro_torch.quickstart import format_table, run_quickstart
     zero_launches()
     t0 = time.perf_counter()
-    res = run_quickstart(**QUICKSTART)
+    with sorted_F:
+        res = run_quickstart(**QUICKSTART)
     wall = time.perf_counter() - t0
     launches = launch_counts(
         dominance_matrix=1 + QUICKSTART["n_generations"])["dominance_matrix"]
@@ -284,7 +349,7 @@ def phase_device_vs_cpu(genome):
     emit(out)
 
 
-def phase_large_population():
+def phase_large_population(sorted_F):
     import torch
     from repro_torch.cluster.spec import paper_testbed
     from repro_torch.core.baselines import heuristic_bias_init
@@ -310,7 +375,8 @@ def phase_large_population():
     zero_launches()
     tick()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    state = opt.evolve(gen, LARGE_GENS, callback=tick)
+    with sorted_F:
+        state = opt.evolve(gen, LARGE_GENS, callback=tick)
     launches = launch_counts(dominance_matrix=1 + LARGE_GENS)[
         "dominance_matrix"]
     assert state.genomes.shape == (LARGE_POP, trace.n_requests)
@@ -322,6 +388,67 @@ def phase_large_population():
           "gen_s": per_gen, "median_gen_s": statistics.median(per_gen),
           "front0": int((state.rank == 0).sum())})
     return launches
+
+
+def counts_bound(P, M):
+    """Least time for the counts: F read once (P*M*4 bytes), the counts
+    written once (P*4), 2*P*P*M f32 comparisons; and which bounds it."""
+    t_bytes = (P * M * 4 + P * 4) / HBM_BYTES_PER_S
+    t_ops = 2 * P * P * M / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_counts_kernel(sorted_F):
+    """The dominator-counts kernel exactly equal to its plain version and to
+    the column sums of the matrix kernel: synthetic cases, then every
+    objective matrix the quickstart's and the pop-4096 run's sorts saw."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator().manual_seed(5)
+
+    def check(F):
+        got = ops.dominance_counts(F)
+        torch.cuda.synchronize()
+        want = ref.dominance_counts(F)
+        cols = ops.dominance_matrix(F).sum(dim=0, dtype=torch.int32)
+        assert got.dtype == torch.int32 and got.shape == (F.shape[0],)
+        err = int((got - want).abs().max())
+        assert torch.equal(got, want), ("counts != plain", tuple(F.shape),
+                                        F.dtype, err)
+        assert torch.equal(got, cols), ("counts != matrix columns",
+                                        tuple(F.shape), F.dtype)
+        return err
+
+    n = max_err = 0
+    for P in COUNT_CASES_P:
+        for M in COUNT_CASES_M:
+            for dtype in (torch.float32, torch.bfloat16, torch.float16):
+                max_err = max(max_err, check(_dominance_input(P, M, dtype,
+                                                              gen)))
+                n += 1
+    shapes = Counter()
+    for F in sorted_F.Fs:
+        max_err = max(max_err, check(F))
+        shapes[str(tuple(F.shape))] += 1
+    assert shapes, "the main path sorted no population"
+    timing = {}
+    for P in (200, 4096):
+        F = torch.rand((P, 3), device="cuda")
+        bound, by = counts_bound(P, 3)
+        timing[str(P)] = dict(
+            ms=time_ms(ops.dominance_counts, F),
+            plain_ms=time_ms(ref.dominance_counts, F),
+            device_ms=device_kernel_ms(ops.dominance_counts, F,
+                                       name="dominance_counts_kernel"),
+            bound_ms=bound, bound_by=by, library_ms=None)
+    row = {"phase": "counts_kernel", "cases": n,
+           "main_path_matrices": len(sorted_F.Fs),
+           "main_path_shapes": dict(shapes), "exact": True,
+           "max_abs_err": max_err, "timing": timing,
+           "library": "none: no single PyTorch call counts dominators"}
+    emit(row)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -522,9 +649,98 @@ def flash_timing(S, causal=True, B=1, Hq=16, Hkv=8, D=128):
     return out
 
 
+def _ext_case(B, Hq, Hkv, D, S_pre, Sq, dt, gen):
+    """q, prefix k/v, suffix k/v in the model's layout: (B, S, H, D)
+    tensors viewed as (B, H, S, D)."""
+    import torch
+    return [torch.randn((B, S, h, D), generator=gen).to(dt).cuda()
+            .transpose(1, 2)
+            for S, h in ((Sq, Hq), (S_pre, Hkv), (S_pre, Hkv), (Sq, Hkv),
+                         (Sq, Hkv))]
+
+
+def check_flash_extend():
+    """The prefix-extend variant against its plain version; in the
+    bucketed mode, +-999 and NaN in the prefix rows past prefix_len leave
+    the output bit for bit unchanged."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator().manual_seed(6)
+    n = 0
+    errs = {k: 0.0 for k in TOL}
+    for dname, dt in _dtypes().items():
+        for Hq, Hkv, D in DEC_HEADS:
+            for S_pre, Sq, plen in EXT_CASES:
+                B = 2 if Hq == 16 and S_pre < 1000 else 1
+                q, kp, vp, k, v = _ext_case(B, Hq, Hkv, D, S_pre, Sq, dt, gen)
+                case = (dname, Hq, Hkv, D, S_pre, Sq, plen)
+                got = ops.flash_attention_extend(q, kp, vp, k, v, plen)
+                torch.cuda.synchronize()
+                want = ref.mha_prefill_extend(q, kp, vp, k, v, plen)
+                errs[dname] = max(errs[dname], _check_close(
+                    "flash_extend", got, want, dname, case))
+                n += 1
+                if plen is None:
+                    continue
+                for junk in (999.0, float("nan")):
+                    kp2, vp2 = kp.clone(), vp.clone()
+                    kp2[:, :, plen:] = junk
+                    vp2[:, :, plen:] = -junk
+                    dirty = ops.flash_attention_extend(q, kp2, vp2, k, v,
+                                                       plen)
+                    assert torch.equal(dirty, got), ("garbage", junk, case)
+                    n += 1
+    return n, errs
+
+
+def extend_timing(S_pre, Sq, plen, B=1, Hq=16, Hkv=8, D=128):
+    """The flash kernel's prefix-extend variant at a session admission's
+    shape (bf16, the model's layout read in place) beside its plain
+    version, SDPA over the concatenated K/V with the boolean mask, and its
+    bound (the prefix rows it must read: plen, not S_pre)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator().manual_seed(7)
+    q, kp, vp, k, v = _ext_case(B, Hq, Hkv, D, S_pre, Sq, torch.bfloat16,
+                                gen)
+    kf, vf = torch.cat([kp, k], dim=2), torch.cat([vp, v], dim=2)
+    col = torch.arange(S_pre + Sq, device="cuda")[None, :]
+    row = torch.arange(Sq, device="cuda")[:, None]
+    mask = torch.where(col < S_pre, col < plen, (col - S_pre) <= row)
+
+    def library():
+        return F.scaled_dot_product_attention(q, kf, vf, attn_mask=mask,
+                                              enable_gqa=True)
+
+    pairs = Sq * plen + Sq * (Sq + 1) // 2
+    nbytes = 2 * (2 * B * Hq * Sq * D + 2 * B * Hkv * (plen + Sq) * D)
+    ops_n = 4 * B * Hq * pairs * D
+    out = dict(shape={"B": B, "Hq": Hq, "Hkv": Hkv, "D": D, "S_pre": S_pre,
+                      "Sq": Sq, "prefix_len": plen, "dtype": "bfloat16"},
+               ms=time_ms(ops.flash_attention_extend, q, kp, vp, k, v, plen),
+               device_ms=device_kernel_ms(ops.flash_attention_extend, q, kp,
+                                          vp, k, v, plen,
+                                          name="flash_attention_kernel"),
+               plain_ms=time_ms(ref.mha_prefill_extend, q, kp, vp, k, v,
+                                plen),
+               bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                  ops_n / BF16_OPS_PER_S),
+               bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= ops_n / BF16_OPS_PER_S else "operations"))
+    try:
+        torch.testing.assert_close(library(), ops.flash_attention_extend(
+            q, kp, vp, k, v, plen), atol=2e-2, rtol=2e-2)
+        out["library_ms"] = time_ms(library)
+    except (TypeError, RuntimeError) as e:
+        out["library_ms"], out["library_error"] = None, repr(e)[:200]
+    return out
+
+
 def phase_attention_kernels():
     n_dec, dec_err = check_decode_kernel()
     n_fa, fa_err = check_flash_kernel()
+    n_ext, ext_err = check_flash_extend()
     lens = _serving_kv_lens()
     row = {"phase": "attention_kernels",
            "decode": {"cases": n_dec, "max_abs_err": dec_err,
@@ -532,7 +748,8 @@ def phase_attention_kernels():
                       "full_cache": decode_timing([512] * 8)},
            "flash": {"cases": n_fa, "max_abs_err": fa_err,
                      "serving": flash_timing(128),
-                     "s512": flash_timing(512)}}
+                     "s512": flash_timing(512)},
+           "flash_extend": {"cases": n_ext, "max_abs_err": ext_err}}
     emit(row)
     return row
 
@@ -641,19 +858,7 @@ def phase_serve_check(run, model):
     from repro_torch import serve
     from repro_torch.models import lm
     cfg = run.cfg
-    worst = 0.0
-    n_tok = 0
-    for rid, r in run.results.items():
-        toks = r["tokens"]
-        seq = list(run.prompts[rid]) + toks[:-1]
-        L = len(run.prompts[rid])
-        logits = lm.train_logits(model, cfg, torch.tensor(
-            [seq], device="cuda"))[0, L - 1:]
-        for j, t in enumerate(toks):
-            ok, rel = _near_tie_ok(logits[j], t)
-            assert ok, (rid, j, rel)
-            worst = max(worst, rel)
-            n_tok += 1
+    n_tok, worst = _teacher_forced(model, cfg, run)
 
     # the card against the CPU: full width, 2 layers, the same weights
     cfg2 = dataclasses.replace(cfg, n_layers=CHECK_LAYERS)
@@ -689,6 +894,319 @@ def phase_serve_check(run, model):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the paged decode kernel
+# ---------------------------------------------------------------------------
+
+def _paged_case(B, Hq, Hkv, nb, bs, mb, D, dt, gen, store_layout):
+    """q, pools (the TPU layout (n_blocks, Hkv, bs, D), or the serving
+    store's (n_blocks, bs, Hkv, D) permuted to it in place), a block table
+    of distinct ids per row with pad entries past kv_len (-1 on odd rows,
+    other ids on even ones) and a negative id in a live entry, kv_len with a
+    0 and a mid-block end."""
+    import torch
+    q = torch.randn((B, Hq, D), generator=gen).to(dt).cuda()
+    if store_layout:
+        k, v = (torch.randn((nb, bs, Hkv, D), generator=gen).to(dt).cuda()
+                .permute(0, 2, 1, 3) for _ in range(2))
+    else:
+        k, v = (torch.randn((nb, Hkv, bs, D), generator=gen).to(dt).cuda()
+                for _ in range(2))
+    bt = torch.stack([torch.randperm(nb, generator=gen)[:mb]
+                      for _ in range(B)]).to(torch.int32)
+    lens = torch.randint(1, mb * bs + 1, (B,), generator=gen)
+    if B > 1:
+        lens[0] = 0
+    lens[-1] = bs + bs // 2
+    for b in range(B):
+        live = -(-int(lens[b]) // bs)
+        if b % 2:
+            bt[b, live:] = -1
+        if b == 1 and live > 1:
+            bt[b, 0] = -3                   # reads block 0
+    return q, k, v, bt.cuda(), lens.to(torch.int32).cuda()
+
+
+def _gather_rows(pool, bt):
+    """(n_blocks, Hkv, bs, D) pool -> (B, Hkv, max_blocks * bs, D) cache."""
+    B, mb = bt.shape
+    g = pool[bt.long().clamp(min=0)]            # (B, mb, Hkv, bs, D)
+    return g.permute(0, 2, 1, 3, 4).reshape(B, pool.shape[1],
+                                            mb * pool.shape[2], -1)
+
+
+def phase_paged_kernel():
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator().manual_seed(8)
+    n = 0
+    errs = {k: 0.0 for k in TOL}
+    vs_decode = 0.0
+    for dname, dt in _dtypes().items():
+        for B, Hq, Hkv, nb, bs, mb, D in PAGED_CASES:
+            for layout in (False, True):
+                q, k, v, bt, lens = _paged_case(B, Hq, Hkv, nb, bs, mb, D,
+                                                dt, gen, layout)
+                case = (dname, B, Hq, Hkv, nb, bs, mb, D, layout)
+                got = ops.paged_gqa_decode_attention(q, k, v, bt, lens)
+                torch.cuda.synchronize()
+                want = ref.paged_gqa_decode(q, k, v, bt, lens)
+                errs[dname] = max(errs[dname], _check_close(
+                    "paged", got, want, dname, case))
+                dec = ops.gqa_decode_attention(q, _gather_rows(k, bt),
+                                               _gather_rows(v, bt), lens)
+                _check_close("paged vs decode", got, dec, dname, case)
+                vs_decode = max(vs_decode, _err(got, dec))
+                for b in range(B):
+                    if int(lens[b]) <= 0:
+                        assert not got[b].any(), ("kv_len 0", case)
+                # NaN in every block no live position references
+                live = set()
+                for b in range(B):
+                    for j in range(-(-int(lens[b]) // bs)):
+                        live.add(max(int(bt[b, j]), 0))
+                dead = [x for x in range(nb) if x not in live]
+                k2, v2 = k.clone(), v.clone()
+                k2[dead] = float("nan")
+                v2[dead] = float("nan")
+                dirty = ops.paged_gqa_decode_attention(q, k2, v2, bt, lens)
+                assert torch.equal(dirty, got), ("unreferenced NaN", case)
+                n += 2
+    row = {"phase": "paged_kernel", "cases": n, "max_abs_err": errs,
+           "max_abs_diff_vs_decode_kernel": vs_decode}
+    emit(row)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# the session serving path with prefix reuse
+# ---------------------------------------------------------------------------
+
+def _teacher_forced(model, cfg, run):
+    """Every served token of ``run`` a teacher-forced maximum of
+    ``train_logits`` on the card; returns (tokens checked, worst gap)."""
+    import torch
+    from repro_torch.models import lm
+    worst, n = 0.0, 0
+    for rid, r in run.results.items():
+        toks = r["tokens"]
+        L = len(run.prompts[rid])
+        seq = list(run.prompts[rid]) + toks[:-1]
+        logits = lm.train_logits(model, cfg, torch.tensor(
+            [seq], device="cuda"))[0, L - 1:]
+        for j, t in enumerate(toks):
+            ok, rel = _near_tie_ok(logits[j], t)
+            assert ok, (rid, j, rel)
+            worst = max(worst, rel)
+            n += 1
+        del logits
+    return n, worst
+
+
+def _median_extend_shape(run):
+    """(S_pre buffer, padded suffix, prefix_len) of the cached run's median
+    admission by prefix length, as the engine ran it."""
+    e = run.engine.ecfg
+    hits = sorted((r["cached_tokens"], len(run.prompts[rid]))
+                  for rid, r in run.results.items() if r["cached_tokens"])
+    plen, L = hits[len(hits) // 2]
+    Sn_pad = min(-(-(L - plen) // e.prefill_bucket) * e.prefill_bucket,
+                 e.max_seq)
+    if plen + Sn_pad <= e.max_seq:          # the bucketed admission
+        return (e.max_seq // e.block_size) * e.block_size, Sn_pad, plen
+    return plen, L - plen, plen
+
+
+def phase_serve_sessions(model, cfg):
+    import torch
+    from repro_torch import serve
+    from repro_torch.serving import LLMEngine
+    tr = serve.build_session_trace(serve.SessionConfig(), seed=0)
+    # warm-up at the session engine's shapes (the first 6 requests)
+    warm = LLMEngine(cfg, model, serve.SESSION_ENGINE, device="cuda")
+    for rid, req in enumerate(tr.requests[:6]):
+        warm.submit(rid, serve.tokenize(req, cfg.vocab), max_new_tokens=4)
+    warm.run_to_completion(chunk=serve.CHUNK)
+    del warm
+
+    # with and without reuse in turns (on, off, off, on): the host's speed
+    # drifts within a call, so each mode's mean spans the same window
+    runs, out = {}, {"prefix_cache": [], "no_prefix_cache": []}
+    for cache in (True, False, False, True):
+        zero_launches()
+        run = serve.run_serve(cfg=cfg, model=model, device="cuda",
+                              sessions=True, prefix_cache=cache)
+        e = run.engine
+        launches = launch_counts(
+            gqa_decode_attention=cfg.n_layers * e._steps,
+            flash_attention=cfg.n_layers * e.admissions)
+        assert sorted(run.results) == list(range(tr.n_requests))
+        assert e.admissions == tr.n_requests
+        for rid, r in run.results.items():
+            assert len(r["tokens"]) == run.budgets[rid], rid
+            assert all(0 <= t < cfg.vocab for t in r["tokens"]), rid
+        tokens = sum(len(r["tokens"]) for r in run.results.values())
+        runs.setdefault(cache, run)
+        out["prefix_cache" if cache else "no_prefix_cache"].append({
+            "launches": launches, "decode_iterations": e._steps,
+            "admissions": e.admissions, "tokens": tokens,
+            "wall_s": run.wall_s, "tokens_per_s": tokens / run.wall_s,
+            "admission_ms_mean": 1e3 * e.prefill_seconds / e.admissions,
+            "decode_iteration_ms_mean": 1e3 * e.decode_seconds / e._steps,
+            "host_syncs": e.host_syncs, "qoe": e.qoe_summary(),
+            "cache_stats": e.cache_stats()})
+    means = {name: {k: statistics.mean(r[k] for r in rs)
+                    for k in ("tokens_per_s", "admission_ms_mean",
+                              "decode_iteration_ms_mean")}
+             for name, rs in out.items()}
+    cached, plain = runs[True], runs[False]
+    st = cached.engine.cache_stats()
+    assert st["lookups"] == tr.n_requests and st["evictions"] == 0
+    assert st["prefill_tokens_run"] < st["prefill_tokens_total"]
+    pool = cached.engine.kv.cache.pool
+    leaked = int((pool.ref > 0).sum())
+    assert leaked == 0, f"{leaked} blocks still pinned"
+    cached.engine.kv.cache.check_invariants()
+    print("\n".join(serve.format_run(cached)[:3] + ["  ..."]
+                    + serve.format_run(cached)[-2:]), flush=True)
+
+    checked = {}
+    for name, run in (("prefix_cache", cached), ("no_prefix_cache", plain)):
+        n_tok, worst = _teacher_forced(model, cfg, run)
+        checked[name] = {"teacher_forced_tokens": n_tok,
+                         "worst_gap_over_max_logit": worst}
+    # where the two runs part, the uncached run's row is a near-tie
+    from repro_torch.models import lm
+    parts = []
+    differing = 0
+    for rid, want in plain.results.items():
+        a, b = cached.results[rid]["tokens"], want["tokens"]
+        differing += sum(x != y for x, y in zip(a, b))
+        if a == b:
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        seq = list(plain.prompts[rid]) + b[:j]
+        row = lm.train_logits(model, cfg, torch.tensor(
+            [seq], device="cuda"))[0, -1]
+        top2 = row.topk(2).values
+        gap = float(top2[0] - top2[1]) / float(row.abs().max())
+        parts.append({"request": rid, "position": j, "top2_gap": gap})
+        assert gap < 2e-2, ("cached and uncached runs part away from a "
+                            "near-tie", rid, j, gap)
+
+    # one decode iteration with every slot busy, profiled
+    prof_eng = LLMEngine(cfg, model, serve.SESSION_ENGINE, device="cuda")
+    for rid, req in enumerate(tr.requests[:serve.SESSION_ENGINE.max_slots]):
+        prof_eng.submit(rid, serve.tokenize(req, cfg.vocab),
+                        max_new_tokens=64)
+    prof = _profile_step(prof_eng)
+    del prof_eng
+    S_pre, Sq, plen = _median_extend_shape(cached)
+    row = {"phase": "serve_sessions", "model": cfg.name,
+           "engine": dataclasses.asdict(serve.SESSION_ENGINE),
+           "chunk": serve.CHUNK, "requests": tr.n_requests,
+           "prompt_tokens": st["prefill_tokens_total"], "runs": out,
+           "means": means,
+           "prefill_tokens_run_over_total": (st["prefill_tokens_run"]
+                                             / st["prefill_tokens_total"]),
+           "leaked_blocks": leaked, "checks": checked,
+           "cached_vs_uncached": {"diverged_requests": len(parts),
+                                  "differing_tokens": differing,
+                                  "divergences": parts},
+           "decode_iteration_profile": prof,
+           "flash_extend_at_median_admission": extend_timing(S_pre, Sq,
+                                                             plen)}
+    emit(row)
+    return cached, row
+
+
+def paged_bound(lens, B, mb, Hq=16, Hkv=8, D=128):
+    """Least time of one paged decode call (bf16): q read and out written
+    once, the K/V rows up to each kv_len read once, the table and kv_len
+    read once; 4 * sum(kv_len) * Hq * D operations."""
+    n_read = sum(lens)
+    nbytes = 2 * (2 * B * Hq * D + 2 * n_read * Hkv * D) + 4 * B * mb + 4 * B
+    ops_n = 4 * n_read * Hq * D
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops_n / BF16_OPS_PER_S
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def phase_paged_on_pools(run, cfg):
+    """The paged kernel over the pools the session run filled: block tables
+    from each served prompt's cached blocks (``index.match``), 8 rows a
+    batch, the last row ending mid-block; on every layer against the
+    decode kernel on the gathered cache and against the plain version."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    store = run.engine.kv
+    bs = store.block_size
+    tables = [store.cache.index.match(run.prompts[rid])
+              for rid in sorted(run.prompts)]
+    tables = [t for t in tables if t]
+    gen = torch.Generator().manual_seed(9)
+    B = run.engine.ecfg.max_slots
+    n = 0
+    err = vs_decode = 0.0
+    timing = None
+    for i0 in range(0, len(tables), B):
+        rows = tables[i0:i0 + B]
+        mb = max(len(t) for t in rows)
+        bt = torch.full((len(rows), mb), -1, dtype=torch.int32)
+        for b, t in enumerate(rows):
+            bt[b, :len(t)] = torch.tensor(t, dtype=torch.int32)
+        lens = [len(t) * bs for t in rows]
+        lens[-1] -= bs // 2
+        bt, kl = bt.cuda(), torch.tensor(lens, dtype=torch.int32,
+                                         device="cuda")
+        gk, gv = (torch.stack([x[:, 0] for x in pair], dim=1)
+                  for pair in zip(*(store.gather(t, pad_to=mb)
+                                    for t in rows)))   # (L, B, S, H, D)
+        for li in range(cfg.n_layers):
+            q = torch.randn((len(rows), cfg.n_heads, cfg.hd),
+                            generator=gen).to(store.k.dtype).cuda()
+            kp = store.k[li].permute(0, 2, 1, 3)
+            vp = store.v[li].permute(0, 2, 1, 3)
+            got = ops.paged_gqa_decode_attention(q, kp, vp, bt, kl)
+            torch.cuda.synchronize()
+            dec = ops.gqa_decode_attention(q, gk[li].permute(0, 2, 1, 3),
+                                           gv[li].permute(0, 2, 1, 3), kl)
+            plain = ref.paged_gqa_decode(q, kp, vp, bt, kl)
+            case = ("pools", i0, li)
+            err = max(err, _check_close("paged on pools", got, plain,
+                                        "bfloat16", case))
+            _check_close("paged vs decode on pools", got, dec, "bfloat16",
+                         case)
+            vs_decode = max(vs_decode, _err(got, dec))
+            n += 1
+            if timing is None and len(rows) == B:
+                bound, by = paged_bound(lens, B, mb, cfg.n_heads,
+                                        cfg.n_kv_heads, cfg.hd)
+                timing = dict(
+                    shape={"B": B, "Hq": cfg.n_heads, "Hkv": cfg.n_kv_heads,
+                           "D": cfg.hd, "block_size": bs,
+                           "n_blocks": store.k.shape[1], "max_blocks": mb,
+                           "kv_len": lens, "dtype": "bfloat16",
+                           "layout": "store (n_blocks, bs, Hkv, D)"},
+                    ms=time_ms(ops.paged_gqa_decode_attention, q, kp, vp, bt,
+                               kl),
+                    device_ms=device_kernel_ms(
+                        ops.paged_gqa_decode_attention, q, kp, vp, bt, kl,
+                        name="paged_decode_kernel"),
+                    plain_ms=time_ms(ref.paged_gqa_decode, q, kp, vp, bt, kl),
+                    decode_kernel_on_gathered_ms=time_ms(
+                        ops.gqa_decode_attention, q,
+                        gk[li].permute(0, 2, 1, 3),
+                        gv[li].permute(0, 2, 1, 3), kl),
+                    bound_ms=bound, bound_by=by, library_ms=None)
+    assert n and timing is not None
+    row = {"phase": "paged_on_pools", "prompts": len(tables),
+           "calls": n, "layers": cfg.n_layers, "max_abs_err": err,
+           "max_abs_diff_vs_decode_kernel": vs_decode, "timing": timing,
+           "library": "none: no PyTorch call reads a block table"}
+    emit(row)
+    return row
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -699,38 +1217,36 @@ def main():
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
     phase_s = {}
-    t = time.perf_counter()
-    smi = phase_card()
-    phase_s["card"] = time.perf_counter() - t
-    t = time.perf_counter()
-    kern = phase_kernels()
-    phase_s["kernels"] = time.perf_counter() - t
-    t = time.perf_counter()
-    res, launches = phase_main_path()
-    phase_s["main_path"] = time.perf_counter() - t
-    t = time.perf_counter()
-    phase_profile(res.state.genomes)
-    phase_s["profile"] = time.perf_counter() - t
-    t = time.perf_counter()
-    phase_device_vs_cpu(res.genome)
-    phase_s["device_vs_cpu"] = time.perf_counter() - t
-    t = time.perf_counter()
-    large = phase_large_population()
-    phase_s["large_population"] = time.perf_counter() - t
-    t = time.perf_counter()
-    attn = phase_attention_kernels()
-    phase_s["attention_kernels"] = time.perf_counter() - t
-    t = time.perf_counter()
-    run, model, served = phase_serve()
-    phase_s["serve"] = time.perf_counter() - t
-    t = time.perf_counter()
-    phase_serve_check(run, model)
-    phase_s["serve_check"] = time.perf_counter() - t
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    sorted_F = SortedObjectives()
+    smi = timed("card", phase_card)
+    kern = timed("kernels", phase_kernels)
+    res, launches = timed("main_path", phase_main_path, sorted_F)
+    timed("profile", phase_profile, res.state.genomes)
+    timed("device_vs_cpu", phase_device_vs_cpu, res.genome)
+    large = timed("large_population", phase_large_population, sorted_F)
+    counts = timed("counts_kernel", phase_counts_kernel, sorted_F)
+    attn = timed("attention_kernels", phase_attention_kernels)
+    paged = timed("paged_kernel", phase_paged_kernel)
+    run, model, served = timed("serve", phase_serve)
+    timed("serve_check", phase_serve_check, run, model)
+    sess_run, sess = timed("serve_sessions", phase_serve_sessions, model,
+                           run.cfg)
+    pools = timed("paged_on_pools", phase_paged_on_pools, sess_run, run.cfg)
     emit({"phase": "times", "card": smi, "seconds": phase_s,
           "total_s": sum(phase_s.values())})
 
     t200, t4096 = kern["timing"]["200"], kern["timing"]["4096"]
+    c200, c4096 = counts["timing"]["200"], counts["timing"]["4096"]
     dec, fa = attn["decode"], attn["flash"]
+    ext = sess["flash_extend_at_median_admission"]
+    sess_launches = sess["runs"]["prefix_cache"][0]["launches"]
     timing_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                    "device_ms", "shape")
     emit({"kernels": [{
@@ -744,10 +1260,23 @@ def main():
         "bound_ms": t200["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "device_ms": t200["device_ms"],
         "p4096": {**t4096, "bound_by": "bytes"}}, {
+        "name": "dominance_counts", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dominance.cu",
+        "replaces": "src/repro/kernels/dominance.py:90",
+        # no path runs it: launch_counts held it at 0 in phases 3, 5, 7, 11
+        "launches": sess_launches["dominance_counts"],
+        "on_main_path": False,
+        "held_on_main_path_matrices": counts["main_path_matrices"],
+        "cases": counts["cases"], "exact": counts["exact"],
+        "max_abs_err": counts["max_abs_err"],
+        **{k: c200[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "device_ms")},
+        "library": counts["library"], "p4096": c4096}, {
         "name": "gqa_decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:79",
         "launches": served["launches"]["gqa_decode_attention"],
+        "launches_serve_sessions": sess_launches["gqa_decode_attention"],
         "cases": dec["cases"],
         "max_abs_err": max(dec["max_abs_err"].values()),
         "max_abs_err_by_dtype": dec["max_abs_err"],
@@ -757,11 +1286,31 @@ def main():
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:89",
         "launches": served["launches"]["flash_attention"],
-        "cases": fa["cases"],
-        "max_abs_err": max(fa["max_abs_err"].values()),
+        "launches_serve_sessions": sess_launches["flash_attention"],
+        "cases": fa["cases"] + attn["flash_extend"]["cases"],
+        "max_abs_err": max(list(fa["max_abs_err"].values())
+                           + list(attn["flash_extend"]["max_abs_err"]
+                                  .values())),
         "max_abs_err_by_dtype": fa["max_abs_err"],
         **{k: fa["serving"].get(k) for k in timing_keys},
-        "s512": fa["s512"]}]})
+        "s512": fa["s512"],
+        "extend": {"cases": attn["flash_extend"]["cases"],
+                   "max_abs_err_by_dtype":
+                       attn["flash_extend"]["max_abs_err"],
+                   **ext}}, {
+        "name": "paged_gqa_decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:73",
+        "launches": sess_launches["paged_gqa_decode_attention"],
+        "on_main_path": False,
+        "held_on_session_pools": {"calls": pools["calls"],
+                                  "max_abs_err": pools["max_abs_err"]},
+        "cases": paged["cases"],
+        "max_abs_err": max(list(paged["max_abs_err"].values())
+                           + [pools["max_abs_err"]]),
+        "max_abs_err_by_dtype": paged["max_abs_err"],
+        **{k: pools["timing"].get(k) for k in timing_keys},
+        "library": pools["library"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

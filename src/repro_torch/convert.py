@@ -7,12 +7,15 @@ arrays and the optimizer state. Each converter takes ``{field: np.ndarray}``
 the fields the port has, and returns the port's tensors on ``device`` with
 their dtypes. For the serving model, ``lm_params_from_numpy`` and
 ``cache_from_numpy`` take the reference's ``lm.init`` pytree and decode
-``Cache`` with numpy leaves (``jax.tree.map(np.asarray, ...)``). Numpy in,
-tensors out; nothing of ``repro`` is imported.
+``Cache`` with numpy leaves (``jax.tree.map(np.asarray, ...)``), and
+``kv_store_from_numpy`` a paged KV store's pools and its logical cache.
+Numpy in, tensors out; nothing of ``repro`` is imported.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+import dataclasses
+from collections import OrderedDict
+from typing import Any, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +26,7 @@ from .core.fitness import EvalTables
 from .core.nsga2 import NSGA2State
 from .models import lm
 from .models.config import ModelConfig
+from .serving.kvcache import CacheStats, PagedKVCache, PagedKVStore, _TrieNode
 
 
 def tables_from_numpy(d: Mapping[str, np.ndarray],
@@ -107,3 +111,46 @@ def cache_from_numpy(cache_np, device: Device = None) -> lm.Cache:
                     v=tensor_from_numpy(v, device),
                     kv_len=tensor_from_numpy(cache_np.kv_len, device)
                     .to(torch.int32))
+
+
+def paged_cache_from(ref_cache) -> PagedKVCache:
+    """A copy of a reference ``PagedKVCache`` (read through its attributes:
+    ``pool.free/ref/lru``, ``index.root``, ``stats``): the same free list,
+    refcounts, LRU order, radix tree (children in insertion order) and
+    counters."""
+    c = PagedKVCache(ref_cache.pool.n_blocks, ref_cache.block_size)
+    c.pool.free = [int(b) for b in ref_cache.pool.free]
+    c.pool.ref = np.array(ref_cache.pool.ref, np.int32)
+    c.pool.lru = OrderedDict((int(b), None) for b in ref_cache.pool.lru)
+
+    def copy(src, dst) -> None:
+        for key, child in src.children.items():
+            node = _TrieNode(parent=dst, key=tuple(key), block=int(child.block))
+            dst.children[node.key] = node
+            c.index._by_block[node.block] = node
+            copy(child, node)
+
+    copy(ref_cache.index.root, c.index.root)
+    c.stats = CacheStats(**dataclasses.asdict(ref_cache.stats))
+    return c
+
+
+def kv_store_from_numpy(pools_np: Sequence[Tuple[np.ndarray, np.ndarray]],
+                        cfg: ModelConfig, device: Device = None,
+                        ref_cache=None) -> PagedKVStore:
+    """The port's ``PagedKVStore`` from a reference store's pools — one
+    ``(k, v)`` pair for the dense pattern, each ``(n_layers, n_blocks,
+    block_size, Hkv, D)`` (``[tuple(map(np.asarray, p)) for p in
+    store.pools]``) — with values and dtype kept, and its logical cache
+    (``store.cache``) copied by :func:`paged_cache_from` when given."""
+    (k, v), = pools_np
+    store = PagedKVStore(cfg, k.shape[1], k.shape[2], device)
+    for dst, src in ((store.k, k), (store.v, v)):
+        t = tensor_from_numpy(src, store.device)
+        if t.shape != dst.shape or t.dtype != dst.dtype:
+            raise ValueError(f"pool {tuple(t.shape)} {t.dtype}, want "
+                             f"{tuple(dst.shape)} {dst.dtype}")
+        dst.copy_(t)
+    if ref_cache is not None:
+        store.cache = paged_cache_from(ref_cache)
+    return store

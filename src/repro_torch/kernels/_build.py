@@ -33,9 +33,11 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 # C symbol -> argument types (every function returns a cudaError_t as int)
 SYMBOLS = {
+    "repro_dominance_counts": [_PTR, _PTR, _INT, _INT, _PTR],
     "repro_dominance_matrix": [_PTR, _PTR, _INT, _INT, _PTR],
-    "repro_flash_attention": [_PTR] * 4 + [_INT] * 7 + [_I64] * 12 + [_PTR],
+    "repro_flash_attention": [_PTR] * 6 + [_INT] * 8 + [_I64] * 18 + [_PTR],
     "repro_gqa_decode": [_PTR] * 5 + [_INT] * 6 + [_I64] * 10 + [_PTR],
+    "repro_paged_gqa_decode": [_PTR] * 6 + [_INT] * 7 + [_I64] * 11 + [_PTR],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -96,41 +96,11 @@ gqa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // merge the warps' partial states through shared memory (the key
     // chunks' space is free once every warp is done)
-    __syncthreads();
-    float* ms = ks;                     // kWarps x R
-    float* ls = ms + kWarps * R;        // kWarps x R
-    float* as = ls + kWarps * R;        // kWarps x R x D
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (lane == 0) {
-        ms[warp * R + r] = st.m[r];
-        ls[warp * R + r] = st.l[r];
-      }
-#pragma unroll
-      for (int i = 0; i < kMaxNI; ++i) {
-        const int d = lane + 32 * i;
-        if (d < D) as[(warp * R + r) * D + d] = st.acc[r][i];
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < nr * D; e += kWarps * 32) {
-      const int r = e / D, d = e - (e / D) * D;
-      float m = -INFINITY;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) m = fmaxf(m, ms[w * R + r]);
-      float l = 0.f, a = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float mw = ms[w * R + r];
-        if (mw != -INFINITY) {
-          const float c = expf(mw - m);
-          l += ls[w * R + r] * c;
-          a += as[(w * R + r) * D + d] * c;
-        }
-      }
-      o[b * ost.b + (hk * G + g0 + r) * ost.h + d] =
-          from_f32<T>(a / fmaxf(l, 1e-30f));
-    }
+    T* ob = o + b * ost.b + (hk * G + g0) * ost.h;
+    merge_warps<kWarps, R>(st, ks, nr, D, warp, lane, tid,
+                           [&](int r, int d, float x) {
+                             ob[r * ost.h + d] = from_f32<T>(x);
+                           });
   }
 }
 

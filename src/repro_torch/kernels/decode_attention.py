@@ -26,8 +26,11 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def check_attention_inputs(name: str, q, k, v, q_dims: int) -> None:
-    """Shape, type, device and layout checks shared by both wrappers."""
+def check_attention_inputs(name: str, q, k, v, q_dims: int,
+                           batched: bool = True) -> None:
+    """Shape, type, device and layout checks shared by the attention
+    wrappers; ``batched=False`` for a pool, whose first dim is its
+    blocks."""
     ts = (q, k, v)
     if any(t.device.type != "cuda" for t in ts):
         raise ValueError(f"{name} needs CUDA tensors, got "
@@ -42,7 +45,8 @@ def check_attention_inputs(name: str, q, k, v, q_dims: int) -> None:
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     B, Hq, D = q.shape[0], q.shape[1], q.shape[-1]
     Hkv = k.shape[1]
-    if k.shape[0] != B or k.shape[-1] != D or Hkv < 1 or Hq % Hkv:
+    if ((batched and k.shape[0] != B) or k.shape[-1] != D or Hkv < 1
+            or Hq % Hkv):
         raise ValueError(f"{name}: q {tuple(q.shape)} does not match k "
                          f"{tuple(k.shape)} (need Hq % Hkv == 0)")
     if not 1 <= D <= MAX_HEAD_DIM:

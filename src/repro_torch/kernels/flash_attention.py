@@ -3,14 +3,17 @@
 The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
 ``flash_attention`` of ``src/repro/kernels/flash_attention.py``; its source
 note says what bounds it and how the design answers. Unlike the TPU kernel
-it masks its own ragged tiles, so any sequence length runs as it is. The
-wrapper checks its inputs, allocates the output, launches on PyTorch's
-current stream and counts the launch. It takes CUDA tensors only: the
+it masks its own ragged tiles, so any sequence length runs as it is. Its
+prefix-extend variant (suffix queries over a cached prefix, then causally
+over the suffix) is the same kernel and the same launch counter. The
+wrappers check their inputs, allocate the output, launch on PyTorch's
+current stream and count the launch. It takes CUDA tensors only: the
 dispatch by device lives in ``kernels.ops``.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -19,6 +22,30 @@ from .decode_attention import DTYPES, _ptr, check_attention_inputs
 
 #: kernel launches since the last reset (a run sets it to 0, then reads it)
 LAUNCHES = 0
+
+
+def _launch(q, k, v, k_pre, v_pre, prefix_len: int,
+            causal: bool) -> torch.Tensor:
+    """One launch; prefix_len = 0 leaves k_pre, v_pre unread."""
+    global LAUNCHES
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    out = torch.empty((B, S, Hq, D), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_flash_attention(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(k_pre), _ptr(v_pre), _ptr(out),
+            B, Hq, Hkv, S, prefix_len, D, int(causal), DTYPES[q.dtype],
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *k_pre.stride()[:3], *v_pre.stride()[:3], *out.stride()[:3],
+            ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"flash attention kernel launch failed: "
+                           f"cudaError {err}")
+    LAUNCHES += 1
+    return out
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -31,24 +58,33 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     model's (B, S, H, D) projections transposed are read in place). The
     result is a (B, Hq, S, D) view of a (B, S, Hq, D) buffer, so the model
     transposes it back for free."""
-    global LAUNCHES
     check_attention_inputs("flash_attention_cuda", q, k, v, 4)
-    B, Hq, S, D = q.shape
-    Hkv = k.shape[1]
-    if k.shape[2] != S:
-        raise ValueError(f"q has {S} positions, k and v {k.shape[2]}")
-    out = torch.empty((B, S, Hq, D), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
-    lib = _build.load()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.repro_flash_attention(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(out), B, Hq, Hkv, S, D,
-            int(causal), DTYPES[q.dtype],
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: "
-                           f"cudaError {err}")
-    LAUNCHES += 1
-    return out
+    if k.shape[2] != q.shape[2]:
+        raise ValueError(f"q has {q.shape[2]} positions, k and v "
+                         f"{k.shape[2]}")
+    return _launch(q, k, v, k, v, 0, causal)
+
+
+def flash_attention_extend_cuda(q: torch.Tensor, k_pre: torch.Tensor,
+                                v_pre: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor,
+                                prefix_len: Optional[int] = None
+                                ) -> torch.Tensor:
+    """The prefix-extend variant: suffix queries q (B, Hq, S, D) over the
+    first ``prefix_len`` rows of a cached prefix k_pre/v_pre (B, Hkv, S_pre,
+    D), all visible, then the suffix's own k/v (B, Hkv, S, D) causally.
+    ``prefix_len=None`` is S_pre (the exact-length mode); a smaller one is
+    the bucketed mode, whose rows past it are never read. Strides and the
+    result's layout as in :func:`flash_attention_cuda`."""
+    check_attention_inputs("flash_attention_extend_cuda", q, k, v, 4)
+    check_attention_inputs("flash_attention_extend_cuda", q, k_pre, v_pre,
+                           4)
+    S_pre = k_pre.shape[2]
+    plen = S_pre if prefix_len is None else int(prefix_len)
+    if (k.shape[2] != q.shape[2] or k_pre.shape[1] != k.shape[1]
+            or not 0 <= plen <= S_pre):
+        raise ValueError(f"q has {q.shape[2]} positions, k and v "
+                         f"{k.shape[2]}; prefix heads {k_pre.shape[1]}, "
+                         f"suffix heads {k.shape[1]}; prefix_len {plen} of "
+                         f"{S_pre}")
+    return _launch(q, k, v, k_pre, v_pre, plen, True)

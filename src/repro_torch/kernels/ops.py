@@ -6,11 +6,14 @@ fallback from one to the other and no mode that hides which path ran.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import decode_attention as _dec
 from . import dominance as _dom
 from . import flash_attention as _fa
+from . import paged_attention as _paged
 from . import ref
 
 
@@ -21,6 +24,15 @@ def dominance_matrix(F: torch.Tensor) -> torch.Tensor:
     if F.device.type == "cuda":
         return _dom.dominance_matrix_cuda(F)
     raise ValueError(f"no dominance_matrix for device {F.device}")
+
+
+def dominance_counts(F: torch.Tensor) -> torch.Tensor:
+    """(P, M) -> (P,) int32 dominator counts (minimization)."""
+    if F.device.type == "cpu":
+        return ref.dominance_counts(F)
+    if F.device.type == "cuda":
+        return _dom.dominance_counts_cuda(F)
+    raise ValueError(f"no dominance_counts for device {F.device}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -42,3 +54,32 @@ def gqa_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cuda":
         return _dec.gqa_decode_attention_cuda(q, k_cache, v_cache, kv_len)
     raise ValueError(f"no gqa_decode_attention for device {q.device}")
+
+
+def flash_attention_extend(q: torch.Tensor, k_pre: torch.Tensor,
+                           v_pre: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor,
+                           prefix_len: Optional[int] = None) -> torch.Tensor:
+    """Suffix queries (B, Hq, Sq, D) over the first ``prefix_len`` rows of a
+    cached prefix (B, Hkv, S_pre, D), then causally over the suffix's own
+    (B, Hkv, Sq, D) keys; ``prefix_len=None`` is S_pre."""
+    if q.device.type == "cpu":
+        return ref.mha_prefill_extend(q, k_pre, v_pre, k, v, prefix_len)
+    if q.device.type == "cuda":
+        return _fa.flash_attention_extend_cuda(q, k_pre, v_pre, k, v,
+                                               prefix_len)
+    raise ValueError(f"no flash_attention_extend for device {q.device}")
+
+
+def paged_gqa_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor,
+                               block_table: torch.Tensor,
+                               kv_len: torch.Tensor) -> torch.Tensor:
+    """(B, Hq, D) over (n_blocks, Hkv, block_size, D) pools addressed by a
+    (B, max_blocks) block table, filled to kv_len (B,)."""
+    if q.device.type == "cpu":
+        return ref.paged_gqa_decode(q, k_pool, v_pool, block_table, kv_len)
+    if q.device.type == "cuda":
+        return _paged.paged_gqa_decode_attention_cuda(q, k_pool, v_pool,
+                                                      block_table, kv_len)
+    raise ValueError(f"no paged_gqa_decode_attention for device {q.device}")

@@ -6,6 +6,8 @@ path never calls them on a CUDA tensor.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -44,6 +46,42 @@ def mha_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", w, vf).to(q.dtype)
 
 
+def mha_prefill_extend(q: torch.Tensor, k_pre: torch.Tensor,
+                       v_pre: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       prefix_len: Optional[int] = None) -> torch.Tensor:
+    """Prefix-extension attention: suffix queries over prefix + suffix keys.
+
+    q: (B, Hq, Sq, D) suffix queries; k_pre, v_pre: (B, Hkv, S_pre, D) the
+    cached prefix; k, v: (B, Hkv, Sq, D) the suffix's own keys and values;
+    any strides. Key column c of the concatenation [prefix; suffix] is
+    visible to query row r iff c < prefix_len (c < S_pre) or c - S_pre <= r
+    (c >= S_pre). ``prefix_len=None`` is the exact-length mode, prefix_len
+    = S_pre; a smaller one is the bucketed mode, whose prefix buffer is
+    padded past its real rows. The reference's ``_xla_attention`` with
+    ``q_offset`` and the bucketed mask of ``attention_prefill_extend``,
+    casts included: q scaled in its own dtype, f32 scores and softmax,
+    weights rounded to v's dtype before P·V, the result in q's dtype. The
+    prefix rows past prefix_len are masked out of P·V as well, so a
+    non-finite value there cannot leak in through 0 × NaN."""
+    B, Hq, Sq, D = q.shape
+    Hkv, S_pre = k_pre.shape[1], k_pre.shape[2]
+    group = Hq // Hkv
+    plen = S_pre if prefix_len is None else int(prefix_len)
+    kf = torch.cat([k_pre, k], dim=2).to(torch.float32)
+    dead = torch.arange(S_pre, device=q.device) >= plen
+    vh = torch.cat([v_pre.masked_fill(dead[:, None], 0), v], dim=2)
+    qh = (q * D ** -0.5).reshape(B, Hkv, group, Sq, D).to(torch.float32)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qh, kf)
+    col = torch.arange(S_pre + Sq, device=q.device)[None, :]
+    row = torch.arange(Sq, device=q.device)[:, None]
+    mask = torch.where(col < S_pre, col < plen, (col - S_pre) <= row)
+    s = s.masked_fill(~mask, float("-inf"))
+    w = torch.softmax(s, dim=-1).to(vh.dtype)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", w.to(torch.float32),
+                       vh.to(torch.float32))
+    return out.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
 def gqa_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                kv_len: torch.Tensor) -> torch.Tensor:
     """One query token per row over a (possibly padded) KV cache.
@@ -70,3 +108,26 @@ def gqa_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                        vf).reshape(B, Hq, D)
     out = torch.where((kv_len > 0)[:, None, None], out, 0.0)
     return out.to(q.dtype)
+
+
+def paged_gqa_decode(q: torch.Tensor, k_pool: torch.Tensor,
+                     v_pool: torch.Tensor, block_table: torch.Tensor,
+                     kv_len: torch.Tensor) -> torch.Tensor:
+    """Decode attention over a block pool: gather the block table back into
+    a contiguous cache, then :func:`gqa_decode` (the reference's
+    ``ref.paged_gqa_decode``).
+
+    q: (B, Hq, D); k_pool, v_pool: (n_blocks, Hkv, block_size, D), any
+    strides (one layer of the store's (n_blocks, block_size, Hkv, D) pool
+    permuted reads the same); block_table: (B, max_blocks) integer ids,
+    negative ids clamped to block 0; kv_len: (B,). Positions >= kv_len are
+    masked, so pad entries past it do not matter; ``kv_len <= 0`` gives
+    zeros."""
+    bt = block_table.to(device=q.device, dtype=torch.int64).clamp(min=0)
+
+    def gather(pool):
+        g = pool[bt]                              # (B, nb, Hkv, bs, D)
+        B, nb, Hkv, bs, D = g.shape
+        return g.permute(0, 2, 1, 3, 4).reshape(B, Hkv, nb * bs, D)
+
+    return gqa_decode(q, gather(k_pool), gather(v_pool), kv_len)

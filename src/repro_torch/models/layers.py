@@ -7,12 +7,11 @@ layout, so ``x @ w`` is its ``einsum("bsd,de->bse")``. As in the reference,
 norms, rope, softmax and the unembedding run in f32 and the projections in
 the model's dtype. Attention goes through ``kernels.ops``: the plain
 version for CPU tensors, the hand-written kernel for CUDA tensors.
-Sharding constraints, cross-attention and prefix-extension prefill are not
-ported yet.
+Sharding constraints and cross-attention are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -130,6 +129,38 @@ def attention_prefill_cache(p, cfg: ModelConfig, x: torch.Tensor,
     out = _self_attention(q, k, v, causal=True)
     B, S = x.shape[:2]
     return out.reshape(B, S, cfg.q_dim) @ p.wo, (k, v)
+
+
+def attention_prefill_extend(p, cfg: ModelConfig, x: torch.Tensor,
+                             positions: torch.Tensor,
+                             prefix_kv: Tuple[torch.Tensor, torch.Tensor],
+                             prefix_len: Optional[int] = None
+                             ) -> Tuple[torch.Tensor,
+                                        Tuple[torch.Tensor, torch.Tensor]]:
+    """Prefill the suffix of a prompt whose prefix K/V is already cached.
+
+    x: (B, S_new, d) suffix activations; positions: (1, S_new) absolute
+    positions; prefix_kv: (k, v), each (B, S_pre, Hkv, D). The suffix
+    queries attend the prefix, then the suffix causally, through
+    ``ops.flash_attention_extend`` (the prefix-extend variant of the flash
+    kernel on the card), which reads the prefix and the suffix projections
+    in place. Returns (y, (k, v)) as the reference does: the cache over
+    prefix + suffix in the exact-length mode, the suffix's own K/V in the
+    bucketed mode (``prefix_len`` given: only the first ``prefix_len`` rows
+    of the prefix buffer are real), where the caller places it at
+    ``prefix_len``."""
+    k_pre, v_pre = prefix_kv
+    q, k, v = _qkv(p, cfg, x, x)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    out = ops.flash_attention_extend(
+        q.transpose(1, 2), k_pre.transpose(1, 2), v_pre.transpose(1, 2),
+        k.transpose(1, 2), v.transpose(1, 2), prefix_len).transpose(1, 2)
+    B, S = x.shape[:2]
+    y = out.reshape(B, S, cfg.q_dim) @ p.wo
+    if prefix_len is None:
+        return y, (torch.cat([k_pre, k], dim=1), torch.cat([v_pre, v], dim=1))
+    return y, (k, v)
 
 
 def attention_decode(p, cfg: ModelConfig, x: torch.Tensor,

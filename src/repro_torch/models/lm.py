@@ -12,6 +12,8 @@ Public entry points:
     init(cfg, generator, device)                     -> LM
     train_logits(model, cfg, tokens)                 -> (B, S, vocab) f32
     prefill(model, cfg, tokens, max_seq, length)     -> (last logits, Cache)
+    prefill_extend(model, cfg, tokens, prefix, max_seq, prefix_len, length)
+                                                     -> (last logits, Cache)
     make_cache(cfg, batch, max_seq, device)          -> empty Cache
     decode_step(model, cfg, token, cache)            -> (logits, Cache)
 
@@ -21,7 +23,7 @@ the cross-attention families are ROADMAP Queue 1 item 12.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -226,6 +228,62 @@ def prefill(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
         cache.v[li, :, :S] = v
         x = _ffn(blk, cfg, x + y)
     logits = _final_logits(model, cfg, x[:, fill - 1:fill])[:, 0]
+    return logits, cache
+
+
+def prefill_extend(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
+                   prefix: Tuple[torch.Tensor, torch.Tensor],
+                   max_seq: Optional[int] = None,
+                   prefix_len: Optional[int] = None,
+                   length: Optional[int] = None):
+    """Prefill only the uncached suffix of a prompt (paged prefix reuse).
+
+    ``tokens`` is the (B, S_new) suffix; ``prefix`` is (k, v), each
+    (n_layers, B, S_pre, Hkv, D): the cached whole-block prefix gathered by
+    ``serving.kvcache.PagedKVStore``. Returns (last-token logits (B, vocab)
+    f32, Cache at ``max_seq`` covering prefix + suffix), as ``prefill`` on
+    the concatenated prompt would up to rounding.
+
+    **Bucketed mode** (``prefix_len`` given): the prefix buffer is padded
+    past its ``prefix_len`` real rows and the suffix may be padded past its
+    true length ``length``. The suffix's K/V is written at offset
+    ``prefix_len`` of the max_seq cache (clamped to ``max_seq - S_new`` as
+    JAX's ``dynamic_update_slice`` clamps), logits are read at row
+    ``length - 1``, and ``kv_len`` is ``prefix_len + length``."""
+    check_dense(cfg)
+    B, Sn = tokens.shape
+    k_pre, v_pre = prefix
+    S_pre = k_pre.shape[2]
+    bucketed = prefix_len is not None
+    if bucketed:
+        start = int(prefix_len)
+        last = Sn if length is None else int(length)
+        if max_seq is None or max(Sn, S_pre) > max_seq:
+            raise ValueError(f"bucketed extend needs max_seq >= the padded "
+                             f"suffix ({Sn}) and prefix ({S_pre}), got "
+                             f"{max_seq}")
+    else:
+        start, last = S_pre, Sn
+        max_seq = max_seq or (S_pre + Sn)
+        if S_pre + Sn > max_seq:
+            raise ValueError(f"prompt of {S_pre} + {Sn} tokens exceeds "
+                             f"max_seq {max_seq}")
+    cache = make_cache(cfg, B, max_seq, tokens.device, kv_len=torch.full(
+        (B,), start + last, dtype=torch.int32))
+    # the prefix once for all layers; the suffix lands at `at`
+    cache.k[:, :, :S_pre] = k_pre
+    cache.v[:, :, :S_pre] = v_pre
+    at = min(start, max_seq - Sn)
+    x = L.embed(model.embed, tokens)
+    positions = (start + torch.arange(Sn, device=tokens.device))[None]
+    for li, blk in enumerate(model.blocks):
+        y, (k, v) = L.attention_prefill_extend(
+            blk.mixer, cfg, L.apply_norm(cfg, blk.norm1, x), positions,
+            (k_pre[li], v_pre[li]), prefix_len=start if bucketed else None)
+        cache.k[li, :, at:at + Sn] = k[:, -Sn:]
+        cache.v[li, :, at:at + Sn] = v[:, -Sn:]
+        x = _ffn(blk, cfg, x + y)
+    logits = _final_logits(model, cfg, x[:, last - 1:last])[:, 0]
     return logits, cache
 
 

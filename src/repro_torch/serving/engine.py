@@ -1,6 +1,5 @@
 """Continuous-batching inference engine for one LLM instance: the
-counterpart of ``repro.serving.engine`` for a dense model and a contiguous
-KV cache.
+counterpart of ``repro.serving.engine`` for a dense model.
 
 Orca-style iteration-level scheduling on a fixed slot pool:
 
@@ -19,10 +18,21 @@ with the same weights the engine's tokens and QoE accounting equal the
 reference engine's. Each result carries QoE phase accounting in engine
 steps (``ttft_steps``, ``tpot_steps``), as in the reference.
 
-Not ported yet (they raise ``NotImplementedError``): the paged prefix cache
-(``prefix_cache=True``), disaggregated prefill (``prefill_only``,
-``export_kv``, ``import_kv``), ``flush_kv`` and fleet adoption — ROADMAP
-Queue 1 item 11.
+**Prefix reuse** (``EngineConfig.prefix_cache``): admission looks up the
+longest cached whole-block prefix of the prompt in a paged KV store
+(``serving.kvcache``), gathers it, runs ``lm.prefill_extend`` on only the
+uncached suffix (the flash kernel's prefix-extend variant on the card), and
+scatters the fresh whole blocks into the pool for later requests; the
+gathered prefix lands in the slot's contiguous decode cache, as in the
+reference engine. ``prefill_only``, ``export_kv``, ``release_export`` and
+``import_kv`` are the two halves of a disaggregated prefill→decode KV
+handoff; ``flush_kv`` drops the pool.
+
+Not ported yet: fleet adoption (``_attach_fleet`` raises
+``NotImplementedError``), and decode over pool-resident pages (the paged
+decode kernel is ported, ``kernels.paged_attention``, but the engine decodes
+over its contiguous cache as the reference engine does) — ROADMAP Queue 1
+item 11.
 """
 from __future__ import annotations
 
@@ -38,8 +48,10 @@ from .._device import Device, resolve
 from ..models import lm
 from ..models.config import ModelConfig
 from .fleet import ChunkWork, decode_chunk_body
+from .kvcache import CacheStats, PagedKVStore
 
-_LATER = "not ported yet (ROADMAP Queue 1 item 11)"
+_LATER = ("not ported yet (ROADMAP Queue 1 item 11: fleet cohorts and "
+          "engine adoption)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,8 +61,10 @@ class EngineConfig:
     max_new_tokens: int = 16
     eos_token: int = -1            # -1: never (synthetic vocab)
     prefill_bucket: int = 32       # prompts padded up to a bucket multiple
-    # paged prefix reuse: not ported yet (must stay False)
+    # paged prefix reuse
     prefix_cache: bool = False
+    block_size: int = 8            # tokens per KV block
+    cache_blocks: int = 64         # pool capacity (blocks)
 
 
 @dataclasses.dataclass
@@ -60,7 +74,9 @@ class _Slot:
     budget: int = 0
     submit_step: int = 0       # engine step at submit()
     first_token_step: int = 0  # engine step when prefill emitted token 0
+    block_ids: List[int] = dataclasses.field(default_factory=list)
     prompt_tokens: int = 0     # prompt length at admission
+    cached_tokens: int = 0     # whole-block prefix reused from the paged pool
 
 
 class LLMEngine:
@@ -69,8 +85,6 @@ class LLMEngine:
 
     def __init__(self, cfg: ModelConfig, model: lm.LM, ecfg: EngineConfig,
                  device: Device = None):
-        if ecfg.prefix_cache:
-            raise NotImplementedError(f"prefix_cache=True is {_LATER}")
         lm.check_dense(cfg)
         self.device = resolve(device)
         if model.device != self.device:
@@ -97,6 +111,9 @@ class LLMEngine:
         self.admissions = 0
         # padding prompts is exact for the dense pattern (rows independent)
         self._bucket_ok = ecfg.prefill_bucket > 0
+        self.kv: Optional[PagedKVStore] = (
+            PagedKVStore(cfg, ecfg.cache_blocks, ecfg.block_size,
+                         self.device) if ecfg.prefix_cache else None)
 
     # -- public API -----------------------------------------------------------
     def submit(self, request_id: int, tokens: np.ndarray,
@@ -189,7 +206,7 @@ class LLMEngine:
                         s, self._steps + t + 1)
                     retired.append(s.request_id)
                     # the chunk already released the slot on the device
-                    self.slots[i] = _Slot()
+                    self._release_slot_host(i)
         self._steps += work.n_eff
         if retired:
             self._admit()
@@ -243,27 +260,122 @@ class LLMEngine:
                 "avg_tpot_steps": float(np.mean([r["tpot_steps"]
                                                  for r in rs]))}
 
-    # -- later slices ---------------------------------------------------------
-    def prefill_only(self, request_id, tokens):
-        raise NotImplementedError(f"prefill_only is {_LATER}")
+    def cache_stats(self) -> dict:
+        """Prefix-cache counters (zeros when paged reuse is off)."""
+        st = self.kv.cache.stats if self.kv is not None else CacheStats()
+        return st.as_dict()
 
-    def export_kv(self, block_ids):
-        raise NotImplementedError(f"export_kv is {_LATER}")
+    # -- disaggregated prefill/decode (KV handoff) ----------------------------
+    def prefill_only(self, request_id: int, tokens: np.ndarray) -> List[int]:
+        """Prefill half of a disaggregated request: compute (or reuse) the
+        whole-block KV of ``tokens`` in the paged store without taking a
+        decode slot, and return the block ids pinned for export.
 
-    def import_kv(self, tokens, slabs):
-        raise NotImplementedError(f"import_kv is {_LATER}")
+        Pair every call with :meth:`release_export`, or the pins leak. May
+        return fewer than ``len(tokens) // block_size`` blocks when the pool
+        runs dry; the decode side then prefills the uncovered tail."""
+        if self.kv is None:
+            raise ValueError("prefill_only needs prefix_cache=True")
+        tokens = np.asarray(tokens, np.int32)
+        L = len(tokens)
+        if L > self.ecfg.max_seq:
+            raise ValueError(f"request {request_id}: {L} tokens exceed "
+                             f"max_seq {self.ecfg.max_seq}")
+        bs = self.kv.block_size
+        st = self.kv.cache.stats
+        # the uncapped match: no suffix token is needed here, a fully
+        # cached prompt exports with no compute
+        cached = self.kv.cache.index.match(tokens)
+        self.kv.cache.acquire(cached)
+        prefix_len = len(cached) * bs
+        st.lookups += 1
+        if cached:
+            st.hits += 1
+            st.hit_tokens += prefix_len
+        st.prefill_tokens_total += L
+        st.prefill_tokens_run += L - prefix_len
+        new_ids: List[int] = []
+        if L // bs > len(cached):
+            suffix = self._tokens(tokens[prefix_len:])
+            if cached:
+                _, one = lm.prefill_extend(
+                    self.model, self.cfg, suffix, self.kv.gather(cached),
+                    max_seq=self.ecfg.max_seq)
+            else:
+                _, one = lm.prefill(self.model, self.cfg, suffix,
+                                    max_seq=self.ecfg.max_seq)
+            new_ids = self._cache_fresh_blocks(tokens, cached, one)
+        return cached + new_ids
 
-    def flush_kv(self):
-        raise NotImplementedError(f"flush_kv is {_LATER}")
+    def export_kv(self, block_ids: List[int]):
+        """Host copy of the pinned blocks of a :meth:`prefill_only` result
+        (the payload of the KV handoff)."""
+        if self.kv is None:
+            raise ValueError("export_kv needs prefix_cache=True")
+        return self.kv.export_blocks(block_ids)
+
+    def release_export(self, block_ids: List[int]) -> None:
+        """Drop the export pins: committed blocks become evictable, the
+        uncommitted return to the free list."""
+        if self.kv is not None and block_ids:
+            self.kv.cache.release(block_ids)
+
+    def import_kv(self, tokens: np.ndarray, slabs) -> bool:
+        """Decode half of the handoff: land exported slabs covering the
+        whole-block prefix ``tokens`` in this engine's pool and index them,
+        so the next ``submit`` of the full prompt reuses them. False (the
+        caller re-prefills) without a paged store or when the pool cannot
+        supply the blocks."""
+        if self.kv is None:
+            return False
+        tokens = np.asarray(tokens, np.int32)
+        n = len(tokens) // self.kv.block_size
+        if n * self.kv.block_size != len(tokens):
+            raise ValueError("KV import must be whole-block")
+        if n == 0:
+            return False
+        ids: List[int] = []
+        for _ in range(n):
+            bid = self.kv.cache.allocate()
+            if bid is None:
+                self.kv.cache.release(ids)   # uncommitted -> free list
+                return False
+            ids.append(bid)
+        self.kv.import_blocks(ids, slabs)
+        # commit keeps the canonical blocks of chunks already indexed; our
+        # duplicates stay unindexed and free on release
+        self.kv.cache.commit(tokens, ids)
+        self.kv.cache.release(ids)
+        return True
+
+    def flush_kv(self) -> None:
+        """Simulated node restart: drop every cached KV block. Active slots
+        keep decoding from their contiguous caches; their block pins go
+        with the pool."""
+        if self.kv is None:
+            return
+        for s in self.slots:
+            s.block_ids = []
+        self.kv = PagedKVStore(self.cfg, self.ecfg.cache_blocks,
+                               self.ecfg.block_size, self.device)
 
     def _attach_fleet(self, cohort, member):
         raise NotImplementedError(f"fleet adoption is {_LATER}")
 
     # -- internals -------------------------------------------------------------
-    def _release_slot(self, i: int) -> None:
-        """Retire or cancel slot ``i``: zero its ``kv_len`` so decode stops
-        attending over the dead slot's cache, and reset its next token."""
+    def _release_slot_host(self, i: int) -> None:
+        """Drop slot ``i``'s KV-block pins and reset its record (a decode
+        chunk has already released it on the device)."""
+        s = self.slots[i]
+        if self.kv is not None and s.block_ids:
+            self.kv.cache.release(s.block_ids)
         self.slots[i] = _Slot()
+
+    def _release_slot(self, i: int) -> None:
+        """Retire or cancel slot ``i``: drop its pins, zero its ``kv_len``
+        so decode stops attending over the dead slot's cache, and reset its
+        next token."""
+        self._release_slot_host(i)
         self.cache.kv_len[i] = 0
         self._next_token[i, 0] = 0
 
@@ -279,10 +391,11 @@ class LLMEngine:
             "tpot_steps": ((finish_step - s.first_token_step) / n_decode
                            if n_decode else 0.0),
             "decode_steps": finish_step - s.first_token_step,
-            # no prefix reuse in this engine yet
+            # realized prefix-cache reuse of this request's admission
             "prompt_tokens": s.prompt_tokens,
-            "cached_tokens": 0,
-            "cached_frac": 0.0,
+            "cached_tokens": s.cached_tokens,
+            "cached_frac": (s.cached_tokens / s.prompt_tokens
+                            if s.prompt_tokens else 0.0),
         }
 
     def _admit(self) -> None:
@@ -300,6 +413,34 @@ class LLMEngine:
         b = self.ecfg.prefill_bucket
         return min(-(-n // b) * b, self.ecfg.max_seq)
 
+    def _tokens(self, toks: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(toks, np.int32)).to(
+            self.device, torch.int64)[None]
+
+    def _padded(self, toks: np.ndarray) -> np.ndarray:
+        """``toks`` zero-padded to its bucket length."""
+        out = np.zeros(self._bucket_len(len(toks)), np.int32)
+        out[:len(toks)] = toks
+        return out
+
+    def _cache_fresh_blocks(self, tokens: np.ndarray, cached: List[int],
+                            one: lm.Cache) -> List[int]:
+        """Allocate, fill from the single-request cache ``one`` and index
+        the whole blocks of ``tokens`` past the ``cached`` ones; stops where
+        the pool runs dry (the rest is served uncached)."""
+        bs = self.kv.block_size
+        new_ids: List[int] = []
+        for _ in range(len(cached), len(tokens) // bs):
+            bid = self.kv.cache.allocate()
+            if bid is None:
+                break
+            new_ids.append(bid)
+        if new_ids:
+            self.kv.scatter(new_ids, len(cached), (one.k, one.v))
+            n_tok = (len(cached) + len(new_ids)) * bs
+            self.kv.cache.commit(tokens[:n_tok], cached + new_ids)
+        return new_ids
+
     def _prefill_into(self, slot: int, request_id: int, tokens: np.ndarray,
                       budget: int, submit_step: int = 0) -> None:
         e = self.ecfg
@@ -308,15 +449,45 @@ class LLMEngine:
             raise ValueError(f"request {request_id}: {L} prompt + {budget} "
                              f"new tokens exceed max_seq {e.max_seq}")
         t0 = time.perf_counter()
-        # pad the prompt to the bucket; logits are read at the true last row
-        # and kv_len masks the tail
-        L_pad = self._bucket_len(L) if self._bucket_ok else L
-        toks = np.zeros(L_pad, np.int32)
-        toks[:L] = tokens
-        logits, one = lm.prefill(
-            self.model, self.cfg,
-            torch.from_numpy(toks).to(self.device, torch.int64)[None],
-            max_seq=e.max_seq, length=L)
+        matched: List[int] = []
+        if self.kv is not None:
+            matched = self.kv.cache.match(tokens)
+            self.kv.cache.acquire(matched)
+        prefix_len = len(matched) * e.block_size
+        if prefix_len:
+            suffix = tokens[prefix_len:]
+            Sn = len(suffix)
+            Sn_pad = self._bucket_len(Sn) if self._bucket_ok else Sn
+            if self._bucket_ok and prefix_len + Sn_pad <= e.max_seq:
+                # the reference's compile-once admission: the suffix padded
+                # to its bucket, the prefix gathered at the full block
+                # budget (padded with block 0, masked by prefix_len)
+                logits, one = lm.prefill_extend(
+                    self.model, self.cfg, self._tokens(self._padded(suffix)),
+                    self.kv.gather(matched, pad_to=e.max_seq // e.block_size),
+                    max_seq=e.max_seq, prefix_len=prefix_len, length=Sn)
+            else:
+                logits, one = lm.prefill_extend(
+                    self.model, self.cfg, self._tokens(suffix),
+                    self.kv.gather(matched), max_seq=e.max_seq)
+        else:
+            # pad the prompt to the bucket; logits are read at the true last
+            # row and kv_len masks the tail
+            toks = self._padded(tokens) if self._bucket_ok else tokens
+            logits, one = lm.prefill(self.model, self.cfg,
+                                     self._tokens(toks), max_seq=e.max_seq,
+                                     length=L)
+        block_ids = matched
+        if self.kv is not None:
+            st = self.kv.cache.stats
+            st.prefill_tokens_total += L
+            st.prefill_tokens_run += L - prefix_len
+            # cache the fresh whole blocks, starting past every chunk the
+            # index already holds, not just the capped match: a fully cached
+            # prompt's last block (capped off to leave a suffix) is not
+            # allocated again only to be dropped by commit()
+            block_ids = matched + self._cache_fresh_blocks(
+                tokens, self.kv.cache.index.match(tokens), one)
         # splice the single-request cache into the batch cache at `slot`
         self.cache.k[:, slot] = one.k[:, 0]
         self.cache.v[:, slot] = one.v[:, 0]
@@ -330,7 +501,9 @@ class LLMEngine:
         s.budget = budget - 1
         s.submit_step = submit_step
         s.first_token_step = self._steps
+        s.block_ids = block_ids
         s.prompt_tokens = L
+        s.cached_tokens = prefix_len
         self._next_token[slot, 0] = first
         if s.budget <= 0:
             self.results[request_id] = self._result(s, self._steps)

@@ -1,5 +1,6 @@
 """Request workloads: numpy copies of ``repro.workload``'s closed-loop trace
-builder and the generators, classifier and features it uses."""
+builder, its multi-turn session trace (``sessions``), and the generators,
+classifier and features they use."""
 from .tokenizer import count_tokens
 from .trace import Trace, build_trace, trace_from_requests
 

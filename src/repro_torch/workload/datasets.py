@@ -1,8 +1,7 @@
 """Synthetic generators statistically matching the paper's four datasets.
 
 A copy of ``repro.workload.datasets`` (the port imports nothing of
-``repro``), without the multi-turn session fields, which the port does not
-model yet. It must generate the same requests bit for bit.
+``repro``). It must generate the same requests bit for bit.
 
 The paper mixes MBPP (code generation), GSM8K (grade-school math), SQuAD
 (extractive QA) and HellaSwag (commonsense MC completion) into one 500-request
@@ -68,6 +67,14 @@ class Request:
     difficulty: float         # latent, drives realized quality
     sentence_count: int
     has_constraint: bool
+    # multi-turn session identity (workload.sessions); -1/0 = single-shot.
+    # Turn t+1's text extends turn t's, so a node that served the previous
+    # turn holds that prompt's KV prefix; sys_id groups sessions sharing the
+    # same system prompt (sys_tokens of it) across sessions.
+    session_id: int = -1
+    turn: int = 0
+    sys_id: int = -1
+    sys_tokens: int = 0
 
     @property
     def task_id(self) -> int:

@@ -5,16 +5,17 @@
 SQuAD, repeating). The requests are evenly distributed across the four
 datasets, with 125 requests per dataset."
 
-A copy of ``repro.workload.trace`` pruned to the closed-loop trace the port
-evaluates: no SLO deadlines, arrival times or session identity yet. It must
-build the same trace bit for bit. ``Trace`` is the array-of-structs view that
-``core.fitness.build_tables`` reads; everything is deterministic given
-``seed``.
+A copy of ``repro.workload.trace`` pruned to what the port uses: the
+closed-loop trace, and the arrival times and session identity of the
+multi-turn session trace (``workload.sessions``); no SLO deadlines or
+workload phases yet. It must build the same trace bit for bit. ``Trace`` is
+the array-of-structs view that ``core.fitness.build_tables`` reads;
+everything is deterministic given ``seed``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -39,14 +40,33 @@ class Trace:
     resp_tokens_mean: np.ndarray  # (I,) float32
     difficulty: np.ndarray      # (I,) float32 latent
     query_bytes: np.ndarray     # (I,) float32
+    # Optional open-loop arrival timestamps (sorted ascending, seconds).
+    # None = closed-loop trace.
+    arrival_time: Optional[np.ndarray] = None    # (I,) float32
+    # Optional multi-turn session identity (workload.sessions): session id
+    # (-1 = single-shot), shared-system-prompt class, and the token length of
+    # that shared prefix.
+    group_id: Optional[np.ndarray] = None        # (I,) int32 session id
+    sys_id: Optional[np.ndarray] = None          # (I,) int32 system-prompt id
+    sys_tokens: Optional[np.ndarray] = None      # (I,) float32
 
     @property
     def n_requests(self) -> int:
         return self.task.shape[0]
 
+    @property
+    def has_arrivals(self) -> bool:
+        return self.arrival_time is not None
 
-def trace_from_requests(reqs: List[ds.Request], seed: int = 0) -> Trace:
-    """Build the array-of-structs view over an explicit request list."""
+    @property
+    def has_sessions(self) -> bool:
+        return self.group_id is not None
+
+
+def trace_from_requests(reqs: List[ds.Request], seed: int = 0,
+                        arrival_time: Optional[np.ndarray] = None) -> Trace:
+    """Build the array-of-structs view over an explicit request list, with
+    one arrival time per request for an open-loop trace."""
     rng = np.random.default_rng(np.random.SeedSequence([seed, 1234]))
     I = len(reqs)
     task = np.zeros(I, np.int32)
@@ -67,10 +87,26 @@ def trace_from_requests(reqs: List[ds.Request], seed: int = 0) -> Trace:
         resp_mean[i] = r.resp_tokens_mean
         difficulty[i] = r.difficulty
         qbytes[i] = r.query_bytes
-    return Trace(requests=reqs, task=task, pred_category=pred_cat,
-                 pred_conf=pred_conf, complexity=complexity,
-                 prompt_tokens=prompt_tokens, resp_tokens_mean=resp_mean,
-                 difficulty=difficulty, query_bytes=qbytes)
+
+    if arrival_time is not None:
+        arrival_time = np.asarray(arrival_time, np.float32)
+        assert arrival_time.shape == (I,), "one timestamp per request"
+        assert (np.diff(arrival_time) >= 0).all(), \
+            "open-loop arrival times must be sorted ascending"
+
+    trace = Trace(requests=reqs, task=task, pred_category=pred_cat,
+                  pred_conf=pred_conf, complexity=complexity,
+                  prompt_tokens=prompt_tokens, resp_tokens_mean=resp_mean,
+                  difficulty=difficulty, query_bytes=qbytes,
+                  arrival_time=arrival_time)
+    # requests of workload.sessions carry session identity; lift it into
+    # trace arrays
+    if any(r.session_id >= 0 or r.sys_id >= 0 for r in reqs):
+        trace.group_id = np.asarray([r.session_id for r in reqs], np.int32)
+        trace.sys_id = np.asarray([r.sys_id for r in reqs], np.int32)
+        trace.sys_tokens = np.asarray([r.sys_tokens for r in reqs],
+                                      np.float32)
+    return trace
 
 
 def build_trace(n_requests: int = 500, seed: int = 0) -> Trace:

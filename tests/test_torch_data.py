@@ -105,3 +105,29 @@ def test_heuristic_bias_init_equal():
     _bit_equal(baselines.heuristic_bias_init(tr, paper_testbed(), 8, seed=2),
                ref_baselines.heuristic_bias_init(ref_tr, ref_testbed(), 8,
                                                  seed=2))
+
+
+def test_open_loop_trace_from_requests_bit_equal():
+    """``trace_from_requests(arrival_time=)`` and the session arrays: the
+    same requests with session identity and arrival times give the same
+    trace, field for field."""
+    from repro.workload.datasets import generate as ref_generate
+    from repro.workload.trace import trace_from_requests as ref_tfr
+    from repro_torch.workload.datasets import generate
+    from repro_torch.workload.trace import trace_from_requests
+    mine, ref = generate("gsm8k", 9, seed=2), ref_generate("gsm8k", 9, seed=2)
+    for i in range(0, 9, 2):
+        kw = dict(session_id=i // 3, turn=i % 3, sys_id=i % 2,
+                  sys_tokens=10 * i)
+        mine[i] = dataclasses.replace(mine[i], **kw)
+        ref[i] = dataclasses.replace(ref[i], **kw)
+    times = np.cumsum(np.random.default_rng(0).exponential(1.0, 9))
+    got = trace_from_requests(mine, seed=4, arrival_time=times)
+    want = ref_tfr(ref, seed=4, arrival_time=times)
+    for f in TRACE_FIELDS + ("arrival_time", "group_id", "sys_id",
+                             "sys_tokens"):
+        _bit_equal(getattr(got, f), getattr(want, f))
+    closed = trace_from_requests(generate("squad", 4))
+    assert closed.group_id is None and closed.arrival_time is None
+    with pytest.raises(AssertionError):
+        trace_from_requests(mine, arrival_time=times[::-1])

@@ -16,7 +16,7 @@ from repro_torch.cluster.spec import paper_testbed
 from repro_torch.core.fitness import TraceEvaluator
 from repro_torch.configs import get
 from repro_torch.kernels import (_build, decode_attention, dominance,
-                                 flash_attention, ops)
+                                 flash_attention, ops, paged_attention)
 from repro_torch.models import lm
 from repro_torch.quickstart import run_quickstart
 from repro_torch.serving import EngineConfig, LLMEngine
@@ -48,7 +48,9 @@ def test_port_imports_neither_jax_nor_repro(path):
 def test_port_modules_import_no_jax_at_runtime():
     code = ("import sys, repro_torch, repro_torch.quickstart, "
             "repro_torch.convert, repro_torch.serve, "
-            "repro_torch.serving.engine, repro_torch.models.lm\n"
+            "repro_torch.serving.engine, repro_torch.serving.kvcache, "
+            "repro_torch.workload.sessions, repro_torch.models.lm, "
+            "repro_torch.kernels.paged_attention\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -83,8 +85,9 @@ def test_entry_points_require_cuda_without_an_explicit_device(monkeypatch):
 
 
 def _launches():
-    return (dominance.LAUNCHES, flash_attention.LAUNCHES,
-            decode_attention.LAUNCHES)
+    return (dominance.LAUNCHES, dominance.COUNTS_LAUNCHES,
+            flash_attention.LAUNCHES, decode_attention.LAUNCHES,
+            paged_attention.LAUNCHES)
 
 
 def test_kernel_dispatch_has_no_fallback():
@@ -93,6 +96,7 @@ def test_kernel_dispatch_has_no_fallback():
     qd, lens = torch.rand(1, 4, 16), torch.tensor([3], dtype=torch.int32)
     before = _launches()
     assert ops.dominance_matrix(F).dtype == torch.bool
+    assert ops.dominance_counts(F).dtype == torch.int32
     assert ops.flash_attention(q, kv, kv).shape == q.shape
     assert ops.gqa_decode_attention(qd, kv, kv, lens).shape == qd.shape
     assert _launches() == before
@@ -100,6 +104,8 @@ def test_kernel_dispatch_has_no_fallback():
     meta = lambda *ts: [t.to("meta") for t in ts]  # noqa: E731
     with pytest.raises(ValueError, match="no dominance_matrix"):
         ops.dominance_matrix(F.to("meta"))
+    with pytest.raises(ValueError, match="no dominance_counts"):
+        ops.dominance_counts(F.to("meta"))
     with pytest.raises(ValueError, match="no flash_attention"):
         ops.flash_attention(*meta(q, kv, kv))
     with pytest.raises(ValueError, match="no gqa_decode_attention"):
@@ -107,6 +113,8 @@ def test_kernel_dispatch_has_no_fallback():
     # the kernels' wrappers take CUDA tensors only
     with pytest.raises(ValueError, match="CUDA tensor"):
         dominance.dominance_matrix_cuda(F)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        dominance.dominance_counts_cuda(F)
     with pytest.raises(ValueError, match="CUDA tensor"):
         flash_attention.flash_attention_cuda(q, kv, kv)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -118,7 +126,8 @@ def test_kernel_build_targets_hopper_and_reports_failures(tmp_path,
                                                          monkeypatch):
     srcs = _build.sources()
     assert [s.name for s in srcs] == ["decode_attention.cu", "dominance.cu",
-                                      "flash_attention.cu"]
+                                      "flash_attention.cu",
+                                      "paged_attention.cu"]
     assert [h.name for h in _build.headers()] == ["attention_tile.cuh"]
     for s in srcs:
         cmd = _build.compile_command("nvcc", s, tmp_path / "k.o")
@@ -126,8 +135,10 @@ def test_kernel_build_targets_hopper_and_reports_failures(tmp_path,
     assert "-shared" in _build.link_command("nvcc", [tmp_path / "k.o"],
                                             tmp_path / "k.so")
     assert set(_build.SYMBOLS) == {"repro_dominance_matrix",
+                                   "repro_dominance_counts",
                                    "repro_flash_attention",
-                                   "repro_gqa_decode"}
+                                   "repro_gqa_decode",
+                                   "repro_paged_gqa_decode"}
     for name in _build.SYMBOLS:   # every C symbol is defined in a source
         assert any(f'extern "C" int {name}(' in s.read_text() for s in srcs)
     assert _build.BUILD_ROOT.parts[-2:] == ("build", "repro_torch")

@@ -206,3 +206,82 @@ def test_prefill_decode_and_train_logits_match(name, dtype):
     rl, _ = rlm.train_logits(params, rcfg, {"tokens": jnp.asarray(seq)})
     _close(lm.train_logits(model, cfg, torch.from_numpy(seq)), rl, tol)
     assert (flash_attention.LAUNCHES, decode_attention.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("name,dtype", CASES)
+@pytest.mark.parametrize("bucketed", [False, True])
+def test_attention_prefill_extend_matches(name, dtype, bucketed):
+    rcfg, params, cfg, model = _pair(name, dtype)
+    tol = TOL[dtype]
+    rng = np.random.default_rng(6)
+    p, blk = _block0(params), model.blocks[0]
+    S_pre, Sn = 24, 11
+    plen = 16 if bucketed else None
+    start = plen if bucketed else S_pre
+    xj, xt = _act(rng, (1, Sn, cfg.d_model), dtype)
+    kj, kt = _act(rng, (1, S_pre, cfg.n_kv_heads, cfg.hd), dtype)
+    vj, vt = _act(rng, (1, S_pre, cfg.n_kv_heads, cfg.hd), dtype)
+    pos_j = start + jnp.arange(Sn)[None]
+    pos_t = start + torch.arange(Sn)[None]
+    before = flash_attention.LAUNCHES
+    y, (k, v) = L.attention_prefill_extend(blk.mixer, cfg, xt, pos_t,
+                                           (kt, vt), prefix_len=plen)
+    ry, (rk, rv) = RL.attention_prefill_extend(
+        p["mixer"], rcfg, xj, pos_j, (kj, vj),
+        prefix_len=None if plen is None else jnp.int32(plen))
+    assert flash_attention.LAUNCHES == before
+    assert k.shape == rk.shape == ((1, Sn if bucketed else S_pre + Sn,
+                                    cfg.n_kv_heads, cfg.hd))
+    for got, want in ((y, ry), (k, rk), (v, rv)):
+        _close(got, want, tol)
+
+
+@pytest.mark.parametrize("name,dtype", CASES)
+@pytest.mark.parametrize("bucketed", [False, True])
+def test_prefill_extend_matches(name, dtype, bucketed):
+    """``lm.prefill_extend`` over the reference's own prefill cache of a
+    prompt's first 16 tokens: last-token logits (1e-5 in f32) and the
+    cache, in the exact-length mode and in the bucketed one (prefix padded
+    to 32 rows of garbage past its 16, suffix padded from 7 to 16 tokens,
+    written at offset 16 of a 48-position cache)."""
+    rcfg, params, cfg, model = _pair(name, dtype)
+    tol = TOL[dtype]
+    rng = np.random.default_rng(7)
+    prompt = rng.integers(0, cfg.vocab, 23).astype(np.int32)
+    plen, max_seq = 16, 48
+    _, rpre = rlm.prefill(params, rcfg, {"tokens": jnp.asarray(prompt[None,
+                                                                   :plen])})
+    (rk, rv), = rpre.layer
+    suffix = prompt[plen:]
+    if bucketed:
+        pad = lambda a: jnp.concatenate(  # noqa: E731
+            [a, jnp.full(a.shape[:2] + (16,) + a.shape[3:], 3.0, a.dtype)],
+            axis=2)
+        prefix_j = ((pad(rk), pad(rv)),)
+        toks = np.zeros((1, 16), np.int32)
+        toks[0, :len(suffix)] = suffix
+        kw_j = dict(prefix_len=jnp.int32(plen), length=jnp.int32(len(suffix)))
+        kw_t = dict(prefix_len=plen, length=len(suffix))
+    else:
+        prefix_j = ((rk, rv),)
+        toks = suffix[None]
+        kw_j = kw_t = {}
+    rlogits, rcache = rlm.prefill_extend(params, rcfg,
+                                         {"tokens": jnp.asarray(toks)},
+                                         prefix_j, max_seq=max_seq, **kw_j)
+    prefix_t = tuple(tensor_from_numpy(np.asarray(a), "cpu")
+                     for a in prefix_j[0])
+    before = flash_attention.LAUNCHES
+    logits, cache = lm.prefill_extend(model, cfg, torch.from_numpy(toks),
+                                      prefix_t, max_seq=max_seq, **kw_t)
+    assert flash_attention.LAUNCHES == before
+    _close(logits, rlogits, tol)
+    (ck, cv), = rcache.layer
+    assert cache.k.shape == ck.shape
+    _close(cache.k, ck, tol, scaled=True)
+    _close(cache.v, cv, tol, scaled=True)
+    assert cache.kv_len.tolist() == np.asarray(rcache.kv_len).tolist() == [23]
+    # the same logits as a full prefill of the whole prompt
+    full, _ = lm.prefill(model, cfg, torch.from_numpy(prompt[None]))
+    _close(logits, np.asarray(full), tol)
+

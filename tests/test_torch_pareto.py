@@ -162,3 +162,23 @@ def test_hypervolume_mc_close_on_same_samples(M):
                                 torch.from_numpy(ideal), generator=g,
                                 n_samples=4096)
     assert abs(float(est) - float(want)) < 0.05
+
+
+@pytest.mark.parametrize("P,M", [(1, 2), (63, 3), (130, 3), (200, 5)])
+def test_dominance_counts_plain_matches_pallas_counts_kernel(P, M):
+    """The plain counts (what a CPU tensor takes, and what ``chip_smoke.py``
+    holds the CUDA counts kernel against) equal the Pallas counts kernel in
+    interpret mode exactly, on quantized objectives full of ties, with a
+    duplicated row and a NaN row."""
+    rng = np.random.default_rng(P + M)
+    F = (np.round(rng.random((P, M)) * 6) / 6).astype(np.float32)
+    if P > 3:
+        F[P // 2] = F[0]
+        F[P - 1, M - 1] = np.nan
+    got = ops.dominance_counts(torch.from_numpy(F))
+    assert got.dtype == torch.int32 and got.shape == (P,)
+    want = ref_dom.dominance_counts_pallas(jnp.asarray(F), block=64,
+                                           interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        got.numpy(), ops.dominance_matrix(torch.from_numpy(F)).sum(0).numpy())

@@ -204,15 +204,13 @@ def test_cancel_frees_the_slot_and_the_queue():
 
 
 def test_later_slices_raise():
+    """Only fleet adoption is still to come: the prefix cache and the KV
+    handoff run (``tests/test_torch_kvcache.py`` holds them)."""
     _, _, cfg, model = _pair("qwen3-1.7b", "bfloat16")
-    with pytest.raises(NotImplementedError, match="prefix_cache"):
-        LLMEngine(cfg, model, EngineConfig(prefix_cache=True), device="cpu")
-    eng = _engine("qwen3-1.7b")
-    for call in (lambda: eng.prefill_only(0, [1, 2]),
-                 lambda: eng.export_kv([0]), lambda: eng.import_kv([1], None),
-                 eng.flush_kv, lambda: eng._attach_fleet(None, 0)):
-        with pytest.raises(NotImplementedError):
-            call()
+    eng = LLMEngine(cfg, model, EngineConfig(prefix_cache=True), device="cpu")
+    assert eng.kv is not None and eng.cache_stats()["lookups"] == 0
+    with pytest.raises(NotImplementedError, match="fleet"):
+        eng._attach_fleet(None, 0)
 
 
 def test_serve_tokenizes_as_the_cluster_server_does():
@@ -228,6 +226,23 @@ def test_serve_tokenizes_as_the_cluster_server_does():
                     ClusterServer._tokenize(None, r, vocab, cap=cap))
             assert len(serve.tokenize(m, vocab)) == len(m.text.split())
     assert [serve.budget(x) for x in (0.2, 3.1, 34.6, 99.0)] == [1, 3, 35, 64]
+
+
+def test_engine_results_carry_prefix_reuse():
+    """Without the prefix cache every result reports no reuse; with it a
+    repeated prompt reports its whole-block prefix (``cached_frac``)."""
+    rng = np.random.default_rng(8)
+    p = rng.integers(0, 512, size=21)
+    for cache in (False, True):
+        eng = _engine("qwen3-1.7b", max_slots=1, max_seq=64,
+                      max_new_tokens=2, prefix_cache=cache)
+        for i in range(2):
+            eng.submit(i, p)
+            eng.run_to_completion()
+        r = eng.results[1]
+        assert r["prompt_tokens"] == 21
+        assert r["cached_tokens"] == (16 if cache else 0)
+        assert r["cached_frac"] == r["cached_tokens"] / 21
 
 
 def test_serve_smoke_run_on_the_cpu():
