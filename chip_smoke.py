@@ -24,8 +24,12 @@ prefix reuse on session traffic, in phases that each print one JSON line
 6. attention kernels: the decode and flash kernels against their plain
    versions on the card, f32 (2e-5) and bf16 (2e-2), over ragged shapes,
    kv_len 0 (zeros) and past Smax, the cache past kv_len filled with
-   +-999 and NaN (output unchanged); then each timed at the serving shapes
-   beside its plain version, SDPA and its bound;
+   +-999 and NaN (output unchanged); bf16 flash must run the tensor-core
+   kernel and f32 flash the CUDA-core one (by the profiled kernel names),
+   decode must split every (b, kv head) over several blocks at Smax 512
+   and 1,088, and unaligned inputs must raise; then each timed at the
+   serving shapes (flash at S 64, 128 and 512) beside its plain version,
+   SDPA and its bound;
 7. serve: ``repro_torch.serve.run_serve`` answers the trace's first 32
    requests with qwen3-1.7b at its published width and depth (28 layers,
    random weights from a seed) on 8 slots of 512 positions, in chunks of 8
@@ -53,8 +57,9 @@ prefix reuse on session traffic, in phases that each print one JSON line
    in every run flash launches = 28 per admission, decode launches = 28
    per iteration, paged and counts kernels never; the cache counters, zero leaked blocks, every token a
    teacher-forced maximum, the two runs' tokens parting only at near-ties;
-   one decode iteration profiled; the flash kernel's prefix-extend variant
-   timed at the run's median admission;
+   one decode iteration profiled; the decode kernel timed at that
+   iteration's cache fills (Smax 1,088) and the flash kernel's
+   prefix-extend variant at the run's median admission;
 12. paged on pools: block tables from the served prompts' cached blocks,
    8 rows a batch, the paged kernel held on all 28 layers of the store's
    pools against the decode kernel on the gathered cache and against the
@@ -83,7 +88,8 @@ F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 DEC_HEADS = ((16, 8, 128), (32, 32, 80), (8, 1, 64))   # (Hq, Hkv, D)
-DEC_SMAX = (64, 512, 520)
+# 1,088 is the session engine's Smax: 9 splits of 128 positions
+DEC_SMAX = (64, 512, 520, 1088)
 FA_S = (1, 17, 64, 128, 192, 200, 512)
 SERVE_MODEL, SERVE_REQUESTS = "qwen3-1.7b", 32
 CHECK_LAYERS, CHECK_REQUESTS = 2, 8
@@ -127,9 +133,9 @@ def time_ms(fn, *args, iters=50, reps=7):
     return statistics.median(out)
 
 
-def device_kernel_ms(fn, *args, name="dominance_matrix_kernel", iters=20):
-    """Median device time of the named kernel from torch.profiler, or None
-    when the profiler records no device activity."""
+def _device_events(fn, *args, iters=20):
+    """(name, µs) of every device kernel that ``iters`` calls of ``fn`` run
+    after a warm-up call, from torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn(*args)
@@ -138,9 +144,34 @@ def device_kernel_ms(fn, *args, name="dominance_matrix_kernel", iters=20):
         for _ in range(iters):
             fn(*args)
         torch.cuda.synchronize()
-    us = [ev.time_range.elapsed_us() for ev in prof.events()
-          if name in ev.name and ev.device_type.name == "CUDA"]
+    return [(ev.name, ev.time_range.elapsed_us()) for ev in prof.events()
+            if ev.device_type.name == "CUDA"]
+
+
+def device_kernel_ms(fn, *args, name="dominance_matrix_kernel", iters=20):
+    """Median device time of the named kernel from torch.profiler, or None
+    when the profiler records no device activity."""
+    us = [t for n, t in _device_events(fn, *args, iters=iters) if name in n]
     return statistics.median(us) / 1e3 if us else None
+
+
+def device_total_ms(fn, *args, iters=20):
+    """Device time of one call of ``fn``, all its kernels together (the
+    mean over ``iters`` calls), or None when the profiler records no device
+    activity."""
+    us = [t for _, t in _device_events(fn, *args, iters=iters)]
+    return sum(us) / iters / 1e3 if us else None
+
+
+def device_kernel_names(fn, *args, iters=5, attempts=3):
+    """The names of the device kernels that calls of ``fn`` run (the
+    profiler now and then records no device activity for a window: then
+    the window is profiled again)."""
+    for _ in range(attempts):
+        names = sorted({n for n, _ in _device_events(fn, *args, iters=iters)})
+        if names:
+            return names
+    return []
 
 
 def dominance_bound_ms(P, M):
@@ -602,10 +633,14 @@ def decode_timing(lens, Smax=512, Hq=16, Hkv=8, D=128):
                bound_ms=bound,
                bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
                          >= ops_n / BF16_OPS_PER_S else "operations"))
+    got = ops.gqa_decode_attention(q, k, v, kl)
+    out["max_abs_err"] = _check_close("decode", got, ref.gqa_decode(
+        q, k, v, kl), "bfloat16", out["shape"])
     try:
-        torch.testing.assert_close(library()[:, :, 0], ops.gqa_decode_attention(
-            q, k, v, kl), atol=2e-2, rtol=2e-2)
+        torch.testing.assert_close(library()[:, :, 0], got, atol=2e-2,
+                                   rtol=2e-2)
         out["library_ms"] = time_ms(library)
+        out["library_device_ms"] = device_total_ms(library)
     except (TypeError, RuntimeError) as e:   # SDPA without enable_gqa
         out["library_ms"], out["library_error"] = None, repr(e)[:200]
     return out
@@ -640,12 +675,46 @@ def flash_timing(S, causal=True, B=1, Hq=16, Hkv=8, D=128):
                                   ops_n / BF16_OPS_PER_S),
                bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
                          >= ops_n / BF16_OPS_PER_S else "operations"))
+    got = ops.flash_attention(q, k, v, causal)
+    out["max_abs_err"] = _check_close("flash", got, ref.mha_prefill(
+        q, k, v, causal=causal), "bfloat16", out["shape"])
     try:
-        torch.testing.assert_close(library(), ops.flash_attention(
-            q, k, v, causal), atol=2e-2, rtol=2e-2)
+        torch.testing.assert_close(library(), got, atol=2e-2, rtol=2e-2)
         out["library_ms"] = time_ms(library)
+        out["library_device_ms"] = device_total_ms(library)
     except (TypeError, RuntimeError) as e:
         out["library_ms"], out["library_error"] = None, repr(e)[:200]
+    return out
+
+
+def flash_groups_timing():
+    """Device time of the bf16 flash kernel with one and with two
+    warpgroups a block, forced, at the serving heads: the evidence for
+    ``flash_attention.flash_groups``' choice."""
+    import torch
+    from repro_torch.kernels import flash_attention, ops
+    gen = torch.Generator().manual_seed(11)
+    auto = flash_attention.flash_groups
+    out = {}
+    try:
+        for S in (64, 128, 512, 1088):
+            q, k, v = (torch.randn((1, S, h, 128), generator=gen)
+                       .to(torch.bfloat16).cuda().transpose(1, 2)
+                       for h in (16, 8, 8))
+            for g in (1, 2):
+                flash_attention.flash_groups = lambda *a, g=g: g
+                out[f"S{S}_groups{g}_device_ms"] = device_kernel_ms(
+                    ops.flash_attention, q, k, v, True,
+                    name="flash_attention_kernel")
+        q, kp, vp, k, v = _ext_case(1, 16, 8, 128, 1088, 128, torch.bfloat16,
+                                    gen)
+        for g in (1, 2):
+            flash_attention.flash_groups = lambda *a, g=g: g
+            out[f"extend_1088_128_224_groups{g}_device_ms"] = \
+                device_kernel_ms(ops.flash_attention_extend, q, kp, vp, k,
+                                 v, 224, name="flash_attention_kernel")
+    finally:
+        flash_attention.flash_groups = auto
     return out
 
 
@@ -728,27 +797,112 @@ def extend_timing(S_pre, Sq, plen, B=1, Hq=16, Hkv=8, D=128):
                                   ops_n / BF16_OPS_PER_S),
                bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
                          >= ops_n / BF16_OPS_PER_S else "operations"))
+    got = ops.flash_attention_extend(q, kp, vp, k, v, plen)
+    out["max_abs_err"] = _check_close("flash_extend", got,
+                                      ref.mha_prefill_extend(q, kp, vp, k, v,
+                                                             plen),
+                                      "bfloat16", out["shape"])
     try:
-        torch.testing.assert_close(library(), ops.flash_attention_extend(
-            q, kp, vp, k, v, plen), atol=2e-2, rtol=2e-2)
+        torch.testing.assert_close(library(), got, atol=2e-2, rtol=2e-2)
         out["library_ms"] = time_ms(library)
+        out["library_device_ms"] = device_total_ms(library)
     except (TypeError, RuntimeError) as e:
         out["library_ms"], out["library_error"] = None, repr(e)[:200]
     return out
+
+
+def _kernel_name(signature):
+    """A profiled kernel's name without its namespace and arguments."""
+    import re
+    return re.search(r"\w+_kernel\w*(<[^>]*>)?", signature).group(0)
+
+
+def check_kernel_routes():
+    """bf16 flash runs the tensor-core (wgmma) kernel and f32 flash the
+    CUDA-core one, by the names the profiler records; the decode kernel
+    splits every (b, kv head) over several blocks at the serving Smax;
+    inputs the 16-byte copies cannot take raise ValueError."""
+    import torch
+    from repro_torch.kernels import decode_attention, ops
+    gen = torch.Generator().manual_seed(10)
+    routes = {}
+    for dname, dt in _dtypes().items():
+        q, k, v = (torch.randn((1, 128, h, 128), generator=gen).to(dt)
+                   .cuda().transpose(1, 2) for h in (16, 8, 8))
+        every = device_kernel_names(ops.flash_attention, q, k, v, True)
+        names = [n for n in every if "flash_attention_kernel" in n]
+        want = {"bfloat16": "flash_attention_kernel_wgmma",
+                "float32": "flash_attention_kernel<float>"}[dname]
+        assert names and all(want in n for n in names), (dname, every)
+        routes[dname] = sorted({_kernel_name(n) for n in names})
+    # bf16 warpgroups per block, as flash_attention.flash_groups picks them:
+    # one for a single key tile (S 64), two from two tiles on (S 128)
+    for S, groups in ((64, 1), (128, 2)):
+        qs, ks, vs = (torch.randn((1, S, h, 128), generator=gen)
+                      .to(torch.bfloat16).cuda().transpose(1, 2)
+                      for h in (16, 8, 8))
+        got = {_kernel_name(n) for n in device_kernel_names(
+            ops.flash_attention, qs, ks, vs, True)
+            if "flash_attention_kernel" in n}
+        assert got == {f"flash_attention_kernel_wgmma<128, {groups}>"}, got
+        routes[f"bfloat16_S{S}"] = sorted(got)
+    qd, kd, vd, kl = _dec_case(8, 16, 8, 128, 512, [512] * 8,
+                               torch.bfloat16, gen, True)
+    dec_names = [n for n in device_kernel_names(ops.gqa_decode_attention,
+                                                qd, kd, vd, kl)
+                 if "gqa_decode_kernel" in n]
+    # the split kernel's ticket buffer: an int* (mangled "Pi") parameter
+    assert len(dec_names) == 1 and ("int*" in dec_names[0]
+                                    or "PfPi" in dec_names[0]), dec_names
+    splits = {Smax: decode_attention.decode_split(8, 8, Smax, torch.cuda
+                                                  .get_device_properties(0)
+                                                  .multi_processor_count)
+              for Smax in (512, 1088)}
+    assert all(sp > 1 for _, sp in splits.values()), splits
+
+    def unaligned(shape):
+        """A view whose row stride is not a multiple of 16 bytes, and one
+        2 bytes past an aligned address."""
+        n = math.prod(shape)
+        odd = torch.zeros(shape[:-1] + (shape[-1] + 4,), dtype=torch.bfloat16,
+                          device="cuda")[..., :shape[-1]]
+        raw = torch.zeros(n + 8, dtype=torch.bfloat16, device="cuda")
+        return odd, raw[1:1 + n].view(shape)
+
+    def refuses(fn, *args):
+        try:
+            fn(*args)
+        except ValueError:
+            return True
+        return False
+
+    qb = q.to(torch.bfloat16)
+    refused = sum(refuses(ops.gqa_decode_attention, qd, bad, bad, kl)
+                  for bad in unaligned((8, 8, 512, 128)))
+    refused += sum(refuses(ops.flash_attention, qb, bad, bad, True)
+                   for bad in unaligned((1, 8, 128, 128)))
+    assert refused == 4, refused
+    return {"flash_kernels": routes,
+            "decode_kernel": _kernel_name(dec_names[0]),
+            "decode_split": {str(k): list(v) for k, v in splits.items()},
+            "unaligned_refused": refused}
 
 
 def phase_attention_kernels():
     n_dec, dec_err = check_decode_kernel()
     n_fa, fa_err = check_flash_kernel()
     n_ext, ext_err = check_flash_extend()
+    routes = check_kernel_routes()
     lens = _serving_kv_lens()
-    row = {"phase": "attention_kernels",
+    row = {"phase": "attention_kernels", "routes": routes,
            "decode": {"cases": n_dec, "max_abs_err": dec_err,
                       "serving": decode_timing(lens),
                       "full_cache": decode_timing([512] * 8)},
            "flash": {"cases": n_fa, "max_abs_err": fa_err,
                      "serving": flash_timing(128),
-                     "s512": flash_timing(512)},
+                     "s64": flash_timing(64),
+                     "s512": flash_timing(512),
+                     "groups": flash_groups_timing()},
            "flash_extend": {"cases": n_ext, "max_abs_err": ext_err}}
     emit(row)
     return row
@@ -770,6 +924,8 @@ def _profile_step(engine, n_steps=5):
         engine.step()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+    # the kv_len the decode kernel reads in the profiled iteration
+    decode_kv_len = (engine.cache.kv_len + 1).tolist()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -788,7 +944,7 @@ def _profile_step(engine, n_steps=5):
     wall = statistics.median(walls)
     return {"step_wall_s": wall, "profiled_step_wall_s": prof_wall,
             "device_busy_s": busy, "idle_share": 1 - busy / wall,
-            "device_events": n_events,
+            "device_events": n_events, "decode_kv_len": decode_kv_len,
             "top_device_us": by_name.most_common(8),
             "top_host_self_us": host.most_common(8)}
 
@@ -1114,6 +1270,8 @@ def phase_serve_sessions(model, cfg):
                                   "differing_tokens": differing,
                                   "divergences": parts},
            "decode_iteration_profile": prof,
+           "decode_at_profiled_iteration": decode_timing(
+               prof["decode_kv_len"], Smax=serve.SESSION_ENGINE.max_seq),
            "flash_extend_at_median_admission": extend_timing(S_pre, Sq,
                                                              plen)}
     emit(row)
@@ -1248,7 +1406,7 @@ def main():
     ext = sess["flash_extend_at_median_admission"]
     sess_launches = sess["runs"]["prefix_cache"][0]["launches"]
     timing_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                   "device_ms", "shape")
+                   "library_device_ms", "device_ms", "shape")
     emit({"kernels": [{
         "name": "dominance_matrix", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dominance.cu",
@@ -1281,7 +1439,9 @@ def main():
         "max_abs_err": max(dec["max_abs_err"].values()),
         "max_abs_err_by_dtype": dec["max_abs_err"],
         **{k: dec["serving"].get(k) for k in timing_keys},
-        "full_cache": dec["full_cache"]}, {
+        "full_cache": dec["full_cache"],
+        "session": sess["decode_at_profiled_iteration"],
+        "splits": attn["routes"]["decode_split"]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:89",
@@ -1293,7 +1453,8 @@ def main():
                                   .values())),
         "max_abs_err_by_dtype": fa["max_abs_err"],
         **{k: fa["serving"].get(k) for k in timing_keys},
-        "s512": fa["s512"],
+        "s64": fa["s64"], "s512": fa["s512"], "groups": fa["groups"],
+        "kernels_by_dtype": attn["routes"]["flash_kernels"],
         "extend": {"cases": attn["flash_extend"]["cases"],
                    "max_abs_err_by_dtype":
                        attn["flash_extend"]["max_abs_err"],

@@ -3,13 +3,16 @@
 The kernel (``csrc/decode_attention.cu``) replaces the TPU kernel
 ``gqa_decode_attention`` of ``src/repro/kernels/decode_attention.py``; its
 source note says what bounds it and how the design answers. The wrapper
-checks its inputs, allocates the output, launches on PyTorch's current
-stream and counts the launch. It takes CUDA tensors only: the dispatch by
-device lives in ``kernels.ops``.
+checks its inputs, picks how the positions are split over blocks
+(:func:`decode_split`), allocates the output and the blocks' f32 scratch,
+launches on PyTorch's current stream and counts the launch. It takes CUDA
+tensors only: the dispatch by device lives in ``kernels.ops``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Dict, Tuple
 
 import torch
 
@@ -17,6 +20,8 @@ from . import _build
 
 MAX_HEAD_DIM = 128
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: positions one block covers per step (4 warps x 32): a span's multiple
+SPAN_STEP = 128
 
 #: kernel launches since the last reset (a run sets it to 0, then reads it)
 LAUNCHES = 0
@@ -55,6 +60,61 @@ def check_attention_inputs(name: str, q, k, v, q_dims: int,
         raise ValueError(f"{name}: the head dim must be contiguous")
 
 
+def check_alignment(name: str, *ts: torch.Tensor) -> None:
+    """The 16-byte copies (``cp.async``) need every data pointer, every
+    stride times the element size and the head dim's bytes to be multiples
+    of 16 (D % 8 == 0 in bf16); raise ``ValueError`` on what they do not
+    take. Plain host arithmetic on pointers and strides, for any device."""
+    for t in ts:
+        es = t.element_size()
+        if t.shape[-1] % 8:
+            raise ValueError(f"{name}: head dim {t.shape[-1]} is not a "
+                             f"multiple of 8")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: data pointer {t.data_ptr():#x} is "
+                             f"not 16-byte aligned")
+        if any(st * es % 16 for st in t.stride()[:-1]):
+            raise ValueError(f"{name}: strides {tuple(t.stride())} of "
+                             f"{es}-byte elements are not multiples of 16 "
+                             f"bytes")
+
+
+@functools.lru_cache(maxsize=256)
+def decode_split(B: int, Hkv: int, Smax: int, n_sm: int) -> Tuple[int, int]:
+    """(span, splits): the positions of each (b, kv head) go to ``splits``
+    blocks of ``span`` positions each, a multiple of :data:`SPAN_STEP`.
+
+    Chosen from the shapes alone (kv_len lives on the card): the smallest
+    span that keeps the grid within ~4 blocks per SM, so that B * Hkv *
+    splits >= 2 * n_sm where Smax allows (128 positions give 4 splits at
+    Smax 512 and 9 at 1,088 for B 8 x Hkv 8 on 132 SMs), while a large
+    batch keeps few splits and so a cheap merge."""
+    steps = -(-Smax // SPAN_STEP)
+    most = max(1, -(-4 * n_sm // (B * Hkv)))
+    span = SPAN_STEP * -(-steps // min(steps, most))
+    return span, -(-Smax // span)
+
+
+#: one int32 ticket per (b, kv head), by (device, stream): zero between
+#: calls (the merging block resets its own), so no call needs a memset.
+#: Calls on one stream run in order and share a buffer; a call on another
+#: stream gets a buffer of its own, so two streams never race on a ticket.
+_TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    t = _TICKETS.get((device, stream))
+    if t is None or t.numel() < n:
+        t = _TICKETS[device, stream] = torch.zeros(
+            max(n, 64), dtype=torch.int32, device=device)
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def gqa_decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                               v_cache: torch.Tensor,
                               kv_len: torch.Tensor) -> torch.Tensor:
@@ -64,10 +124,12 @@ def gqa_decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     The cache may be any strided view whose head dim is contiguous, such as
     one layer of the engine's (B, Smax, Hkv, D) cache permuted: the kernel
     reads it in place. Positions >= min(kv_len, Smax) are never read; a row
-    with kv_len <= 0 gives zeros."""
+    with kv_len <= 0 gives zeros. The cache's pointers and strides must be
+    16-byte aligned and D a multiple of 8 (:func:`check_alignment`)."""
     global LAUNCHES
     check_attention_inputs("gqa_decode_attention_cuda", q, k_cache, v_cache,
                            3)
+    check_alignment("gqa_decode_attention_cuda", k_cache, v_cache)
     B, Hq, D = q.shape
     Hkv, Smax = k_cache.shape[1], k_cache.shape[2]
     if kv_len.shape != (B,) or kv_len.device != q.device:
@@ -75,13 +137,17 @@ def gqa_decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                          f"{tuple(kv_len.shape)} on {kv_len.device}")
     lens = kv_len.to(torch.int32).contiguous()
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
+    span, splits = decode_split(B, Hkv, Smax, _n_sm(q.device))
+    part = torch.empty(B * Hq * splits * (D + 2), dtype=torch.float32,
+                       device=q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        tickets = _tickets(q.device, stream, B * Hkv)
         err = lib.repro_gqa_decode(
             _ptr(q), _ptr(k_cache), _ptr(v_cache), _ptr(lens), _ptr(out),
-            B, Hq, Hkv, Smax, D, DTYPES[q.dtype],
-            q.stride(0), q.stride(1),
+            _ptr(part), _ptr(tickets), B, Hq, Hkv, Smax, D, DTYPES[q.dtype],
+            span, splits, q.stride(0), q.stride(1),
             *k_cache.stride()[:3], *v_cache.stride()[:3],
             out.stride(0), out.stride(1), ctypes.c_void_p(stream))
     if err != 0:

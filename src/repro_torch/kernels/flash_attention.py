@@ -1,14 +1,16 @@
 """Grouped-query flash attention: the CUDA kernel's wrapper.
 
-The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
-``flash_attention`` of ``src/repro/kernels/flash_attention.py``; its source
-note says what bounds it and how the design answers. Unlike the TPU kernel
-it masks its own ragged tiles, so any sequence length runs as it is. Its
-prefix-extend variant (suffix queries over a cached prefix, then causally
-over the suffix) is the same kernel and the same launch counter. The
-wrappers check their inputs, allocate the output, launch on PyTorch's
-current stream and count the launch. It takes CUDA tensors only: the
-dispatch by device lives in ``kernels.ops``.
+The kernels (``csrc/flash_attention.cu``) replace the TPU kernel
+``flash_attention`` of ``src/repro/kernels/flash_attention.py``; the source
+note says what bounds them and how each design answers. One C entry point
+chooses by the input's type (:func:`route`): bf16 runs on the tensor cores
+(``wgmma``), with one or two warpgroups a block (:func:`flash_groups`),
+f32 on the CUDA cores, whose f32 math alone meets the f32 tolerance. Unlike the TPU kernel they mask their own ragged tiles, so any
+sequence length runs as it is. The prefix-extend variant (suffix queries
+over a cached prefix, then causally over the suffix) is the same kernels
+and the same launch counter. The wrappers check their inputs, allocate the
+output, launch on PyTorch's current stream and count the launch. They take
+CUDA tensors only: the dispatch by device lives in ``kernels.ops``.
 """
 from __future__ import annotations
 
@@ -18,18 +20,49 @@ from typing import Optional
 import torch
 
 from . import _build
-from .decode_attention import DTYPES, _ptr, check_attention_inputs
+from .decode_attention import (DTYPES, _ptr, check_alignment,
+                               check_attention_inputs)
+
+#: query rows of one block of the tensor-core kernel, and keys of one tile
+TILE = 64
 
 #: kernel launches since the last reset (a run sets it to 0, then reads it)
 LAUNCHES = 0
 
 
+def route(dtype: torch.dtype) -> str:
+    """Which kernel the C entry point runs for ``dtype``: "wgmma" (bf16,
+    the tensor cores) or "cuda_cores" (f32)."""
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "cuda_cores"
+    raise ValueError(f"flash attention takes float32 or bfloat16, got "
+                     f"{dtype}")
+
+
+def flash_groups(S: int, prefix_len: int) -> int:
+    """Warpgroups per block of the tensor-core kernel: 2 where the longest
+    row (the last q tile's) has a second key tile for the second warpgroup,
+    else 1. ``chip_smoke.py`` times both on the card: one is faster for a
+    single tile (S 64); two at S 128, S 512 and for the extend variant,
+    and no slower at S 1,088, whose grid holds more blocks than SMs."""
+    return 2 if -(-prefix_len // TILE) - (-S // TILE) >= 2 else 1
+
+
 def _launch(q, k, v, k_pre, v_pre, prefix_len: int,
             causal: bool) -> torch.Tensor:
-    """One launch; prefix_len = 0 leaves k_pre, v_pre unread."""
+    """One launch; prefix_len = 0 leaves k_pre, v_pre unread. The tensor
+    cores' kernel loads its tiles by 16-byte copies, so its inputs must be
+    aligned (:func:`check_alignment`)."""
     global LAUNCHES
     B, Hq, S, D = q.shape
     Hkv = k.shape[1]
+    groups = 1
+    if route(q.dtype) == "wgmma":
+        check_alignment("flash_attention_cuda", q, k, v,
+                        *((k_pre, v_pre) if prefix_len else ()))
+        groups = flash_groups(S, prefix_len)
     out = torch.empty((B, S, Hq, D), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     lib = _build.load()
@@ -38,6 +71,7 @@ def _launch(q, k, v, k_pre, v_pre, prefix_len: int,
         err = lib.repro_flash_attention(
             _ptr(q), _ptr(k), _ptr(v), _ptr(k_pre), _ptr(v_pre), _ptr(out),
             B, Hq, Hkv, S, prefix_len, D, int(causal), DTYPES[q.dtype],
+            groups,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *k_pre.stride()[:3], *v_pre.stride()[:3], *out.stride()[:3],
             ctypes.c_void_p(stream))

@@ -359,3 +359,301 @@ def test_new_kernels_dispatch_by_device_without_launching_on_the_cpu():
                                                         lens)
     with pytest.raises(ValueError, match="CUDA tensor"):
         flash_attention.flash_attention_extend_cuda(qs, kp, kp, ks, ks)
+
+
+# ---------------------------------------------------------------------------
+# the arithmetic of the Hopper kernels, rehearsed in plain torch
+# ---------------------------------------------------------------------------
+# The CUDA kernels run only on the card, where chip_smoke.py holds them
+# against ``kernels.ref``. What they compute differs from the plain versions
+# in order and rounding, so the same arithmetic is rehearsed here, in short
+# copies that can drift from the .cu files, and held against
+# ``kernels.ref``: the bf16 flash kernel's 64-key tiles (scores in f32,
+# scaled after the product, a base-2 online softmax, P rounded to bf16
+# before P.V, rows past a limit zero, tiles dealt to two warpgroups and
+# merged) and the decode kernel's split over positions (per split, warps of
+# 32 positions each with an online softmax, merged in warp order, then the
+# splits in split order).
+
+LOG2E = 1.4426950408889634
+
+
+def _tiles_of(kk, vv, limit, tile=64):
+    """(k0, K tile, V tile) of rows [0, limit), each zero-padded to ``tile``
+    rows as the kernel's zero-filling copies leave them."""
+    out = []
+    for k0 in range(0, limit, tile):
+        rows = min(tile, limit - k0)
+        pad = lambda t: torch.cat([t[:, :, k0:k0 + rows], t.new_zeros(  # noqa
+            t.shape[:2] + (tile - rows, t.shape[3]))], dim=2)
+        out.append((k0, pad(kk), pad(vv)))
+    return out
+
+
+def _tiled_flash_bf16(q, k, v, k_pre=None, v_pre=None, prefix_len=0,
+                      causal=True, groups=1):
+    """A rehearsal of the bf16 tensor-core flash kernel's arithmetic over
+    64-key tiles; (B, Hq, S, D) bf16 q, (B, Hkv, S, D) k, v and a prefix
+    read up to prefix_len. The running max is of scores scaled to base 2; a
+    row that has met no valid key subtracts 0 instead of -inf. With
+    ``groups`` warpgroups the tiles are dealt in turns, each warpgroup keeps
+    its own state, and the first merges the others' in order."""
+    B, Hq, S, D = q.shape
+    G = Hq // k.shape[1]
+    rep = lambda t: t.float().repeat_interleave(G, dim=1)  # noqa: E731
+    qf = q.float()
+    ninf = float("-inf")
+    rows = torch.arange(S)[:, None]
+    scale = D ** -0.5 * LOG2E
+    steps = [(t, False, prefix_len)
+             for t in _tiles_of(k_pre, v_pre, prefix_len)
+             ] if prefix_len else []
+    steps += [(t, causal, S) for t in _tiles_of(k, v, S)]
+    states = []
+    for g in range(groups):
+        m = torch.full((B, Hq, S), ninf)
+        l, acc = torch.zeros((B, Hq, S)), torch.zeros((B, Hq, S, D))
+        for (k0, kt, vt), diag, lim in steps[g::groups]:
+            s = torch.einsum("bhqd,bhkd->bhqk", qf, rep(kt))
+            col = k0 + torch.arange(kt.shape[2])[None, :]
+            ok = (col < lim) & (~torch.tensor(diag) | (col <= rows))
+            s = torch.where(ok, s, ninf)
+            mn = torch.maximum(m, s.amax(-1) * scale)
+            b = torch.where(mn == ninf, 0.0, mn)
+            alpha = torch.exp2(m - b)
+            p = torch.exp2(s * scale - b[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(), rep(vt))
+            m = mn
+        states.append((m, l, acc))
+    m, l, acc = states[0]
+    for mb, lb, accb in states[1:]:
+        mn = torch.maximum(m, mb)
+        b = torch.where(mn == ninf, 0.0, mn)
+        ca, cb = torch.exp2(m - b), torch.exp2(mb - b)
+        l = l * ca + lb * cb
+        acc = acc * ca[..., None] + accb * cb[..., None]
+        m = mn
+    return (acc / l.clamp(min=1e-30)[..., None]).to(q.dtype)
+
+
+def _bf16(rng, *shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("Hq,Hkv,D", [(16, 8, 128), (32, 32, 80),
+                                      (8, 1, 64)])
+@pytest.mark.parametrize("S", [1, 17, 64, 65, 130])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tiled_bf16_flash_arithmetic_matches_plain(Hq, Hkv, D, S, causal):
+    """64-key tiles, scores scaled after the product, P rounded to bf16:
+    within the 2e-2 bf16 tolerance of ``ref.mha_prefill``, ragged S
+    included."""
+    rng = np.random.default_rng(S * 31 + D)
+    q, k, v = _bf16(rng, 1, Hq, S, D), _bf16(rng, 1, Hkv, S, D), \
+        _bf16(rng, 1, Hkv, S, D)
+    got = _tiled_flash_bf16(q, k, v, causal=causal)
+    _close(got, ref.mha_prefill(q, k, v, causal=causal).float().numpy(),
+           2e-2)
+
+
+@pytest.mark.parametrize("S_pre,Sq,plen", [(16, 8, None), (200, 1, None),
+                                           (64, 17, 40), (32, 33, 0),
+                                           (160, 64, 130), (192, 70, 128)])
+def test_tiled_bf16_flash_extend_arithmetic_matches_plain(S_pre, Sq, plen):
+    """The extend variant's tiles: the prefix's up to prefix_len, then the
+    suffix's causally; NaN past prefix_len is never read."""
+    rng = np.random.default_rng(S_pre + Sq)
+    Hq, Hkv, D = 16, 8, 128
+    q = _bf16(rng, 1, Hq, Sq, D)
+    kp, vp = _bf16(rng, 1, Hkv, S_pre, D), _bf16(rng, 1, Hkv, S_pre, D)
+    k, v = _bf16(rng, 1, Hkv, Sq, D), _bf16(rng, 1, Hkv, Sq, D)
+    n = S_pre if plen is None else plen
+    kp[:, :, n:], vp[:, :, n:] = float("nan"), float("nan")
+    got = _tiled_flash_bf16(q, k, v, kp, vp, n)
+    assert torch.isfinite(got).all()
+    want = ref.mha_prefill_extend(q, kp, vp, k, v, plen)
+    _close(got, want.float().numpy(), 2e-2)
+
+
+@pytest.mark.parametrize("S,causal,S_pre,plen", [
+    (64, True, 0, 0), (128, True, 0, 0), (130, False, 0, 0),
+    (257, True, 0, 0), (128, True, 1088, 224), (64, True, 200, 130),
+    (1, True, 192, 128)])
+def test_two_warpgroup_flash_arithmetic_matches_plain(S, causal, S_pre,
+                                                      plen):
+    """Tiles dealt to two warpgroups in turns and merged in order (an odd
+    tile count leaves the second an empty tile): within the 2e-2 bf16
+    tolerance of the plain versions."""
+    rng = np.random.default_rng(S + S_pre)
+    Hq, Hkv, D = 16, 8, 128
+    q, k, v = (_bf16(rng, 1, h, S, D) for h in (Hq, Hkv, Hkv))
+    if S_pre:
+        kp, vp = _bf16(rng, 1, Hkv, S_pre, D), _bf16(rng, 1, Hkv, S_pre, D)
+        got = _tiled_flash_bf16(q, k, v, kp, vp, plen, groups=2)
+        want = ref.mha_prefill_extend(q, kp, vp, k, v, plen)
+    else:
+        got = _tiled_flash_bf16(q, k, v, causal=causal, groups=2)
+        want = ref.mha_prefill(q, k, v, causal=causal)
+    _close(got, want.float().numpy(), 2e-2)
+
+
+def test_flash_groups_from_the_shapes():
+    """Two warpgroups where the longest row has a second key tile; one
+    otherwise."""
+    g = flash_attention.flash_groups
+    assert g(1, 0) == g(64, 0) == 1           # one key tile
+    assert g(65, 0) == g(128, 0) == g(512, 0) == g(1088, 0) == 2
+    assert g(128, 224) == 2                   # the session median extend
+    assert g(1, 64) == g(64, 960) == 2        # prefix tiles, then one more
+
+
+def _split_decode(q, k, v, kv_len, span):
+    """A rehearsal of the decode kernel's arithmetic in f32: (B, Hq, D) q
+    over (B, Hkv, Smax, D) caches, positions split in spans of ``span``.
+    The kernel itself is held against ``ref`` on the card (chip_smoke)."""
+    B, Hq, D = q.shape
+    Hkv, Smax = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    splits = -(-Smax // span)
+    ninf = float("-inf")
+    out = torch.zeros((B, Hq, D))
+
+    def merge(states):       # in the given order
+        mm = torch.stack([s[0] for s in states]).amax(0)
+        ll, aa = torch.zeros(G), torch.zeros((G, D))
+        for m, l, a in states:
+            c = torch.where(m == ninf, 0.0, torch.exp(m - mm))
+            ll = ll + torch.where(m == ninf, 0.0, l * c)
+            aa = aa + torch.where((m == ninf)[:, None], 0.0, a * c[:, None])
+        return mm, ll, aa
+
+    for b in range(B):
+        n = min(max(int(kv_len[b]), 0), Smax)
+        for hk in range(Hkv):
+            qg = q[b, hk * G:(hk + 1) * G].float()
+            parts = []
+            for sp in range(splits):
+                lo, hi = sp * span, min(sp * span + span, n)
+                empty = (torch.full((G,), ninf), torch.zeros(G),
+                         torch.zeros((G, D)))
+                if lo >= hi:
+                    parts.append(empty)
+                    continue
+                warps = []
+                for w in range(4):
+                    m, l, a = empty
+                    for s0 in range(lo + 32 * w, hi, 128):
+                        kc = k[b, hk, s0:min(s0 + 32, hi)].float()
+                        vc = v[b, hk, s0:min(s0 + 32, hi)].float()
+                        sc = (qg @ kc.T) * D ** -0.5
+                        mn = torch.maximum(m, sc.amax(-1))
+                        alpha = torch.where(mn == ninf, 1.0,
+                                            torch.exp(m - mn))
+                        p = torch.exp(sc - mn[:, None])
+                        l = l * alpha + p.sum(-1)
+                        a = a * alpha[:, None] + p @ vc
+                        m = mn
+                    warps.append((m, l, a))
+                parts.append(merge(warps))
+            _, ll, aa = merge(parts)
+            out[b, hk * G:(hk + 1) * G] = aa / ll.clamp(min=1e-30)[:, None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("splits", range(1, 10))
+def test_split_decode_arithmetic_matches_plain(splits):
+    """1-9 spans of 128 positions, merged in split order: within 1e-6 of
+    ``ref.gqa_decode`` in f32, with empty spans, kv_len 0 and past Smax."""
+    Smax = 128 * splits - 5
+    B, Hq, Hkv, D = 4, 8, 2, 32
+    span, got_splits = decode_attention.decode_split(B, Hkv, Smax, 132)
+    assert (span, got_splits) == (128, splits)
+    rng = np.random.default_rng(splits)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((B, Hq, D), (B, Hkv, Smax, D), (B, Hkv, Smax, D)))
+    lens = torch.tensor([0, Smax + 40, 1 + (Smax - 1) // 2, 128 if
+                         splits > 1 else 33], dtype=torch.int32)
+    got = _split_decode(q, k, v, lens, span)
+    torch.testing.assert_close(got, ref.gqa_decode(q, k, v, lens),
+                               rtol=1e-6, atol=1e-6)
+    assert not got[0].any()
+
+
+def test_split_decode_with_spans_of_several_steps():
+    """A large batch on few SMs gets spans of several 128-position steps;
+    each warp then walks its positions in steps of 128."""
+    span, splits = decode_attention.decode_split(2, 2, 1088, n_sm=2)
+    assert (span, splits) == (640, 2)
+    rng = np.random.default_rng(40)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((2, 4, 16), (2, 2, 1088, 16), (2, 2, 1088, 16)))
+    lens = torch.tensor([1000, 641], dtype=torch.int32)
+    torch.testing.assert_close(_split_decode(q, k, v, lens, span),
+                               ref.gqa_decode(q, k, v, lens),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("B,Hkv", [(1, 1), (2, 2), (8, 8), (8, 1), (64, 8),
+                                   (256, 8)])
+@pytest.mark.parametrize("Smax", [1, 64, 127, 128, 512, 520, 1088, 32768])
+def test_decode_split_fills_the_card_from_the_shapes(B, Hkv, Smax):
+    """Spans are multiples of 128 that cover Smax with no empty tail
+    split; the grid holds at least 2 blocks per SM where Smax allows, and
+    not many more than 4."""
+    n_sm = 132
+    span, splits = decode_attention.decode_split(B, Hkv, Smax, n_sm)
+    assert span % decode_attention.SPAN_STEP == 0 and span > 0
+    assert (splits - 1) * span < Smax <= splits * span
+    steps = -(-Smax // 128)
+    assert B * Hkv * splits >= min(2 * n_sm, B * Hkv * steps) or splits == 1
+    assert splits <= max(1, -(-4 * n_sm // (B * Hkv)))
+
+
+def test_decode_split_at_the_serving_shapes():
+    assert decode_attention.decode_split(8, 8, 512, 132) == (128, 4)
+    assert decode_attention.decode_split(8, 8, 1088, 132) == (128, 9)
+
+
+def test_alignment_check_takes_the_engine_views_and_refuses_the_rest():
+    ok = [torch.zeros((2, 512, 8, 128), dtype=torch.bfloat16)
+          .permute(0, 2, 1, 3),                      # the engine's cache
+          torch.zeros((1, 64, 16, 80), dtype=torch.bfloat16)
+          .transpose(1, 2),                          # projections, D 80
+          torch.zeros((3, 4, 9, 64), dtype=torch.float32)]
+    decode_attention.check_alignment("t", *ok)
+    base = torch.zeros(4 * 9 * 64 + 8, dtype=torch.bfloat16)
+    odd_stride = torch.zeros((1, 2, 9, 68), dtype=torch.bfloat16)[..., :64]
+    offset = base[1:1 + 4 * 9 * 64].view(1, 4, 9, 64)
+    narrow = torch.zeros((1, 2, 9, 12), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="strides"):
+        decode_attention.check_alignment("t", ok[0], odd_stride)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        decode_attention.check_alignment("t", offset)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        decode_attention.check_alignment("t", narrow)
+
+
+def test_flash_route_by_dtype():
+    assert flash_attention.route(torch.bfloat16) == "wgmma"
+    assert flash_attention.route(torch.float32) == "cuda_cores"
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention.route(torch.float16)
+
+
+def test_decode_tickets_are_kept_per_stream():
+    """Calls on one stream share a zeroed ticket buffer; another stream
+    gets its own, so calls on two streams never race on a ticket."""
+    dev = torch.device("cpu")
+    a = decode_attention._tickets(dev, 11, 16)
+    assert a.dtype == torch.int32 and a.numel() >= 16 and not a.any()
+    assert decode_attention._tickets(dev, 11, 8) is a
+    b = decode_attention._tickets(dev, 12, 16)
+    assert b is not a and not b.any()
+    big = decode_attention._tickets(dev, 11, 4096)
+    assert big.numel() >= 4096 and decode_attention._tickets(dev, 11, 16) \
+        is big
+    for key in ((dev, 11), (dev, 12)):
+        del decode_attention._TICKETS[key]

@@ -128,7 +128,8 @@ def test_kernel_build_targets_hopper_and_reports_failures(tmp_path,
     assert [s.name for s in srcs] == ["decode_attention.cu", "dominance.cu",
                                       "flash_attention.cu",
                                       "paged_attention.cu"]
-    assert [h.name for h in _build.headers()] == ["attention_tile.cuh"]
+    assert [h.name for h in _build.headers()] == ["attention_tile.cuh",
+                                                  "cp_async.cuh"]
     for s in srcs:
         cmd = _build.compile_command("nvcc", s, tmp_path / "k.o")
         assert "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd
