@@ -10,8 +10,12 @@ prefix reuse on session traffic, in phases that each print one JSON line
 
 1. card: ``nvidia-smi`` name and power limit, torch/CUDA versions, build time;
 2. kernels: the dominance kernel against its plain PyTorch version on the
-   card (exact), and its time beside the plain version's and the card's
-   bound;
+   card (exact) over P in {1, 7, 15, 16, 17, 100, 130, 200, 1000, 4096,
+   4099, 4104}, M in {1, 2, 3, 4, 8, 9, 32}, f32/bf16/f16 and f32 with
+   +-inf, NaN, signed zeros, subnormals and +-3.4e38; by the profiled
+   names, M 3 runs the register kernel (``dominance_matrix_kernel<3>``) and
+   M 9 the shared-memory one (``<0>``); its time at P = 200, 4096 and 4104
+   beside the plain version's and the card's bound;
 3. main path: ``repro_torch.quickstart.run_quickstart()`` at full size (500
    requests, pop 100, 60 generations); the dominance kernel must launch
    exactly 61 times (init + 60 generations), the attention kernels never;
@@ -47,10 +51,11 @@ prefix reuse on session traffic, in phases that each print one JSON line
    rows, and on every objective matrix that phases 3 and 5 sorted; timed at
    P = 200 and 4096;
 10. paged kernel: the paged decode kernel against its plain version (2e-5
-   f32, 2e-2 bf16) and against the decode kernel on the gathered cache, in
+   f32, 2e-2 bf16) and bit for bit equal to the decode kernel on the
+   gathered cache (the same split kernel with other row addresses), in
    the TPU pool layout and the serving store's, block sizes 8 and 16, pad
    entries, negative ids, kv_len 0, NaN in unreferenced blocks (output bit
-   for bit unchanged);
+   for bit unchanged); unaligned pools must raise;
 11. serve sessions: the 47 requests of the multi-turn session trace with
    the same model on 8 slots of 1,088 positions, with the paged prefix
    cache (16-token blocks) and without, in turns (on, off, off, on);
@@ -62,8 +67,10 @@ prefix reuse on session traffic, in phases that each print one JSON line
    prefix-extend variant at the run's median admission;
 12. paged on pools: block tables from the served prompts' cached blocks,
    8 rows a batch, the paged kernel held on all 28 layers of the store's
-   pools against the decode kernel on the gathered cache and against the
-   plain version (one row ending mid-block), and timed there.
+   pools bit for bit against the decode kernel on the gathered cache and
+   against the plain version (one row ending mid-block), and timed there
+   beside the decode kernel on the gathered cache; by the profiled trace,
+   a paged call launches splits x Hkv x B blocks of the split kernel.
 
 Phase 6 also holds the flash kernel's prefix-extend variant against its
 plain version (bucketed and exact-length, garbage and NaN past prefix_len).
@@ -93,8 +100,11 @@ DEC_SMAX = (64, 512, 520, 1088)
 FA_S = (1, 17, 64, 128, 192, 200, 512)
 SERVE_MODEL, SERVE_REQUESTS = "qwen3-1.7b", 32
 CHECK_LAYERS, CHECK_REQUESTS = 2, 8
-DOM_CASES_P = (1, 7, 100, 130, 200, 1000, 4096, 4099)
-DOM_CASES_M = (1, 2, 3, 4, 8)
+DOM_CASES_P = (1, 7, 15, 16, 17, 100, 130, 200, 1000, 4096, 4099, 4104)
+DOM_CASES_M = (1, 2, 3, 4, 8, 9, 32)
+# the split decode kernel's two instantiations, by their profiled names
+DECODE_KERNEL = "ContiguousRows"
+PAGED_KERNEL = "PagedRows"
 COUNT_CASES_P = (1, 63, 64, 65, 200, 4096, 4099)
 COUNT_CASES_M = tuple(range(1, 9))
 # (B, Hq, Hkv, n_blocks, block_size, max_blocks, D): tests/test_kernels.py's
@@ -148,11 +158,17 @@ def _device_events(fn, *args, iters=20):
             if ev.device_type.name == "CUDA"]
 
 
-def device_kernel_ms(fn, *args, name="dominance_matrix_kernel", iters=20):
+def device_kernel_ms(fn, *args, name="dominance_matrix_kernel", iters=20,
+                     attempts=3):
     """Median device time of the named kernel from torch.profiler, or None
-    when the profiler records no device activity."""
-    us = [t for n, t in _device_events(fn, *args, iters=iters) if name in n]
-    return statistics.median(us) / 1e3 if us else None
+    when the profiler records no device activity (a window without any is
+    profiled again, up to ``attempts`` times)."""
+    for _ in range(attempts):
+        us = [t for n, t in _device_events(fn, *args, iters=iters)
+              if name in n]
+        if us:
+            return statistics.median(us) / 1e3
+    return None
 
 
 def device_total_ms(fn, *args, iters=20):
@@ -171,6 +187,32 @@ def device_kernel_names(fn, *args, iters=5, attempts=3):
         names = sorted({n for n, _ in _device_events(fn, *args, iters=iters)})
         if names:
             return names
+    return []
+
+
+def device_kernel_grids(fn, *args, name, iters=3, attempts=3):
+    """The grids (blocks along x, y, z) of the device kernels whose name
+    holds ``name`` over ``iters`` calls of ``fn``, from the profiler's
+    Chrome trace (written under build/, read and removed)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    path = Path(__file__).resolve().parent / "build" / "chip_smoke_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    fn(*args)
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn(*args)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        path.unlink()
+        grids = [tuple(e["args"]["grid"]) for e in events
+                 if e.get("cat") == "kernel" and name in e.get("name", "")
+                 and "grid" in e.get("args", {})]
+        if grids:
+            return grids
     return []
 
 
@@ -209,16 +251,34 @@ def _dominance_input(P, M, dtype, gen):
     return F.to(dtype).cuda()
 
 
+def _dominance_special(P, M, gen):
+    """f32 objectives where the kernel's subtraction path could go wrong
+    and where it must step aside: +-inf, NaN, signed zeros, subnormals and
+    the largest finite values (their differences overflow)."""
+    import torch
+    F = torch.round(torch.rand((P, M), generator=gen) * 8) / 8 - 0.5
+    big = torch.finfo(torch.float32).max
+    edge = [float("inf"), float("-inf"), float("nan"), -0.0, 0.0, 1e-45,
+            -1e-45, big, -big]
+    for r in range(min(P, 3 * len(edge))):
+        F[r, r % M] = edge[r % len(edge)]
+    if P > 1:
+        F[P - 1] = F[0]
+    return F.cuda()
+
+
 def phase_kernels():
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import dominance, ops, ref
     gen = torch.Generator().manual_seed(0)
     n_cases = n_exact = 0
     max_err = 0
     for P in DOM_CASES_P:
         for M in DOM_CASES_M:
-            for dtype in (torch.float32, torch.bfloat16, torch.float16):
-                F = _dominance_input(P, M, dtype, gen)
+            for dtype in (torch.float32, torch.bfloat16, torch.float16,
+                          "special"):
+                F = (_dominance_special(P, M, gen) if dtype == "special"
+                     else _dominance_input(P, M, dtype, gen))
                 got = ops.dominance_matrix(F)
                 torch.cuda.synchronize()
                 want = ref.dominance_matrix(F)
@@ -229,16 +289,29 @@ def phase_kernels():
                 n_cases += 1
                 n_exact += bool(torch.equal(got, want))
     assert n_exact == n_cases, f"kernel != plain in {n_cases - n_exact} cases"
+    # M <= 8 keeps the column objectives in registers (a kernel per M), a
+    # larger M in shared memory (<0>)
+    names = {}
+    for M, want in ((3, "dominance_matrix_kernel<3>"),
+                    (9, "dominance_matrix_kernel<0>")):
+        F = torch.rand((4096, M), device="cuda")
+        got = {_kernel_name(n) for n in device_kernel_names(
+            ops.dominance_matrix, F) if "dominance_matrix_kernel" in n}
+        assert got == {want}, (M, got)
+        names[f"M{M}"] = want
     timing = {}
-    for P in (200, 4096):
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for P in (200, 4096, 4104):
         F = torch.rand((P, 3), device="cuda")
         timing[P] = dict(
             ms=time_ms(ops.dominance_matrix, F),
             plain_ms=time_ms(ref.dominance_matrix, F),
             device_ms=device_kernel_ms(ops.dominance_matrix, F),
-            bound_ms=dominance_bound_ms(P, 3))
+            bound_ms=dominance_bound_ms(P, 3),
+            grid=list(dominance.dominance_grid(P, n_sm)))
     row = {"phase": "kernels", "name": "dominance_matrix", "cases": n_cases,
            "exact": n_exact == n_cases, "max_abs_err": max_err,
+           "kernel_names": names,
            "timing": {str(P): t for P, t in timing.items()}}
     emit(row)
     return row
@@ -628,7 +701,7 @@ def decode_timing(lens, Smax=512, Hq=16, Hkv=8, D=128):
                       "kv_len": list(lens), "dtype": "bfloat16"},
                ms=time_ms(ops.gqa_decode_attention, q, k, v, kl),
                device_ms=device_kernel_ms(ops.gqa_decode_attention, q, k, v,
-                                          kl, name="gqa_decode_kernel"),
+                                          kl, name=DECODE_KERNEL),
                plain_ms=time_ms(ref.gqa_decode, q, k, v, kl),
                bound_ms=bound,
                bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
@@ -850,7 +923,7 @@ def check_kernel_routes():
                                torch.bfloat16, gen, True)
     dec_names = [n for n in device_kernel_names(ops.gqa_decode_attention,
                                                 qd, kd, vd, kl)
-                 if "gqa_decode_kernel" in n]
+                 if "split_decode_kernel" in n and DECODE_KERNEL in n]
     # the split kernel's ticket buffer: an int* (mangled "Pi") parameter
     assert len(dec_names) == 1 and ("int*" in dec_names[0]
                                     or "PfPi" in dec_names[0]), dec_names
@@ -1092,12 +1165,15 @@ def _gather_rows(pool, bt):
 
 
 def phase_paged_kernel():
+    """The paged kernel against its plain version, and bit for bit equal to
+    the decode kernel on the gathered cache (max_blocks * bs positions: the
+    same spans and splits); NaN in unreferenced blocks changes nothing;
+    pools the 16-byte copies cannot take raise ValueError."""
     import torch
     from repro_torch.kernels import ops, ref
     gen = torch.Generator().manual_seed(8)
-    n = 0
+    n = n_equal = 0
     errs = {k: 0.0 for k in TOL}
-    vs_decode = 0.0
     for dname, dt in _dtypes().items():
         for B, Hq, Hkv, nb, bs, mb, D in PAGED_CASES:
             for layout in (False, True):
@@ -1111,8 +1187,10 @@ def phase_paged_kernel():
                     "paged", got, want, dname, case))
                 dec = ops.gqa_decode_attention(q, _gather_rows(k, bt),
                                                _gather_rows(v, bt), lens)
-                _check_close("paged vs decode", got, dec, dname, case)
-                vs_decode = max(vs_decode, _err(got, dec))
+                assert torch.equal(got, dec), ("paged != decode on the "
+                                               "gathered cache", case,
+                                               _err(got, dec))
+                n_equal += 1
                 for b in range(B):
                     if int(lens[b]) <= 0:
                         assert not got[b].any(), ("kv_len 0", case)
@@ -1128,8 +1206,22 @@ def phase_paged_kernel():
                 dirty = ops.paged_gqa_decode_attention(q, k2, v2, bt, lens)
                 assert torch.equal(dirty, got), ("unreferenced NaN", case)
                 n += 2
+    # a pool view with a row stride of 264 bytes, and one 2 bytes past an
+    # aligned address
+    q, k, v, bt, lens = _paged_case(8, 16, 8, 96, 16, 24, 128,
+                                    torch.bfloat16, gen, True)
+    odd = torch.zeros((96, 8, 16, 132), dtype=torch.bfloat16,
+                      device="cuda")[..., :128]
+    raw = torch.zeros(k.numel() + 8, dtype=torch.bfloat16, device="cuda")
+    refused = 0
+    for bad in (odd, raw[1:1 + k.numel()].view(96, 8, 16, 128)):
+        try:
+            ops.paged_gqa_decode_attention(q, bad, bad, bt, lens)
+        except ValueError:
+            refused += 1
+    assert refused == 2, refused
     row = {"phase": "paged_kernel", "cases": n, "max_abs_err": errs,
-           "max_abs_diff_vs_decode_kernel": vs_decode}
+           "equal_to_decode_kernel": n_equal, "unaligned_refused": refused}
     emit(row)
     return row
 
@@ -1292,10 +1384,11 @@ def paged_bound(lens, B, mb, Hq=16, Hkv=8, D=128):
 def phase_paged_on_pools(run, cfg):
     """The paged kernel over the pools the session run filled: block tables
     from each served prompt's cached blocks (``index.match``), 8 rows a
-    batch, the last row ending mid-block; on every layer against the
-    decode kernel on the gathered cache and against the plain version."""
+    batch, the last row ending mid-block; on every layer bit for bit equal
+    to the decode kernel on the gathered cache, and against the plain
+    version."""
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import decode_attention, ops, ref
     store = run.engine.kv
     bs = store.block_size
     tables = [store.cache.index.match(run.prompts[rid])
@@ -1304,7 +1397,7 @@ def phase_paged_on_pools(run, cfg):
     gen = torch.Generator().manual_seed(9)
     B = run.engine.ecfg.max_slots
     n = 0
-    err = vs_decode = 0.0
+    err = 0.0
     timing = None
     for i0 in range(0, len(tables), B):
         rows = tables[i0:i0 + B]
@@ -1326,15 +1419,14 @@ def phase_paged_on_pools(run, cfg):
             vp = store.v[li].permute(0, 2, 1, 3)
             got = ops.paged_gqa_decode_attention(q, kp, vp, bt, kl)
             torch.cuda.synchronize()
-            dec = ops.gqa_decode_attention(q, gk[li].permute(0, 2, 1, 3),
-                                           gv[li].permute(0, 2, 1, 3), kl)
+            dec_kv = (gk[li].permute(0, 2, 1, 3), gv[li].permute(0, 2, 1, 3))
+            dec = ops.gqa_decode_attention(q, *dec_kv, kl)
             plain = ref.paged_gqa_decode(q, kp, vp, bt, kl)
             case = ("pools", i0, li)
             err = max(err, _check_close("paged on pools", got, plain,
                                         "bfloat16", case))
-            _check_close("paged vs decode on pools", got, dec, "bfloat16",
-                         case)
-            vs_decode = max(vs_decode, _err(got, dec))
+            assert torch.equal(got, dec), ("paged != decode on the gathered "
+                                           "cache", case, _err(got, dec))
             n += 1
             if timing is None and len(rows) == B:
                 bound, by = paged_bound(lens, B, mb, cfg.n_heads,
@@ -1349,17 +1441,28 @@ def phase_paged_on_pools(run, cfg):
                                kl),
                     device_ms=device_kernel_ms(
                         ops.paged_gqa_decode_attention, q, kp, vp, bt, kl,
-                        name="paged_decode_kernel"),
+                        name=PAGED_KERNEL),
                     plain_ms=time_ms(ref.paged_gqa_decode, q, kp, vp, bt, kl),
                     decode_kernel_on_gathered_ms=time_ms(
-                        ops.gqa_decode_attention, q,
-                        gk[li].permute(0, 2, 1, 3),
-                        gv[li].permute(0, 2, 1, 3), kl),
+                        ops.gqa_decode_attention, q, *dec_kv, kl),
+                    decode_kernel_on_gathered_device_ms=device_kernel_ms(
+                        ops.gqa_decode_attention, q, *dec_kv, kl,
+                        name=DECODE_KERNEL),
                     bound_ms=bound, bound_by=by, library_ms=None)
+                span, splits = decode_attention.decode_split(
+                    B, cfg.n_kv_heads, mb * bs, torch.cuda
+                    .get_device_properties(0).multi_processor_count)
+                grids = device_kernel_grids(ops.paged_gqa_decode_attention,
+                                            q, kp, vp, bt, kl,
+                                            name=PAGED_KERNEL)
+                assert grids and set(grids) == {
+                    (splits, cfg.n_kv_heads, B)}, (grids, splits)
+                timing.update(span=span, splits=splits,
+                              blocks_per_call=splits * cfg.n_kv_heads * B)
     assert n and timing is not None
     row = {"phase": "paged_on_pools", "prompts": len(tables),
            "calls": n, "layers": cfg.n_layers, "max_abs_err": err,
-           "max_abs_diff_vs_decode_kernel": vs_decode, "timing": timing,
+           "equal_to_decode_kernel": n, "timing": timing,
            "library": "none: no PyTorch call reads a block table"}
     emit(row)
     return row
@@ -1400,7 +1503,7 @@ def main():
     emit({"phase": "times", "card": smi, "seconds": phase_s,
           "total_s": sum(phase_s.values())})
 
-    t200, t4096 = kern["timing"]["200"], kern["timing"]["4096"]
+    t200 = kern["timing"]["200"]
     c200, c4096 = counts["timing"]["200"], counts["timing"]["4096"]
     dec, fa = attn["decode"], attn["flash"]
     ext = sess["flash_extend_at_median_admission"]
@@ -1417,7 +1520,10 @@ def main():
         "ms": t200["ms"], "plain_ms": t200["plain_ms"],
         "bound_ms": t200["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "device_ms": t200["device_ms"],
-        "p4096": {**t4096, "bound_by": "bytes"}}, {
+        "p4096": {**kern["timing"]["4096"], "bound_by": "bytes"},
+        "p4104": {**kern["timing"]["4104"], "bound_by": "bytes"},
+        "kernel_names": kern["kernel_names"],
+        "previous": "PERF.md section 6, column Previous"}, {
         "name": "dominance_counts", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dominance.cu",
         "replaces": "src/repro/kernels/dominance.py:90",
@@ -1432,6 +1538,7 @@ def main():
         "library": counts["library"], "p4096": c4096}, {
         "name": "gqa_decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "kernel_body": "src/repro_torch/kernels/csrc/split_decode.cuh",
         "replaces": "src/repro/kernels/decode_attention.py:79",
         "launches": served["launches"]["gqa_decode_attention"],
         "launches_serve_sessions": sess_launches["gqa_decode_attention"],
@@ -1461,16 +1568,23 @@ def main():
                    **ext}}, {
         "name": "paged_gqa_decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "kernel_body": "src/repro_torch/kernels/csrc/split_decode.cuh",
         "replaces": "src/repro/kernels/paged_attention.py:73",
         "launches": sess_launches["paged_gqa_decode_attention"],
         "on_main_path": False,
         "held_on_session_pools": {"calls": pools["calls"],
                                   "max_abs_err": pools["max_abs_err"]},
+        "equal_to_decode_kernel": (paged["equal_to_decode_kernel"]
+                                   + pools["equal_to_decode_kernel"]),
         "cases": paged["cases"],
         "max_abs_err": max(list(paged["max_abs_err"].values())
                            + [pools["max_abs_err"]]),
         "max_abs_err_by_dtype": paged["max_abs_err"],
         **{k: pools["timing"].get(k) for k in timing_keys},
+        "decode_kernel_on_gathered_device_ms":
+            pools["timing"]["decode_kernel_on_gathered_device_ms"],
+        "splits": pools["timing"]["splits"],
+        "previous": "PERF.md section 6, column Previous",
         "library": pools["library"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

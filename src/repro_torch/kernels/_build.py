@@ -7,11 +7,14 @@ in ``build/repro_torch/<hash>/`` under the repository root, keyed by a hash
 of the sources, the headers and the flags, so a changed source rebuilds and
 an unchanged one is loaded as it is. The build runs at the first launch of a
 kernel, never at import: the CPU tests import every module on machines
-without ``nvcc``.
+without ``nvcc``. The wrappers also take from here the device context and
+the stream that a launch needs.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -19,7 +22,9 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import ContextManager, List, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
@@ -34,10 +39,10 @@ _INT = ctypes.c_int
 # C symbol -> argument types (every function returns a cudaError_t as int)
 SYMBOLS = {
     "repro_dominance_counts": [_PTR, _PTR, _INT, _INT, _PTR],
-    "repro_dominance_matrix": [_PTR, _PTR, _INT, _INT, _PTR],
+    "repro_dominance_matrix": [_PTR, _PTR] + [_INT] * 5 + [_PTR],
     "repro_flash_attention": [_PTR] * 6 + [_INT] * 9 + [_I64] * 18 + [_PTR],
     "repro_gqa_decode": [_PTR] * 7 + [_INT] * 8 + [_I64] * 10 + [_PTR],
-    "repro_paged_gqa_decode": [_PTR] * 6 + [_INT] * 7 + [_I64] * 11 + [_PTR],
+    "repro_paged_gqa_decode": [_PTR] * 8 + [_INT] * 9 + [_I64] * 11 + [_PTR],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -133,3 +138,24 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def on_device(device: torch.device) -> ContextManager:
+    """A kernel launches on the current CUDA device: ``torch.cuda.device``
+    for a tensor on another one, no context for one on the current."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def stream(device: torch.device) -> int:
+    """PyTorch's current stream on ``device``, as the C entry points take
+    it: the raw handle, without building a ``torch.cuda.Stream`` (a few
+    microseconds of host time a call)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+@functools.lru_cache(maxsize=None)
+def n_sm(device: torch.device) -> int:
+    """The card's streaming multiprocessors, which the grids are sized by."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -1,6 +1,8 @@
 // 16-byte asynchronous copies from device memory to shared memory
 // (`cp.async.cg`, sm_80 and later), shared by the bf16 flash kernel
-// (flash_attention.cu) and the decode kernel (decode_attention.cu).
+// (flash_attention.cu) and the split decode kernel (split_decode.cuh), and
+// `allow_smem`, which every launch that stages more than 48 KB of shared
+// memory calls (flash, split decode and the dominance matrix kernel).
 //
 // A copy with src_bytes = 0 reads nothing and writes 16 zero bytes: the
 // kernels use it for rows past their limit (kv_len, S, prefix_len) and for
@@ -35,6 +37,17 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Raise a kernel's dynamic shared memory limit to `bytes` (once per kernel
+// and size) so that a launch above the 48 KB default is not refused.
+template <typename K>
+inline cudaError_t allow_smem(K kernel, int bytes, int* done) {
+  if (bytes <= *done) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) *done = bytes;
+  return e;
 }
 
 }  // namespace repro_async

@@ -12,87 +12,249 @@
 // give false because no objective is strictly smaller.
 //
 // What bounds it: the P*P byte write of the output. The P*M*4 byte read of F
-// is negligible beside it, and the 2*P*P*M comparisons run far below the
-// card's f32 rate. At P = 4096 the write is 16 MiB, about 5 us at 3.35 TB/s.
+// is negligible beside it, and the 2*P*P*M comparisons run below the card's
+// f32 rate. At P = 4096 the write is 16 MiB, about 5 us at 3.35 TB/s. The
+// instructions that make each byte come close behind: with 2M compares, a
+// select and the byte packing an entry, issuing them took longer than the
+// write.
 //
 // What the design does about it:
-//   * a 2-D grid of 64x64 output tiles, 256 threads a block; each block stages
-//     its 64 i-rows and its 64 j-rows of F in shared memory once, so F is read
-//     from device memory twice per tile and never per comparison;
-//   * the j-rows are stored transposed (objective-major), so a thread reads
-//     its four consecutive j values of one objective as one float4;
-//   * each thread produces 4 consecutive j outputs of a row and writes them
-//     as one 32-bit store: a warp writes 64 contiguous bytes of each of two
-//     rows, so the write that bounds the kernel is coalesced. Where a row's
-//     start is not 4-byte aligned (P not a multiple of 4) or the run crosses
-//     the ragged edge, the thread writes single bytes instead;
-//   * the ragged edge is masked in the kernel: rows and columns past P are
-//     never written, and no padding of F is needed.
-// It is a first, simple kernel; a faster one (wider stores, one block per SM
-// walking many tiles) is later work.
+//   * a thread owns 16 consecutive columns j and keeps their objectives
+//     resident for the whole block: in registers for M <= 8 (the objective
+//     loop unrolled to M by a template, as the counts kernel below), read
+//     from shared memory for 9 <= M <= 32. A block stages its 512 columns'
+//     objectives once, by a coalesced copy, in a layout whose 16-byte reads
+//     hit distinct banks (a lane's 48 strided loads from device memory cost
+//     more than all the compares);
+//   * the block's 8 warps walk a long run of rows i in turns, reading a
+//     row's M values from shared memory as a broadcast, and end each row in
+//     one 16-byte store of its 16 results: a warp writes 512 contiguous
+//     bytes of a row per instruction, and consecutive rows' stores do not
+//     depend on each other, so many are in flight;
+//   * for finite objectives an entry costs M subtractions and two integer
+//     operations, its byte packed by a byte permute (see the row loop); a
+//     row or column with a NaN or an infinity takes the compares instead;
+//   * the grid is (column strips of 512, row splits), chosen on the host
+//     (kernels/dominance.py: dominance_grid) for about two blocks per SM at
+//     P = 4096, so the staging latency is paid once per block, not once per
+//     tile;
+//   * plain stores: the front peel reads D again for every front, and
+//     16 MiB stays in the 50 MB L2;
+//   * the ragged edge is masked in the kernel: no padding of F or D, and
+//     rows and columns past P are never written. A row's start i*P is
+//     16-byte aligned only when P % 16 == 0, so each run of 16 bytes takes
+//     the widest store its address allows (16, 8, 4 or 1 bytes), and a run
+//     cut by the edge stores its valid bytes only.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
-constexpr int kTile = 64;        // output tile is kTile x kTile
-constexpr int kVec = 4;          // consecutive j outputs per thread
-constexpr int kThreadsX = kTile / kVec;  // 16
-constexpr int kThreadsY = 16;
 constexpr int kMaxM = 32;        // objectives; checked by the wrapper
+constexpr int kCols = 16;        // consecutive columns per thread
+constexpr int kStrip = 32 * kCols;   // columns per block: a warp's 512
+constexpr int kRowWarps = 8;     // warps per block, taking rows in turns
+constexpr int kRowTile = 256;    // rows staged in shared memory at a time
+constexpr int kLanePad = kCols + 4;          // a lane's staged columns
+constexpr int kStripPad = 32 * kLanePad;     // floats per staged objective
+constexpr int kMatrixThreads = 32 * kRowWarps;
 
-__global__ void __launch_bounds__(kThreadsX * kThreadsY)
+// The 16 result bytes of one row's run (byte c of w for column j0 + c) to
+// out, n of them valid (1 <= n <= 16): the widest stores that the address
+// and n allow, and single bytes for the rest.
+__device__ __forceinline__ void store_run(uint8_t* out, const uint32_t (&w)[4],
+                                          int n) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(out);
+  int done = 0;
+  if (n == kCols && (a & 15u) == 0) {
+    *reinterpret_cast<uint4*>(out) = make_uint4(w[0], w[1], w[2], w[3]);
+    return;
+  }
+  if ((a & 7u) == 0) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      if (8 * k + 8 <= n)
+        *reinterpret_cast<uint2*>(out + 8 * k) = make_uint2(w[2 * k],
+                                                            w[2 * k + 1]);
+    done = n & ~7;
+  } else if ((a & 3u) == 0) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (4 * k + 4 <= n) *reinterpret_cast<uint32_t*>(out + 4 * k) = w[k];
+    done = n & ~3;
+  }
+#pragma unroll
+  for (int c = 0; c < kCols; ++c)
+    if (c >= done && c < n) out[c] = (uint8_t)(w[c / 4] >> (8 * (c % 4)));
+}
+
+// Byte q of the result is 1 where y[q]'s sign bit is set, else 0: `prmt`
+// with a selector nibble of 8 + i copies the sign of byte i into all eight
+// bits, so two permutes take the top bytes' signs of y[0], y[1] and of
+// y[2], y[3], a third joins them, and the mask keeps one bit a byte.
+__device__ __forceinline__ uint32_t pack_signs(const uint32_t (&y)[4]) {
+  uint32_t lo, hi, s;
+  asm("prmt.b32 %0, %1, %2, 0x00FB;" : "=r"(lo) : "r"(y[0]), "r"(y[1]));
+  asm("prmt.b32 %0, %1, %2, 0x00FB;" : "=r"(hi) : "r"(y[2]), "r"(y[3]));
+  asm("prmt.b32 %0, %1, %2, 0x5410;" : "=r"(s) : "r"(lo), "r"(hi));
+  return s & 0x01010101u;
+}
+
+// The objectives of columns [strip0, strip0 + 512) into shared memory by
+// one coalesced copy, objective-major, each lane's 16 columns padded to 20
+// floats so that the lanes' 16-byte reads of them fall in distinct banks;
+// -0 becomes +0 (it compares equal to +0 anyway) and columns past P zeros.
+__device__ __forceinline__ void stage_columns(float* fT,
+                                              const float* __restrict__ F,
+                                              int P, int M, int strip0) {
+  const int ncol = min(kStrip, P - strip0);
+  for (int e = threadIdx.x; e < kStrip * M; e += kMatrixThreads) {
+    const int c = e / M, m = e - c * M;
+    fT[m * kStripPad + (c / kCols) * kLanePad + c % kCols] =
+        c < ncol ? F[(size_t)strip0 * M + e] + 0.0f : 0.0f;
+  }
+}
+
+// Block (strip, split): columns [strip * 512, strip * 512 + 512), rows
+// [split * rows_per_split, ...) of D; its 8 warps share the columns and take
+// the rows in turns. kM = M for 1 <= M <= 8 (the column objectives in
+// registers); 0 for any M up to kMaxM (read from shared memory per row,
+// M * kStripPad floats of dynamic shared memory).
+template <int kM>
+__global__ void __launch_bounds__(kMatrixThreads)
 dominance_matrix_kernel(const float* __restrict__ F, uint8_t* __restrict__ D,
-                        int P, int M) {
-  __shared__ float fi[kTile][kMaxM + 1];             // row-major i-rows
-  __shared__ __align__(16) float fjT[kMaxM][kTile];  // objective-major j-rows
+                        int P, int M_any, int rows_per_split) {
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int strip0 = blockIdx.x * kStrip;
+  const int j0 = strip0 + lane * kCols;
+  const int n = min(kCols, P - j0);        // this thread's valid columns
+  const int i_begin = blockIdx.y * rows_per_split;
+  const int i_end = min(P, i_begin + rows_per_split);
+  const int lane_off = lane * kLanePad;
 
-  const int i0 = blockIdx.y * kTile;
-  const int j0 = blockIdx.x * kTile;
-  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
-  const int n_threads = kThreadsX * kThreadsY;
-
-  for (int e = tid; e < kTile * M; e += n_threads) {
-    const int r = e / M;
-    const int m = e - r * M;
-    const int gi = i0 + r;
-    const int gj = j0 + r;
-    fi[r][m] = gi < P ? F[(size_t)gi * M + m] : 0.0f;
-    fjT[m][r] = gj < P ? F[(size_t)gj * M + m] : 0.0f;
-  }
-  __syncthreads();
-
-  const int jl = threadIdx.x * kVec;
-  const int gj = j0 + jl;
-  if (gj >= P) return;
-
-  for (int il = threadIdx.y; il < kTile; il += kThreadsY) {
-    const int gi = i0 + il;
-    if (gi >= P) break;
-    bool le[kVec] = {true, true, true, true};
-    bool lt[kVec] = {false, false, false, false};
-    for (int m = 0; m < M; ++m) {
-      const float a = fi[il][m];
-      const float4 b = *reinterpret_cast<const float4*>(&fjT[m][jl]);
-      le[0] &= a <= b.x; lt[0] |= a < b.x;
-      le[1] &= a <= b.y; lt[1] |= a < b.y;
-      le[2] &= a <= b.z; lt[2] |= a < b.z;
-      le[3] &= a <= b.w; lt[3] |= a < b.w;
-    }
-    uint8_t* out = D + (size_t)gi * P + gj;
-    if (gj + kVec <= P && (reinterpret_cast<uintptr_t>(out) & 3u) == 0) {
-      uint32_t word = 0;
+  if constexpr (kM > 0) {
+    __shared__ __align__(16) float fT[kM * kStripPad];
+    __shared__ float frow[kRowTile * kM];   // a tile of the split's rows
+    stage_columns(fT, F, P, kM, strip0);
+    float fj[kM][kCols];
+    bool cols_finite = true;
+    for (int t0 = i_begin; t0 < i_end; t0 += kRowTile) {
+      const int nt = min(kRowTile, i_end - t0);
+      __syncthreads();  // the columns are staged; the previous tile is read
+      for (int e = threadIdx.x; e < nt * kM; e += kMatrixThreads)
+        frow[e] = F[(size_t)t0 * kM + e] + 0.0f;
+      __syncthreads();
+      if (t0 == i_begin) {
 #pragma unroll
-      for (int v = 0; v < kVec; ++v)
-        word |= (uint32_t)(le[v] && lt[v]) << (8 * v);
-      *reinterpret_cast<uint32_t*>(out) = word;
-    } else {
+        for (int m = 0; m < kM; ++m)
 #pragma unroll
-      for (int v = 0; v < kVec; ++v)
-        if (gj + v < P) out[v] = (uint8_t)(le[v] && lt[v]);
+          for (int k = 0; k < kCols / 4; ++k) {
+            const float4 x = *reinterpret_cast<const float4*>(
+                fT + m * kStripPad + lane_off + 4 * k);
+            fj[m][4 * k] = x.x, fj[m][4 * k + 1] = x.y;
+            fj[m][4 * k + 2] = x.z, fj[m][4 * k + 3] = x.w;
+            cols_finite &= isfinite(x.x) && isfinite(x.y) && isfinite(x.z) &&
+                           isfinite(x.w);
+          }
+      }
+      if (n <= 0) continue;
+      for (int r = warp; r < nt; r += kRowWarps) {
+        float a[kM];
+        bool row_finite = true;
+#pragma unroll
+        for (int m = 0; m < kM; ++m) {
+          a[m] = frow[r * kM + m];   // the same address in every lane
+          row_finite &= isfinite(a[m]);
+        }
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+        if (row_finite && cols_finite) {
+          // Finite, and no -0: b - a is negative iff a > b and +0 iff
+          // a == b (an IEEE difference is 0 only for equal operands, and
+          // its sign is exact), so the OR x of the M differences' bits,
+          // read as an int, is positive iff a <= b in every objective and
+          // a < b in one; x is never INT_MIN (that is -0 alone), so -x has
+          // its sign bit set exactly then. M subtractions on the FMA pipe
+          // and two integer operations an entry, and three byte permutes
+          // that pack four signs, in place of 2M compares and a select.
+#pragma unroll
+          for (int k = 0; k < kCols / 4; ++k) {
+            uint32_t y[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              int x = 0;
+#pragma unroll
+              for (int m = 0; m < kM; ++m)
+                x |= __float_as_int(fj[m][4 * k + q] - a[m]);
+              y[q] = 0u - (uint32_t)x;
+            }
+            w[k] = pack_signs(y);
+          }
+        } else {
+          // a NaN or an infinity: the comparisons themselves
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) {
+            bool lt = false;
+#pragma unroll
+            for (int m = 0; m < kM; ++m) lt |= a[m] < fj[m][c];
+            bool dom = lt;
+#pragma unroll
+            for (int m = 0; m < kM; ++m) dom &= a[m] <= fj[m][c];
+            w[c / 4] |= (uint32_t)dom << (8 * (c % 4));
+          }
+        }
+        store_run(D + (size_t)(t0 + r) * P + j0, w, n);
+      }
+    }
+  } else {
+    const int M = M_any;
+    extern __shared__ __align__(16) float fT[];   // M x kStripPad
+    stage_columns(fT, F, P, M, strip0);
+    __syncthreads();
+    if (n <= 0) return;
+    for (int i = i_begin + warp; i < i_end; i += kRowWarps) {
+      bool le[kCols], lt[kCols];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) le[c] = true, lt[c] = false;
+      for (int m = 0; m < M; ++m) {
+        const float a = __ldg(F + (size_t)i * M + m);
+        const float4* b =
+            reinterpret_cast<const float4*>(fT + m * kStripPad + lane_off);
+#pragma unroll
+        for (int k = 0; k < kCols / 4; ++k) {
+          const float4 x = b[k];
+          le[4 * k] &= a <= x.x, lt[4 * k] |= a < x.x;
+          le[4 * k + 1] &= a <= x.y, lt[4 * k + 1] |= a < x.y;
+          le[4 * k + 2] &= a <= x.z, lt[4 * k + 2] |= a < x.z;
+          le[4 * k + 3] &= a <= x.w, lt[4 * k + 3] |= a < x.w;
+        }
+      }
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        w[c / 4] |= (uint32_t)(le[c] && lt[c]) << (8 * (c % 4));
+      store_run(D + (size_t)i * P + j0, w, n);
     }
   }
+}
+
+template <int kM>
+int launch_matrix(const float* F, uint8_t* D, int P, int M, int rows,
+                  dim3 grid, cudaStream_t s) {
+  int smem = 0;
+  if constexpr (kM == 0) {
+    static int smem_allowed = 48 * 1024;
+    smem = (int)sizeof(float) * M * kStripPad;
+    cudaError_t e = repro_async::allow_smem(dominance_matrix_kernel<kM>,
+                                            smem, &smem_allowed);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dominance_matrix_kernel<kM><<<grid, kMatrixThreads, smem, s>>>(F, D, P, M,
+                                                                  rows);
+  return (int)cudaGetLastError();
 }
 
 // Dominator counts: C[j] = #{i : D[i, j]}, the column sums of the matrix
@@ -211,15 +373,32 @@ extern "C" int repro_dominance_counts(const void* F, void* C, int P, int M,
   return (int)cudaGetLastError();
 }
 
-// F: (P, M) float32, contiguous, on the device. D: (P, P) uint8, contiguous.
+// F: (P, M) float32, contiguous, on the device. D: (P, P) uint8, contiguous,
+// 16-byte aligned. The grid is the host's (kernels/dominance.py:
+// dominance_grid): the columns in `strips` of 512, the rows in `splits` runs
+// of `rows_per_split`; a grid that does not cover P exactly is refused.
 // Launches on `stream`, allocates nothing, and returns cudaGetLastError().
 extern "C" int repro_dominance_matrix(const void* F, void* D, int P, int M,
-                                      void* stream) {
-  if (P <= 0 || M <= 0 || M > kMaxM) return (int)cudaErrorInvalidValue;
-  const int nb = (P + kTile - 1) / kTile;
-  dim3 grid(nb, nb);
-  dim3 block(kThreadsX, kThreadsY);
-  dominance_matrix_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      static_cast<const float*>(F), static_cast<uint8_t*>(D), P, M);
-  return (int)cudaGetLastError();
+                                      int strips, int splits,
+                                      int rows_per_split, void* stream) {
+  if (P <= 0 || M <= 0 || M > kMaxM || rows_per_split <= 0 ||
+      strips != (P + kStrip - 1) / kStrip ||
+      splits != (P + rows_per_split - 1) / rows_per_split || splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(strips, splits);
+  const float* f = static_cast<const float*>(F);
+  uint8_t* d = static_cast<uint8_t*>(D);
+  const int r = rows_per_split;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (M) {
+    case 1: return launch_matrix<1>(f, d, P, M, r, grid, s);
+    case 2: return launch_matrix<2>(f, d, P, M, r, grid, s);
+    case 3: return launch_matrix<3>(f, d, P, M, r, grid, s);
+    case 4: return launch_matrix<4>(f, d, P, M, r, grid, s);
+    case 5: return launch_matrix<5>(f, d, P, M, r, grid, s);
+    case 6: return launch_matrix<6>(f, d, P, M, r, grid, s);
+    case 7: return launch_matrix<7>(f, d, P, M, r, grid, s);
+    case 8: return launch_matrix<8>(f, d, P, M, r, grid, s);
+    default: return launch_matrix<0>(f, d, P, M, r, grid, s);
+  }
 }

@@ -92,6 +92,7 @@
 namespace {
 
 using namespace repro_attn;
+using namespace repro_async;
 
 constexpr int kWarps = 4;
 constexpr int kRows = 8;                  // q rows per warp
@@ -233,7 +234,6 @@ int launch(const void* q, const void* k, const void* v, const void* kp,
 // bf16 on the tensor cores
 // ---------------------------------------------------------------------------
 
-using namespace repro_async;
 using bf16 = __nv_bfloat16;
 
 constexpr int kWgThreads = 128;          // one warpgroup

@@ -10,7 +10,6 @@ tensors only: the dispatch by device lives in ``kernels.ops``.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Dict, Tuple
 
@@ -25,10 +24,6 @@ SPAN_STEP = 128
 
 #: kernel launches since the last reset (a run sets it to 0, then reads it)
 LAUNCHES = 0
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
 
 
 def check_attention_inputs(name: str, q, k, v, q_dims: int,
@@ -110,11 +105,6 @@ def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
     return t
 
 
-@functools.lru_cache(maxsize=None)
-def _n_sm(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def gqa_decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                               v_cache: torch.Tensor,
                               kv_len: torch.Tensor) -> torch.Tensor:
@@ -135,21 +125,23 @@ def gqa_decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     if kv_len.shape != (B,) or kv_len.device != q.device:
         raise ValueError(f"kv_len must be ({B},) on {q.device}, got "
                          f"{tuple(kv_len.shape)} on {kv_len.device}")
-    lens = kv_len.to(torch.int32).contiguous()
+    lens = kv_len
+    if lens.dtype != torch.int32 or not lens.is_contiguous():
+        lens = lens.to(torch.int32).contiguous()
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
-    span, splits = decode_split(B, Hkv, Smax, _n_sm(q.device))
+    span, splits = decode_split(B, Hkv, Smax, _build.n_sm(q.device))
     part = torch.empty(B * Hq * splits * (D + 2), dtype=torch.float32,
                        device=q.device)
     lib = _build.load()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        tickets = _tickets(q.device, stream, B * Hkv)
+    with _build.on_device(q.device):
+        stream = _build.stream(q.device)
         err = lib.repro_gqa_decode(
-            _ptr(q), _ptr(k_cache), _ptr(v_cache), _ptr(lens), _ptr(out),
-            _ptr(part), _ptr(tickets), B, Hq, Hkv, Smax, D, DTYPES[q.dtype],
-            span, splits, q.stride(0), q.stride(1),
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), part.data_ptr(),
+            _tickets(q.device, stream, B * Hkv).data_ptr(), B, Hq, Hkv,
+            Smax, D, DTYPES[q.dtype], span, splits, q.stride(0), q.stride(1),
             *k_cache.stride()[:3], *v_cache.stride()[:3],
-            out.stride(0), out.stride(1), ctypes.c_void_p(stream))
+            out.stride(0), out.stride(1), stream)
     if err != 0:
         raise RuntimeError(f"decode attention kernel launch failed: "
                            f"cudaError {err}")

@@ -9,13 +9,18 @@ tensors only: the dispatch by device lives in ``kernels.ops``.
 """
 from __future__ import annotations
 
-import ctypes
+import functools
+from typing import Tuple
 
 import torch
 
 from . import _build
 
 MAX_OBJECTIVES = 32
+#: columns of D one block of the matrix kernel covers: 32 lanes x 16
+STRIP = 512
+#: warps of a matrix block, taking the rows of its split in turns
+ROW_WARPS = 8
 
 #: matrix kernel launches since the last reset (a run sets it to 0, then
 #: reads it)
@@ -25,7 +30,8 @@ COUNTS_LAUNCHES = 0
 
 
 def _objectives(name: str, F: torch.Tensor) -> torch.Tensor:
-    """F checked, cast to f32 (as the TPU kernels do) and contiguous."""
+    """F checked, cast to f32 (as the TPU kernels do) and contiguous; an
+    f32 contiguous F is taken as it is."""
     if F.device.type != "cuda":
         raise ValueError(f"{name} needs a CUDA tensor, got {F.device}")
     if F.dim() != 2 or not F.is_floating_point():
@@ -35,7 +41,26 @@ def _objectives(name: str, F: torch.Tensor) -> torch.Tensor:
     if P < 1 or not 1 <= M <= MAX_OBJECTIVES:
         raise ValueError(f"need P >= 1 and 1 <= M <= {MAX_OBJECTIVES}, got "
                          f"P={P}, M={M}")
-    return F.to(torch.float32).contiguous()
+    if F.dtype != torch.float32 or not F.is_contiguous():
+        F = F.to(torch.float32).contiguous()
+    return F
+
+
+@functools.lru_cache(maxsize=256)
+def dominance_grid(P: int, n_sm: int) -> Tuple[int, int, int]:
+    """(strips, splits, rows): the matrix kernel's grid. The columns go to
+    ``strips`` blocks of :data:`STRIP`, the rows to ``splits`` runs of
+    ``rows`` each, a multiple of :data:`ROW_WARPS`.
+
+    As ``decode_attention.decode_split`` does for positions: the most row
+    splits that keep the grid at about two blocks per SM (8 strips x 32
+    splits of 128 rows at P = 4096 on 132 SMs), so each block walks a long
+    run of rows and stages its columns once; no split gets fewer rows than
+    its warps."""
+    strips = -(-P // STRIP)
+    want = min(-(-2 * n_sm // strips), -(-P // ROW_WARPS))
+    rows = ROW_WARPS * -(-P // (ROW_WARPS * want))
+    return strips, -(-P // rows), rows
 
 
 def dominance_matrix_cuda(F: torch.Tensor) -> torch.Tensor:
@@ -46,12 +71,11 @@ def dominance_matrix_cuda(F: torch.Tensor) -> torch.Tensor:
     F32 = _objectives("dominance_matrix_cuda", F)
     P, M = F32.shape
     out = torch.empty((P, P), dtype=torch.uint8, device=F.device)
+    grid = dominance_grid(P, _build.n_sm(F.device))
     lib = _build.load()
-    with torch.cuda.device(F.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.repro_dominance_matrix(
-            ctypes.c_void_p(F32.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            P, M, ctypes.c_void_p(stream))
+    with _build.on_device(F.device):
+        err = lib.repro_dominance_matrix(F32.data_ptr(), out.data_ptr(), P,
+                                         M, *grid, _build.stream(F.device))
     if err != 0:
         raise RuntimeError(f"dominance kernel launch failed: cudaError {err}")
     LAUNCHES += 1
@@ -66,11 +90,9 @@ def dominance_counts_cuda(F: torch.Tensor) -> torch.Tensor:
     P, M = F32.shape
     out = torch.empty((P,), dtype=torch.int32, device=F.device)
     lib = _build.load()
-    with torch.cuda.device(F.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.repro_dominance_counts(
-            ctypes.c_void_p(F32.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            P, M, ctypes.c_void_p(stream))
+    with _build.on_device(F.device):
+        err = lib.repro_dominance_counts(F32.data_ptr(), out.data_ptr(), P,
+                                         M, _build.stream(F.device))
     if err != 0:
         raise RuntimeError(f"dominance counts kernel launch failed: "
                            f"cudaError {err}")

@@ -14,14 +14,12 @@ CUDA tensors only: the dispatch by device lives in ``kernels.ops``.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
 from . import _build
-from .decode_attention import (DTYPES, _ptr, check_alignment,
-                               check_attention_inputs)
+from .decode_attention import DTYPES, check_alignment, check_attention_inputs
 
 #: query rows of one block of the tensor-core kernel, and keys of one tile
 TILE = 64
@@ -66,15 +64,15 @@ def _launch(q, k, v, k_pre, v_pre, prefix_len: int,
     out = torch.empty((B, S, Hq, D), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     lib = _build.load()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _build.on_device(q.device):
         err = lib.repro_flash_attention(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(k_pre), _ptr(v_pre), _ptr(out),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_pre.data_ptr(),
+            v_pre.data_ptr(), out.data_ptr(),
             B, Hq, Hkv, S, prefix_len, D, int(causal), DTYPES[q.dtype],
             groups,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *k_pre.stride()[:3], *v_pre.stride()[:3], *out.stride()[:3],
-            ctypes.c_void_p(stream))
+            _build.stream(q.device))
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: "
                            f"cudaError {err}")

@@ -1,23 +1,25 @@
 """Grouped-query decode attention over a paged KV pool: the CUDA kernel's
 wrapper.
 
-The kernel (``csrc/paged_attention.cu``) replaces the TPU kernel
+The kernel (``csrc/paged_attention.cu``, the split decode kernel of
+``csrc/split_decode.cuh`` with paged row addresses) replaces the TPU kernel
 ``paged_gqa_decode_attention`` of ``src/repro/kernels/paged_attention.py``;
-its source note says what bounds it and how the design answers. The wrapper
-checks its inputs, allocates the output, launches on PyTorch's current
-stream and counts the launch. It takes CUDA tensors only: the dispatch by
+the source notes say what bounds it and how the design answers. The wrapper
+checks its inputs, splits the positions as the decode wrapper does
+(``decode_attention.decode_split`` over max_blocks * block_size), allocates
+the output and the blocks' f32 scratch, launches on PyTorch's current stream
+and counts the launch. It takes CUDA tensors only: the dispatch by
 device lives in ``kernels.ops``. The serving engine does not decode over
 the pool (it gathers a matched prefix into the slot's contiguous cache, as
 the reference engine does), so no serving path launches it yet.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import _build
-from .decode_attention import DTYPES, _ptr, check_attention_inputs
+from .decode_attention import (DTYPES, _tickets, check_alignment,
+                               check_attention_inputs, decode_split)
 
 #: kernel launches since the last reset (a run sets it to 0, then reads it)
 LAUNCHES = 0
@@ -36,10 +38,15 @@ def paged_gqa_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     permuted: the kernel reads them in place. Row b's position p lies in
     block ``max(block_table[b, p // block_size], 0)``; ids must be below
     n_blocks. Positions >= min(kv_len, max_blocks * block_size) are never
-    read; a row with kv_len <= 0 gives zeros."""
+    read, nor the table entries that name them; a row with kv_len <= 0
+    gives zeros. The pools' pointers and strides must be 16-byte aligned
+    and D a multiple of 8 (``decode_attention.check_alignment``). On the
+    same rows the result equals the decode kernel's on the gathered
+    (B, Hkv, max_blocks * block_size, D) cache, bit for bit."""
     global LAUNCHES
-    check_attention_inputs("paged_gqa_decode_attention_cuda", q, k_pool,
-                           v_pool, 3, batched=False)
+    name = "paged_gqa_decode_attention_cuda"
+    check_attention_inputs(name, q, k_pool, v_pool, 3, batched=False)
+    check_alignment(name, k_pool, v_pool)
     B, Hq, D = q.shape
     Hkv, bs = k_pool.shape[1], k_pool.shape[2]
     if k_pool.shape[0] < 1 or bs < 1:
@@ -53,18 +60,26 @@ def paged_gqa_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     if kv_len.shape != (B,) or kv_len.device != q.device:
         raise ValueError(f"kv_len must be ({B},) on {q.device}, got "
                          f"{tuple(kv_len.shape)} on {kv_len.device}")
-    bt = block_table.to(torch.int32).contiguous()
-    lens = kv_len.to(torch.int32).contiguous()
+    bt, lens = block_table, kv_len
+    if bt.dtype != torch.int32 or bt.stride(1) != 1:
+        bt = bt.to(torch.int32).contiguous()
+    if lens.dtype != torch.int32 or not lens.is_contiguous():
+        lens = lens.to(torch.int32).contiguous()
+    mb = bt.shape[1]
+    span, splits = decode_split(B, Hkv, mb * bs, _build.n_sm(q.device))
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
+    part = torch.empty(B * Hq * splits * (D + 2), dtype=torch.float32,
+                       device=q.device)
     lib = _build.load()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _build.on_device(q.device):
+        stream = _build.stream(q.device)
         err = lib.repro_paged_gqa_decode(
-            _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(bt), _ptr(lens),
-            _ptr(out), B, Hq, Hkv, bt.shape[1], bs, D, DTYPES[q.dtype],
-            q.stride(0), q.stride(1), *k_pool.stride()[:3],
-            *v_pool.stride()[:3], bt.stride(0), out.stride(0), out.stride(1),
-            ctypes.c_void_p(stream))
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            bt.data_ptr(), lens.data_ptr(), out.data_ptr(), part.data_ptr(),
+            _tickets(q.device, stream, B * Hkv).data_ptr(), B, Hq, Hkv, mb,
+            bs, D, DTYPES[q.dtype], span, splits, q.stride(0), q.stride(1),
+            *k_pool.stride()[:3], *v_pool.stride()[:3], bt.stride(0),
+            out.stride(0), out.stride(1), stream)
     if err != 0:
         raise RuntimeError(f"paged decode attention kernel launch failed: "
                            f"cudaError {err}")

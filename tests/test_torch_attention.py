@@ -12,6 +12,8 @@ reference's ``_xla_attention`` with ``q_offset`` and the bucketed mask. The deco
 ``kv_len == 0`` gives zeros (the TPU kernel's answer; the jnp oracle's is
 NaN).
 """
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -510,12 +512,18 @@ def test_flash_groups_from_the_shapes():
     assert g(1, 64) == g(64, 960) == 2        # prefix tiles, then one more
 
 
-def _split_decode(q, k, v, kv_len, span):
-    """A rehearsal of the decode kernel's arithmetic in f32: (B, Hq, D) q
-    over (B, Hkv, Smax, D) caches, positions split in spans of ``span``.
-    The kernel itself is held against ``ref`` on the card (chip_smoke)."""
+def _split_decode(q, k, v, kv_len, span, paged=None, read=None):
+    """A rehearsal of the split decode kernel's arithmetic in f32: (B, Hq, D)
+    q over (B, Hkv, Smax, D) caches, positions split in spans of ``span``.
+    With ``paged=(block_table, bs)``, k and v are (n_blocks, Hkv, bs, D)
+    pools and Smax is max_blocks * bs: a block reads the table entries of its
+    span once, clamped at 0 (each one added to ``read`` as (b, entry)), and
+    finds position p's row in block tbl[p // bs - first] at p % bs, as the
+    kernel's PagedRows policy does. The kernel itself is held against
+    ``ref`` on the card (chip_smoke)."""
     B, Hq, D = q.shape
-    Hkv, Smax = k.shape[1], k.shape[2]
+    Hkv = k.shape[1]
+    Smax = k.shape[2] if paged is None else paged[0].shape[1] * paged[1]
     G = Hq // Hkv
     splits = -(-Smax // span)
     ninf = float("-inf")
@@ -530,6 +538,19 @@ def _split_decode(q, k, v, kv_len, span):
             aa = aa + torch.where((m == ninf)[:, None], 0.0, a * c[:, None])
         return mm, ll, aa
 
+    def span_rows(b, hk, lo, hi):
+        """K and V rows of positions [lo, hi) of (b, kv head hk)."""
+        if paged is None:
+            return k[b, hk, lo:hi], v[b, hk, lo:hi]
+        bt, bs = paged
+        first = lo // bs
+        tbl = [max(int(bt[b, e]), 0) for e in range(first, (hi - 1) // bs + 1)]
+        if read is not None:
+            read.update((b, e) for e in range(first, first + len(tbl)))
+        at = [(tbl[p // bs - first], p % bs) for p in range(lo, hi)]
+        return (torch.stack([k[blk, hk, o] for blk, o in at]),
+                torch.stack([v[blk, hk, o] for blk, o in at]))
+
     for b in range(B):
         n = min(max(int(kv_len[b]), 0), Smax)
         for hk in range(Hkv):
@@ -542,12 +563,13 @@ def _split_decode(q, k, v, kv_len, span):
                 if lo >= hi:
                     parts.append(empty)
                     continue
+                ks, vs = span_rows(b, hk, lo, hi)
                 warps = []
                 for w in range(4):
                     m, l, a = empty
                     for s0 in range(lo + 32 * w, hi, 128):
-                        kc = k[b, hk, s0:min(s0 + 32, hi)].float()
-                        vc = v[b, hk, s0:min(s0 + 32, hi)].float()
+                        kc = ks[s0 - lo:min(s0 + 32, hi) - lo].float()
+                        vc = vs[s0 - lo:min(s0 + 32, hi) - lo].float()
                         sc = (qg @ kc.T) * D ** -0.5
                         mn = torch.maximum(m, sc.amax(-1))
                         alpha = torch.where(mn == ninf, 1.0,
@@ -596,6 +618,50 @@ def test_split_decode_with_spans_of_several_steps():
                                rtol=1e-6, atol=1e-6)
 
 
+# PAGED_CASES, and pools whose max_blocks * bs spans 2 and 3 splits of 128
+# positions, one of them with blocks of 12 (a span that is not a multiple
+# of the block size)
+PAGED_SPLIT_CASES = PAGED_CASES + [(3, 4, 1, 20, 16, 16, 32),
+                                   (2, 8, 2, 40, 12, 30, 32)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,nb,bs,mb,D", PAGED_SPLIT_CASES)
+@pytest.mark.parametrize("store_layout", [False, True])
+def test_paged_split_decode_arithmetic_matches_plain_and_pallas(
+        B, Hq, Hkv, nb, bs, mb, D, store_layout):
+    """The split kernel's plan with paged row addresses: within 1e-6 of
+    ``ref.paged_gqa_decode`` and of the Pallas paged kernel in f32, with pad
+    and negative entries, kv_len 0 and a row ending mid-block; no table
+    entry past a row's kv_len is read; and bit for bit the contiguous
+    rehearsal's result on the gathered cache, whose Smax is
+    max_blocks * bs."""
+    (qj, qt), ((kj, kt), (vj, vt)), bt, lens = _paged_inputs(
+        B, Hq, Hkv, nb, bs, mb, D, "float32", B * 100 + nb, store_layout)
+    if B > 1:
+        bt[1, 0] = -3                      # a live negative id: block 0
+    span, splits = decode_attention.decode_split(B, Hkv, mb * bs, 132)
+    assert splits == -(-mb * bs // 128)
+    btt, lt = torch.from_numpy(bt), torch.from_numpy(lens)
+    read = set()
+    got = _split_decode(qt, kt, vt, lt, span, paged=(btt, bs), read=read)
+    want = ref.paged_gqa_decode(qt, kt, vt, btt, lt)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    pallas = rpaged.paged_gqa_decode_attention(qj, kj, vj, jnp.asarray(bt),
+                                               jnp.asarray(lens),
+                                               interpret=True)
+    _close(got, pallas, 1e-6)
+    assert all(e <= (min(int(lens[b]), mb * bs) - 1) // bs for b, e in read)
+    assert not any(b == 0 for b, _ in read) or lens[0] > 0
+    for b in np.flatnonzero(lens == 0):
+        assert not got[b].any()
+    gathered = [p[btt.long().clamp(min=0)].permute(0, 2, 1, 3, 4)
+                .reshape(B, Hkv, mb * bs, D) for p in (kt, vt)]
+    assert decode_attention.decode_split(B, Hkv, mb * bs, 132) == (span,
+                                                                   splits)
+    contiguous = _split_decode(qt, *gathered, lt, span)
+    assert torch.equal(got, contiguous)
+
+
 @pytest.mark.parametrize("B,Hkv", [(1, 1), (2, 2), (8, 8), (8, 1), (64, 8),
                                    (256, 8)])
 @pytest.mark.parametrize("Smax", [1, 64, 127, 128, 512, 520, 1088, 32768])
@@ -634,6 +700,32 @@ def test_alignment_check_takes_the_engine_views_and_refuses_the_rest():
         decode_attention.check_alignment("t", offset)
     with pytest.raises(ValueError, match="multiple of 8"):
         decode_attention.check_alignment("t", narrow)
+
+
+def test_paged_alignment_check_takes_the_store_pools_and_refuses_the_rest():
+    """The paged wrapper holds its pools to the same 16-byte rule: one
+    layer of the serving store's (n_layers, n_blocks, bs, Hkv, D) pool,
+    permuted to (n_blocks, Hkv, bs, D) in place, passes; a pool view with
+    an odd row stride, one off an aligned address, and a head dim that is
+    not a multiple of 8 are refused."""
+    from repro_torch.configs import get
+    from repro_torch.serving.kvcache import PagedKVStore
+    cfg = get("qwen3-1.7b").smoke()
+    store = PagedKVStore(cfg, 12, 16, device="cpu")
+    for li in range(cfg.n_layers):
+        decode_attention.check_alignment(
+            "paged", store.k[li].permute(0, 2, 1, 3),
+            store.v[li].permute(0, 2, 1, 3))
+    odd = torch.zeros((12, 16, 2, 68), dtype=torch.bfloat16)[..., :64]
+    raw = torch.zeros(12 * 2 * 16 * 64 + 8, dtype=torch.bfloat16)
+    off = raw[1:1 + 12 * 2 * 16 * 64].view(12, 2, 16, 64)
+    narrow = torch.zeros((12, 2, 16, 12), dtype=torch.bfloat16)
+    for bad, match in ((odd.permute(0, 2, 1, 3), "strides"),
+                       (off, "16-byte aligned"), (narrow, "multiple of 8")):
+        with pytest.raises(ValueError, match=match):
+            decode_attention.check_alignment("paged", bad, bad)
+    src = inspect.getsource(paged_attention.paged_gqa_decode_attention_cuda)
+    assert "check_alignment(name, k_pool, v_pool)" in src
 
 
 def test_flash_route_by_dtype():

@@ -129,7 +129,8 @@ def test_kernel_build_targets_hopper_and_reports_failures(tmp_path,
                                       "flash_attention.cu",
                                       "paged_attention.cu"]
     assert [h.name for h in _build.headers()] == ["attention_tile.cuh",
-                                                  "cp_async.cuh"]
+                                                  "cp_async.cuh",
+                                                  "split_decode.cuh"]
     for s in srcs:
         cmd = _build.compile_command("nvcc", s, tmp_path / "k.o")
         assert "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd
@@ -147,3 +148,22 @@ def test_kernel_build_targets_hopper_and_reports_failures(tmp_path,
     with pytest.raises(OSError):
         _build.build(nvcc=str(tmp_path / "no-nvcc"))
     assert not list((tmp_path / "build").rglob("*.so"))
+
+
+def test_c_entry_points_match_their_ctypes_signatures():
+    """Each C entry point's parameters, in order, are the ctypes argument
+    types that ``_build.SYMBOLS`` declares for it (pointers and the stream
+    as void*, ints as int, strides as long long): a mismatch would pass
+    arguments in the wrong registers with no error on the card."""
+    import ctypes
+    import re
+    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+             "longlong": ctypes.c_longlong}
+    text = " ".join(s.read_text() for s in _build.sources())
+    for name, argtypes in _build.SYMBOLS.items():
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
+        assert m, name
+        params = [re.sub(r"\b(const|[A-Za-z_]\w*)$", "", p.strip())
+                  .replace("const", "").replace(" ", "")
+                  for p in m.group(1).split(",")]
+        assert [kinds[p] for p in params] == list(argtypes), name
