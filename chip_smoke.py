@@ -5,17 +5,21 @@
 
 Builds the port's CUDA kernels from the sources in this checkout and runs
 the port's paths on the card, the routing loop, the serving engine and its
-prefix reuse on session traffic, in phases that each print one JSON line
-(run in the order 1-5, 9, 6, 10, 7, 8, 11, 12):
+prefix reuse on session traffic, and the runtime router's rolling-horizon
+re-fit on open-loop SLO traffic, in phases that each print one JSON line
+(run in the order 1-5, 9, 13, 6, 10, 7, 8, 11, 12):
 
 1. card: ``nvidia-smi`` name and power limit, torch/CUDA versions, build time;
 2. kernels: the dominance kernel against its plain PyTorch version on the
-   card (exact) over P in {1, 7, 15, 16, 17, 100, 130, 200, 1000, 4096,
-   4099, 4104}, M in {1, 2, 3, 4, 8, 9, 32}, f32/bf16/f16 and f32 with
-   +-inf, NaN, signed zeros, subnormals and +-3.4e38; by the profiled
-   names, M 3 runs the register kernel (``dominance_matrix_kernel<3>``) and
-   M 9 the shared-memory one (``<0>``); its time at P = 200, 4096 and 4104
-   beside the plain version's and the card's bound;
+   card (exact) over P in {1, 7, 15, 16, 17, 32, 64, 100, 130, 200, 1000,
+   4096, 4099, 4104}, M in {1, 2, 3, 4, 8, 9, 32, 33, 64}, f32/bf16/f16 and
+   f32 with +-inf, NaN, signed zeros, subnormals and +-3.4e38; by the
+   profiled names, M 3 runs the register kernel
+   (``dominance_matrix_kernel<3>``), M 9 the shared-memory one (``<0>``)
+   and M 33 the chunked one (``dominance_matrix_chunked_kernel``, 32
+   objectives at a time); its time at P = 200, 4096 and 4104 beside the
+   plain version's and the card's bound, and the shared-memory and chunked
+   variants' at P = 4096, M 9, 32, 33, 64;
 3. main path: ``repro_torch.quickstart.run_quickstart()`` at full size (500
    requests, pop 100, 60 generations); the dominance kernel must launch
    exactly 61 times (init + 60 generations), the attention kernels never;
@@ -47,9 +51,9 @@ prefix reuse on session traffic, in phases that each print one JSON line
    tokens, except at the CPU's own near-ties;
 9. counts kernel: the dominator-counts kernel exactly equal to its plain
    version and to the column sums of the matrix kernel, over P in {1, 63,
-   64, 65, 200, 4096, 4099}, M 1-8, f32/bf16/f16, ties, duplicates and NaN
-   rows, and on every objective matrix that phases 3 and 5 sorted; timed at
-   P = 200 and 4096;
+   64, 65, 200, 4096, 4099}, M 1-9 and 33, f32/bf16/f16, ties, duplicates
+   and NaN rows, and on every objective matrix that phases 3 and 5 sorted;
+   timed at P = 200 and 4096;
 10. paged kernel: the paged decode kernel against its plain version (2e-5
    f32, 2e-2 bf16) and bit for bit equal to the decode kernel on the
    gathered cache (the same split kernel with other row addresses), in
@@ -70,7 +74,22 @@ prefix reuse on session traffic, in phases that each print one JSON line
    pools bit for bit against the decode kernel on the gathered cache and
    against the plain version (one row ending mid-block), and timed there
    beside the decode kernel on the gathered cache; by the profiled trace,
-   a paged call launches splits x Hkv x B blocks of the split kernel.
+   a paged call launches splits x Hkv x B blocks of the split kernel;
+13. online: ``repro_torch.online.run_online()`` at the reference's sizes
+   (the mix-shift and burst scenarios, 4 open-loop windows of 60 requests
+   with SLO deadlines, pop 16 x 10 generations for window 0's tuning and
+   every re-fit, QoE objectives); the dominance kernel must launch 11 times
+   per evolve (5 a scenario) and run ``dominance_matrix_kernel<4>`` (by
+   the profiled name); in every window the card's assignments under the
+   static, adaptive and cloud-only policies equal the CPU's exactly, the
+   objectives agree within 1e-5, and the re-fit's evaluator padded to 64
+   rows gives the 60-row one's rows bit for bit; then one
+   ``RequestRouter.maybe_reoptimize`` at the router's defaults (window 256,
+   pop 32, 20 generations: 21 launches) on 256 recorded requests of the
+   burst phase, one population evaluation of its 256-row table profiled,
+   and the kernel timed at the re-fit's P = 32 and 64, M = 4; last, every
+   objective matrix that these sorts saw (131) goes through the matrix and
+   counts kernels again, each exactly equal to its plain version.
 
 Phase 6 also holds the flash kernel's prefix-extend variant against its
 plain version (bucketed and exact-length, garbage and NaN past prefix_len).
@@ -100,13 +119,14 @@ DEC_SMAX = (64, 512, 520, 1088)
 FA_S = (1, 17, 64, 128, 192, 200, 512)
 SERVE_MODEL, SERVE_REQUESTS = "qwen3-1.7b", 32
 CHECK_LAYERS, CHECK_REQUESTS = 2, 8
-DOM_CASES_P = (1, 7, 15, 16, 17, 100, 130, 200, 1000, 4096, 4099, 4104)
-DOM_CASES_M = (1, 2, 3, 4, 8, 9, 32)
+DOM_CASES_P = (1, 7, 15, 16, 17, 32, 64, 100, 130, 200, 1000, 4096, 4099,
+               4104)
+DOM_CASES_M = (1, 2, 3, 4, 8, 9, 32, 33, 64)
 # the split decode kernel's two instantiations, by their profiled names
 DECODE_KERNEL = "ContiguousRows"
 PAGED_KERNEL = "PagedRows"
 COUNT_CASES_P = (1, 63, 64, 65, 200, 4096, 4099)
-COUNT_CASES_M = tuple(range(1, 9))
+COUNT_CASES_M = tuple(range(1, 10)) + (33,)
 # (B, Hq, Hkv, n_blocks, block_size, max_blocks, D): tests/test_kernels.py's
 # shapes, and the serving heads at block sizes 8 and 16
 PAGED_CASES = ((1, 8, 8, 16, 16, 4, 64), (2, 8, 2, 24, 16, 4, 64),
@@ -117,6 +137,8 @@ EXT_CASES = ((16, 8, None), (200, 1, None), (64, 17, 40), (32, 33, 0),
              (1088, 64, 16), (1088, 64, 512), (1088, 128, 960))
 QUICKSTART = dict(n_requests=500, pop_size=100, n_generations=60)
 LARGE_POP, LARGE_GENS = 2048, 5
+# the router's own re-fit defaults, on a window of the burst phase
+REFIT_REQUESTS, REFIT_POP, REFIT_GENS = 256, 32, 20
 
 
 def emit(obj):
@@ -158,7 +180,7 @@ def _device_events(fn, *args, iters=20):
             if ev.device_type.name == "CUDA"]
 
 
-def device_kernel_ms(fn, *args, name="dominance_matrix_kernel", iters=20,
+def device_kernel_ms(fn, *args, name="dominance_matrix", iters=20,
                      attempts=3):
     """Median device time of the named kernel from torch.profiler, or None
     when the profiler records no device activity (a window without any is
@@ -289,14 +311,15 @@ def phase_kernels():
                 n_cases += 1
                 n_exact += bool(torch.equal(got, want))
     assert n_exact == n_cases, f"kernel != plain in {n_cases - n_exact} cases"
-    # M <= 8 keeps the column objectives in registers (a kernel per M), a
-    # larger M in shared memory (<0>)
+    # M <= 8 keeps the column objectives in registers (a kernel per M), M
+    # up to 32 in shared memory (<0>), a larger M 32 objectives at a time
     names = {}
     for M, want in ((3, "dominance_matrix_kernel<3>"),
-                    (9, "dominance_matrix_kernel<0>")):
+                    (9, "dominance_matrix_kernel<0>"),
+                    (33, "dominance_matrix_chunked_kernel")):
         F = torch.rand((4096, M), device="cuda")
         got = {_kernel_name(n) for n in device_kernel_names(
-            ops.dominance_matrix, F) if "dominance_matrix_kernel" in n}
+            ops.dominance_matrix, F) if "dominance_matrix" in n}
         assert got == {want}, (M, got)
         names[f"M{M}"] = want
     timing = {}
@@ -309,10 +332,22 @@ def phase_kernels():
             device_ms=device_kernel_ms(ops.dominance_matrix, F),
             bound_ms=dominance_bound_ms(P, 3),
             grid=list(dominance.dominance_grid(P, n_sm)))
+    # at P = 4096 the shared-memory variant (M 9, 32) and the chunked one
+    # (two chunks of objectives: M 33, 64)
+    any_m = {}
+    for M in (9, 32, 33, 64):
+        F = torch.rand((4096, M), device="cuda")
+        ops_bound = (2 * 4096 * 4096 * M / F32_OPS_PER_S * 1e3
+                     >= dominance_bound_ms(4096, M))
+        any_m[f"m{M}"] = dict(
+            device_ms=device_kernel_ms(ops.dominance_matrix, F),
+            bound_ms=dominance_bound_ms(4096, M),
+            bound_by="operations" if ops_bound else "bytes")
     row = {"phase": "kernels", "name": "dominance_matrix", "cases": n_cases,
            "exact": n_exact == n_cases, "max_abs_err": max_err,
            "kernel_names": names,
-           "timing": {str(P): t for P, t in timing.items()}}
+           "timing": {str(P): t for P, t in timing.items()},
+           "timing_p4096_shared": any_m}
     emit(row)
     return row
 
@@ -387,18 +422,12 @@ def phase_main_path(sorted_F):
     return res, launches
 
 
-def phase_profile(genomes):
-    """Where one population evaluation of the main path spends its time:
-    host wall time against the card's busy time (torch.profiler)."""
+def profile_fitness(fit, genomes, n_requests):
+    """Host wall time of one population evaluation against the card's busy
+    time in it (torch.profiler), its device events and top device ops."""
     import collections
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.cluster.spec import paper_testbed
-    from repro_torch.core.fitness import EvalConfig, TraceEvaluator
-    from repro_torch.workload.trace import build_trace
-    ev = TraceEvaluator(build_trace(500, seed=0), paper_testbed(),
-                        EvalConfig(concurrency=1), device="cuda")
-    fit = ev.make_fitness("threshold")
     fit(genomes)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -415,11 +444,23 @@ def phase_profile(genomes):
             by_name[e.name[:60]] += e.time_range.elapsed_us()
             n_events += 1
     busy = sum(by_name.values()) / 1e6
-    emit({"phase": "profile", "what": "one fitness call, pop "
-          f"{genomes.shape[0]} x 500 requests", "wall_s": wall,
-          "device_busy_s": busy, "idle_share": 1 - busy / wall,
-          "device_events": n_events, "us_per_request_step": wall / 500 * 1e6,
-          "top_device_us": by_name.most_common(6)})
+    return {"what": f"one fitness call, pop {genomes.shape[0]} x "
+            f"{n_requests} requests", "wall_s": wall, "device_busy_s": busy,
+            "idle_share": 1 - busy / wall, "device_events": n_events,
+            "us_per_request_step": wall / n_requests * 1e6,
+            "top_device_us": by_name.most_common(6)}
+
+
+def phase_profile(genomes):
+    """Where one population evaluation of the main path spends its time:
+    host wall time against the card's busy time (torch.profiler)."""
+    from repro_torch.cluster.spec import paper_testbed
+    from repro_torch.core.fitness import EvalConfig, TraceEvaluator
+    from repro_torch.workload.trace import build_trace
+    ev = TraceEvaluator(build_trace(500, seed=0), paper_testbed(),
+                        EvalConfig(concurrency=1), device="cuda")
+    emit({"phase": "profile",
+          **profile_fitness(ev.make_fitness("threshold"), genomes, 500)})
 
 
 def phase_device_vs_cpu(genome):
@@ -503,6 +544,38 @@ def counts_bound(P, M):
                                        else "operations")
 
 
+def _check_counts(F):
+    """The counts kernel on F exactly equal to its plain version and to the
+    column sums of the matrix kernel; returns the largest difference."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    got = ops.dominance_counts(F)
+    torch.cuda.synchronize()
+    want = ref.dominance_counts(F)
+    cols = ops.dominance_matrix(F).sum(dim=0, dtype=torch.int32)
+    assert got.dtype == torch.int32 and got.shape == (F.shape[0],)
+    err = int((got - want).abs().max())
+    assert torch.equal(got, want), ("counts != plain", tuple(F.shape),
+                                    F.dtype, err)
+    assert torch.equal(got, cols), ("counts != matrix columns",
+                                    tuple(F.shape), F.dtype)
+    return err
+
+
+def _check_sorted(Fs):
+    """Every recorded objective matrix through both dominance kernels, each
+    exactly equal to its plain version; returns how many were checked."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    for F in Fs:
+        got = ops.dominance_matrix(F)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.dominance_matrix(F)), (
+            "matrix != plain", tuple(F.shape))
+        _check_counts(F)
+    return len(Fs)
+
+
 def phase_counts_kernel(sorted_F):
     """The dominator-counts kernel exactly equal to its plain version and to
     the column sums of the matrix kernel: synthetic cases, then every
@@ -510,20 +583,7 @@ def phase_counts_kernel(sorted_F):
     import torch
     from repro_torch.kernels import ops, ref
     gen = torch.Generator().manual_seed(5)
-
-    def check(F):
-        got = ops.dominance_counts(F)
-        torch.cuda.synchronize()
-        want = ref.dominance_counts(F)
-        cols = ops.dominance_matrix(F).sum(dim=0, dtype=torch.int32)
-        assert got.dtype == torch.int32 and got.shape == (F.shape[0],)
-        err = int((got - want).abs().max())
-        assert torch.equal(got, want), ("counts != plain", tuple(F.shape),
-                                        F.dtype, err)
-        assert torch.equal(got, cols), ("counts != matrix columns",
-                                        tuple(F.shape), F.dtype)
-        return err
-
+    check = _check_counts
     n = max_err = 0
     for P in COUNT_CASES_P:
         for M in COUNT_CASES_M:
@@ -551,6 +611,163 @@ def phase_counts_kernel(sorted_F):
            "main_path_shapes": dict(shapes), "exact": True,
            "max_abs_err": max_err, "timing": timing,
            "library": "none: no single PyTorch call counts dominators"}
+    emit(row)
+    return row
+
+
+def _online_window_checks(res, cluster):
+    """One scenario's windows against the CPU: the card's per-request rows
+    under the static, adaptive and cloud-only policies (assignments exact,
+    rows and QoE objectives within 1e-5), and the re-fit's evaluator padded
+    to 64 rows against the 60-row one on the card (rows bit for bit)."""
+    import numpy as np
+    import torch
+    from repro_torch import online
+    from repro_torch.core import baselines
+    from repro_torch.core.fitness import EvalConfig, TraceEvaluator
+    mism = padded_equal = 0
+    rel = obj_rel = 0.0
+    cfg = EvalConfig(mode="open")
+    for w in res.windows:
+        cpu = TraceEvaluator(w.trace, cluster, cfg, device="cpu")
+        want = {s: cpu.run_thresholds(w.genomes[s])
+                for s in ("static", "adaptive")}
+        want["cloud_only"] = cpu.run_assignment(
+            baselines.cloud_only(w.trace, cluster))
+        for s in online.STRATEGIES:
+            a, b = w.results[s], want[s]
+            mism += int((a.assign.cpu() != b.assign).sum())
+            for f in ("q", "cost", "rt", "ttft", "tpot"):
+                x, y = getattr(a, f).cpu(), getattr(b, f)
+                assert torch.allclose(x, y, rtol=1e-5, atol=1e-6), (s, f)
+                rel = max(rel, float(((x - y).abs()
+                                      / y.abs().clamp(min=1e-12)).max()))
+        G = torch.as_tensor(np.stack([w.genomes["static"],
+                                      w.genomes["adaptive"]]))
+        dev = TraceEvaluator(w.trace, cluster, cfg, device="cuda")
+        Fd, _ = dev.make_fitness("threshold", "qoe")(G)
+        Fc, _ = cpu.make_fitness("threshold", "qoe")(G)
+        assert torch.allclose(Fd.cpu(), Fc, rtol=1e-5, atol=1e-7), (Fd, Fc)
+        obj_rel = max(obj_rel, float(((Fd.cpu() - Fc).abs()
+                                      / Fc.abs().clamp(min=1e-12)).max()))
+        plain = TraceEvaluator(w.refit_trace, cluster, cfg, device="cuda")
+        padded = TraceEvaluator(w.refit_trace, cluster, cfg, bucket="pow2",
+                                device="cuda")
+        assert (plain.n_padded, padded.n_padded) == (60, 64)
+        a = plain.run_population("threshold", G)
+        b = padded.run_population("threshold", G)
+        for f in ("q", "cost", "rt", "assign", "ttft", "tpot"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+        padded_equal += 1
+    assert mism == 0, f"{mism} device/CPU assignment mismatches"
+    return {"windows": len(res.windows), "assign_mismatches": mism,
+            "max_rel_err_rows": rel, "max_rel_err_objectives": obj_rel,
+            "padded_64_equal_to_60_windows": padded_equal}
+
+
+def phase_online():
+    """The runtime router's rolling-horizon loop on the card: run_online()
+    as a user calls it, then one re-fit at the router's defaults."""
+    import numpy as np
+    import torch
+    from repro_torch import online
+    from repro_torch.cluster.spec import paper_testbed
+    from repro_torch.core.fitness import EvalConfig, TraceEvaluator
+    from repro_torch.core.router import RequestRouter
+    from repro_torch.kernels import ops, ref
+    from repro_torch.workload.arrivals import build_open_loop_trace
+    from repro_torch.workload.slo import attach_slos
+    cluster = paper_testbed()
+    per_evolve = 1 + online.GENS          # the init sort + one a generation
+    per_scenario = per_evolve * (1 + online.N_WINDOWS)
+    sorted_F = SortedObjectives()
+    zero_launches()
+    t0 = time.perf_counter()
+    with sorted_F:
+        results = online.run_online()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(dominance_matrix=per_scenario * len(results))[
+        "dominance_matrix"]
+    # the scenarios run in turn, each sorting per_scenario matrices
+    assert len(sorted_F.Fs) == launches, (len(sorted_F.Fs), launches)
+    row = {"phase": "online", "wall_s": wall, "launches": launches,
+           "scenarios": {}}
+    for turn, (name, res) in enumerate(results.items()):
+        f0, f1 = turn * per_scenario, (turn + 1) * per_scenario
+        n = f1 - f0
+        shapes = Counter(str(tuple(F.shape)) for F in sorted_F.Fs[f0:f1])
+        assert shapes == {f"({online.POP}, 4)": 1 + online.N_WINDOWS,
+                          f"({2 * online.POP}, 4)":
+                              online.GENS * (1 + online.N_WINDOWS)}, shapes
+        F32 = sorted_F.Fs[f1 - 1]
+        names = {_kernel_name(k) for k in device_kernel_names(
+            ops.dominance_matrix, F32) if "dominance_matrix" in k}
+        assert names == {"dominance_matrix_kernel<4>"}, names
+        a, st = res.summary["adaptive"], res.summary["static"]
+        row["scenarios"][name] = {
+            "post_drift": {s: dict(quality=v.quality, cost=v.cost,
+                                   attainment=v.attainment, rt=v.rt)
+                           for s, v in res.summary.items()},
+            "composite": res.composite,
+            "adaptive_beats_static": (res.composite["adaptive"]
+                                      > res.composite["static"]
+                                      and a.attainment >= st.attainment),
+            "tune_window0_s": res.tune_s,
+            "refit_s": [w.refit_s for w in res.windows],
+            "launches": n, "sorted_shapes": dict(shapes),
+            "kernel": sorted(names),
+            "checks": _online_window_checks(res, cluster)}
+        for r in res.rows:
+            print(",".join(str(x) for x in r), flush=True)
+
+    # one re-fit at the router's defaults on 256 requests of the burst phase
+    burst = online.SCENARIOS["burst"][1]
+    tr = attach_slos(build_open_loop_trace(REFIT_REQUESTS, (burst,), seed=7),
+                     seed=7)
+    router = RequestRouter(cluster, results["burst"].windows[-1]
+                           .genomes["adaptive"], device="cuda")
+    ev = TraceEvaluator(tr, cluster, EvalConfig(mode="open"), device="cuda")
+    online._record_window(router, tr, ev.run_thresholds(router.thresholds))
+    refit_F = SortedObjectives()
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with refit_F:
+        genome = router.maybe_reoptimize(
+            force=True, window=REFIT_REQUESTS, generations=REFIT_GENS,
+            pop_size=REFIT_POP, weights=online.WEIGHTS)
+    torch.cuda.synchronize()
+    refit_s = time.perf_counter() - t0
+    refit_launches = launch_counts(dominance_matrix=1 + REFIT_GENS)[
+        "dominance_matrix"]
+    assert genome is not None and np.isfinite(genome).all()
+    window = TraceEvaluator(router.window_trace(REFIT_REQUESTS), cluster,
+                            EvalConfig(mode="open"), bucket="pow2",
+                            device="cuda")
+    assert window.n_padded == REFIT_REQUESTS
+    prof = profile_fitness(window.make_fitness("threshold", "qoe"),
+                           torch.as_tensor(router._archive, device="cuda"),
+                           REFIT_REQUESTS)
+    timing = {}
+    for P, F in ((2 * online.POP, sorted_F.Fs[-1]),
+                 (2 * REFIT_POP, refit_F.Fs[-1])):
+        assert tuple(F.shape) == (P, 4), F.shape
+        timing[f"p{P}_m4"] = dict(
+            ms=time_ms(ops.dominance_matrix, F),
+            plain_ms=time_ms(ref.dominance_matrix, F),
+            device_ms=device_kernel_ms(ops.dominance_matrix, F),
+            bound_ms=dominance_bound_ms(P, 4), bound_by="bytes",
+            library_ms=None)
+    # every matrix the online sorts saw, through both kernels again
+    assert len(refit_F.Fs) == refit_launches, (len(refit_F.Fs),
+                                               refit_launches)
+    row["matrices_checked"] = _check_sorted(sorted_F.Fs + refit_F.Fs)
+    row["refit_256"] = {"requests": REFIT_REQUESTS, "pop": REFIT_POP,
+                        "generations": REFIT_GENS, "wall_s": refit_s,
+                        "launches": refit_launches, "genome":
+                            [float(x) for x in genome],
+                        "profile": prof}
+    row["timing"] = timing
     emit(row)
     return row
 
@@ -1493,6 +1710,7 @@ def main():
     timed("device_vs_cpu", phase_device_vs_cpu, res.genome)
     large = timed("large_population", phase_large_population, sorted_F)
     counts = timed("counts_kernel", phase_counts_kernel, sorted_F)
+    onl = timed("online", phase_online)
     attn = timed("attention_kernels", phase_attention_kernels)
     paged = timed("paged_kernel", phase_paged_kernel)
     run, model, served = timed("serve", phase_serve)
@@ -1515,6 +1733,9 @@ def main():
         "source": "src/repro_torch/kernels/csrc/dominance.cu",
         "replaces": "src/repro/kernels/dominance.py:47",
         "launches": launches, "launches_large_population": large,
+        "launches_online": onl["launches"],
+        "launches_online_refit_256": onl["refit_256"]["launches"],
+        **onl["timing"],
         "cases": kern["cases"], "exact": kern["exact"],
         "max_abs_err": kern["max_abs_err"],
         "ms": t200["ms"], "plain_ms": t200["plain_ms"],

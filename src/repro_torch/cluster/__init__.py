@@ -1,7 +1,9 @@
-"""Cluster specification: a numpy copy of ``repro.cluster.spec`` whose
-array view is a NamedTuple of tensors."""
+"""Cluster specification (a numpy copy of ``repro.cluster.spec`` whose
+array view is a NamedTuple of tensors) and the monitor the runtime router
+reads (a numpy copy of ``repro.cluster.monitor``)."""
+from .monitor import ClusterMonitor, NodeStats
 from .spec import (MODEL_TYPE_INDEX, TASKS, ClusterArrays, ClusterSpec,
                    LinkSpec, ModelSpec, NodeSpec, paper_testbed)
 
-__all__ = ["ClusterArrays", "ClusterSpec", "LinkSpec", "ModelSpec",
+__all__ = ["ClusterArrays", "ClusterMonitor", "NodeStats", "ClusterSpec", "LinkSpec", "ModelSpec",
            "NodeSpec", "MODEL_TYPE_INDEX", "TASKS", "paper_testbed"]

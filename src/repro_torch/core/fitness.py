@@ -1,13 +1,19 @@
 """Population trace evaluation for NSGA-II fitness (paper §IV-B.2), on tensors.
 
 The evaluator turns a routing decision for every request of the trace into
-the three objectives (RQ, C, RT) of Eqs. (2)–(4). Two execution models:
+the three objectives (RQ, C, RT) of Eqs. (2)–(4), and with per-request
+deadlines on the trace (``workload.slo``) the SLO violation rate as a fourth
+(``objectives="qoe"``). Three execution models:
 
 * ``mode="eq5"`` — the paper's Eq. (5) exactly: RT_i = upload + T_infer +
   download, no queueing (what Table II measures at concurrency 1);
 * ``mode="queued"`` — closed loop with G concurrent clients and per-node
   execution slots (capacity C_j): requests wait for a free slot, and a wait
-  beyond the W_MAX stability bound counts as constraint violation.
+  beyond the W_MAX stability bound counts as constraint violation;
+* ``mode="open"`` — open loop: request i enters at the trace's
+  ``arrival_time[i]`` (``workload.arrivals``) instead of being released by
+  a client; queueing as in ``queued``. The regime the rolling-horizon
+  re-fit (``core.router.maybe_reoptimize``) adapts to.
 
 The port of ``repro.core.fitness``. Where the reference vmaps a ``lax.scan``
 over genomes, the port keeps a leading population dimension P and loops over
@@ -19,6 +25,13 @@ queue) and go through the policy registry (``core.policies``).
 Everything static per (trace × cluster) is precomputed into ``EvalTables``
 in numpy with the reference's formulas and types, and moved to the device
 last, so the tables are bit-equal to the reference's.
+
+Bucketing (``TraceEvaluator(bucket="pow2")``) pads the tables to a size
+bucket with a validity mask, as the reference does so that one compiled
+program serves every re-fit window. The loop skips the padded rows: they
+occupy no slot, leave the policy state alone and give exact zeros (assign
+-1), and the objectives are masked means, so a padded run gives the
+unpadded run's rows.
 """
 from __future__ import annotations
 
@@ -31,6 +44,7 @@ import torch
 from .._device import Device, resolve, tensors
 from ..cluster.spec import TASKS, ClusterArrays, ClusterSpec
 from ..workload.trace import Trace
+from .objectives import slo_ok
 from .policies import PolicyInputs, get_policy
 
 RESP_BYTES_PER_TOKEN = 4.2  # avg UTF-8 payload bytes per generated token
@@ -52,11 +66,42 @@ class EvalTables(NamedTuple):
     complexity: torch.Tensor    # (I,)
     pred_category: torch.Tensor  # (I,) int32 (0=code, 1=math, 2=general)
     pred_conf: torch.Tensor     # (I,)
-    # per-request QoE contract (+inf: the port's traces carry no SLOs yet)
+    # per-request QoE contract (+inf when the trace carries no SLOs)
     ttft_deadline: torch.Tensor  # (I,)
     tpot_deadline: torch.Tensor  # (I,)
+    # open-loop arrival timestamps (zeros when the trace is closed-loop)
+    arrival_time: torch.Tensor  # (I,)
     prompt_cost: torch.Tensor   # (I, n_pairs) prompt-only part of `cost`
     prompt_tokens: torch.Tensor  # (I,)
+    # bucketing mask: False rows are padding appended by ``pad_tables``
+    valid: torch.Tensor         # (I,) bool
+
+
+def request_pair_estimates(prompt_tokens: float, resp_tokens_mean: float,
+                           query_bytes: float, arrays: ClusterArrays
+                           ) -> dict:
+    """Per-pair phase/cost estimates for ONE request (numpy, router hot path).
+
+    Returns float32 (n_pairs,) vectors ``up``, ``prefill``, ``tpot``,
+    ``cost`` using the same formulas as ``build_tables`` so the runtime
+    router's SLO decisions agree with the offline evaluator. ``arrays`` holds
+    numpy arrays (or CPU tensors).
+    """
+    verb = np.asarray(arrays.pair_verbosity, np.float32)
+    resp_tokens = np.maximum(np.round(np.float32(resp_tokens_mean) * verb), 1.0)
+    price = np.asarray(arrays.pair_price, np.float32)
+    cost = (np.float32(prompt_tokens) + resp_tokens) / 1e6 * price
+    prompt_cost = np.float32(prompt_tokens) / np.float32(1e6) * price
+    prefill = np.float32(prompt_tokens) / np.asarray(arrays.pair_prefill_tps,
+                                                     np.float32)
+    tpot = np.float32(1.0) / np.asarray(arrays.pair_decode_tps, np.float32)
+    node = np.asarray(arrays.pair_node)
+    up = (np.float32(query_bytes) / np.asarray(arrays.node_bw_up,
+                                               np.float32)[node]
+          + np.asarray(arrays.node_lat_up, np.float32)[node])
+    return {"up": up.astype(np.float32), "prefill": prefill.astype(np.float32),
+            "tpot": tpot.astype(np.float32), "cost": cost.astype(np.float32),
+            "prompt_cost": prompt_cost.astype(np.float32)}
 
 
 def build_tables_numpy(trace: Trace, cluster: ClusterSpec, seed: int = 0
@@ -101,6 +146,12 @@ def build_tables_numpy(trace: Trace, cluster: ClusterSpec, seed: int = 0
     quality = np.clip(q_mean + noise, 0.0, 1.0)
     quality_mean = np.clip(q_mean, 0.0, 1.0)
 
+    if trace.has_slos:
+        ttft_dl, tpot_dl = trace.ttft_deadline, trace.tpot_deadline
+    else:
+        ttft_dl = np.full(I, np.inf, np.float32)
+        tpot_dl = np.full(I, np.inf, np.float32)
+
     f32 = np.float32
     tables = dict(
         quality=quality.astype(f32),
@@ -114,10 +165,13 @@ def build_tables_numpy(trace: Trace, cluster: ClusterSpec, seed: int = 0
         complexity=trace.complexity.astype(f32),
         pred_category=trace.pred_category.astype(np.int32),
         pred_conf=trace.pred_conf.astype(f32),
-        ttft_deadline=np.full(I, np.inf, f32),
-        tpot_deadline=np.full(I, np.inf, f32),
+        ttft_deadline=np.asarray(ttft_dl, f32),
+        tpot_deadline=np.asarray(tpot_dl, f32),
+        arrival_time=np.asarray(trace.arrival_time if trace.has_arrivals
+                                else np.zeros(I), f32),
         prompt_cost=(prompt[:, None] / 1e6 * price[None, :]).astype(f32),
         prompt_tokens=prompt.astype(f32),
+        valid=np.ones((I,), bool),
     )
     return tables, arrays
 
@@ -131,13 +185,68 @@ def build_tables(trace: Trace, cluster: ClusterSpec, seed: int = 0,
             tensors(ClusterArrays, arrays, device))
 
 
+# ---------------------------------------------------------------------------
+# Bucketing: the reference pads a re-fit window to a size bucket so that one
+# compiled program serves every window; the port keeps the same tables and
+# masks so the two agree row for row.
+# ---------------------------------------------------------------------------
+
+def next_pow2(n: int) -> int:
+    return 1 if n <= 1 else 1 << (int(n) - 1).bit_length()
+
+
+def bucket_size(n: int, bucket) -> int:
+    """Padded length for ``n`` requests: "pow2" -> next power of two (the
+    router's bucket; the reference's integer buckets have no caller)."""
+    if bucket != "pow2":
+        raise ValueError(f"bucket must be 'pow2', got {bucket!r}")
+    return next_pow2(n)
+
+
+def pad_tables(tables: EvalTables, n: int) -> EvalTables:
+    """Pad every per-request tensor of ``tables`` to ``n`` rows, marking the
+    tail invalid. Padded rows carry neutral values (zeros, ``+inf``
+    deadlines, the last arrival repeated) but the ``valid`` mask is what
+    keeps them out of objectives and loop state."""
+    I = int(tables.quality.shape[0])
+    assert n >= I, f"bucket {n} smaller than trace ({I})"
+    if n == I:
+        return tables
+    pad = n - I
+
+    def rows(a, value=0):
+        tail = torch.full((pad,) + tuple(a.shape[1:]), value, dtype=a.dtype,
+                          device=a.device)
+        return torch.cat([a, tail])
+
+    at = tables.arrival_time
+    return tables._replace(
+        quality=rows(tables.quality),
+        quality_mean=rows(tables.quality_mean),
+        cost=rows(tables.cost),
+        service=rows(tables.service),
+        up_time=rows(tables.up_time),
+        down_time=rows(tables.down_time),
+        prefill_time=rows(tables.prefill_time),
+        complexity=rows(tables.complexity),
+        pred_category=rows(tables.pred_category),
+        pred_conf=rows(tables.pred_conf),
+        ttft_deadline=rows(tables.ttft_deadline, float("inf")),
+        tpot_deadline=rows(tables.tpot_deadline, float("inf")),
+        arrival_time=torch.cat([at, at[-1:].expand(pad)]),
+        prompt_cost=rows(tables.prompt_cost),
+        prompt_tokens=rows(tables.prompt_tokens),
+        valid=rows(tables.valid, False),
+    )
+
+
 @dataclasses.dataclass(frozen=True)
 class EvalConfig:
     """Evaluator configuration. The reference's other execution models keep
     their names here and raise until the port brings them."""
 
-    concurrency: int = 1          # G closed-loop clients
-    mode: str = "queued"          # "eq5" | "queued"
+    concurrency: int = 1          # G closed-loop clients (ignored by "open")
+    mode: str = "queued"          # "eq5" | "queued" | "open"
     w_max: float = 30.0           # stability bound: wait beyond this = violation
     prefix_cache: bool = False
     disaggregated: bool = False
@@ -146,16 +255,19 @@ class EvalConfig:
 
     def __post_init__(self):
         wanted = [name for name, on in (
-            ("mode='open' (open-loop arrivals)", self.mode == "open"),
             ("prefix_cache", self.prefix_cache),
             ("disaggregated", self.disaggregated),
             ("faulty", self.faulty), ("learned", self.learned)) if on]
         if wanted:
             raise NotImplementedError(
                 f"{', '.join(wanted)} is not ported yet: ROADMAP.md Queue 1 "
-                f"item 9 brings it")
-        assert self.mode in ("eq5", "queued"), self.mode
+                f"item 9c brings it")
+        assert self.mode in ("eq5", "queued", "open"), self.mode
         assert self.concurrency >= 1
+
+    @property
+    def open_loop(self) -> bool:
+        return self.mode == "open"
 
     @property
     def is_eq5(self) -> bool:
@@ -186,8 +298,9 @@ def _run_trace(genomes: torch.Tensor, policy: str, tables: EvalTables,
                ) -> EvalResult:
     """Route the whole trace for P genomes at once; (P, I) outputs.
 
-    Every row is a real request: the reference's bucketed padding rows and
-    the masked means over them come with ``pad_tables`` (not ported)."""
+    Rows that ``tables.valid`` marks as padding (read to the host once) are
+    skipped: they occupy no slot, leave the clients and the policy state
+    alone, and keep their zeros and ``assign = -1``."""
     pol = get_policy(policy)
     dev = genomes.device
     P = genomes.shape[0]
@@ -208,16 +321,21 @@ def _run_trace(genomes: torch.Tensor, policy: str, tables: EvalTables,
     pair_node = arrays.pair_node.long()
     zeros_pairs = torch.zeros_like(tables.tpot)
 
-    q = torch.empty((P, I), dtype=f32, device=dev)
-    cost = torch.empty_like(q)
-    rt = torch.empty_like(q)
-    excess = torch.empty_like(q)
-    ttft = torch.empty_like(q)
-    tpot = torch.empty_like(q)
-    assign = torch.empty((P, I), dtype=torch.int32, device=dev)
+    q = torch.zeros((P, I), dtype=f32, device=dev)
+    cost = torch.zeros_like(q)
+    rt = torch.zeros_like(q)
+    excess = torch.zeros_like(q)
+    ttft = torch.zeros_like(q)
+    tpot = torch.zeros_like(q)
+    assign = torch.full((P, I), -1, dtype=torch.int32, device=dev)
 
-    for i in range(I):
-        arrival = client_ready[:, i % G]                      # (P,)
+    for i, valid in enumerate(tables.valid.tolist()):
+        if not valid:
+            continue
+        if cfg.open_loop:
+            arrival = tables.arrival_time[i].expand(P)
+        else:
+            arrival = client_ready[:, i % G]                  # (P,)
         # monitor view: busy slots per node at arrival (the q_j feature)
         busy = (slot_valid & (slot_free > arrival[:, None, None])
                 ).sum(dim=2, dtype=torch.int32)               # (P, n_nodes)
@@ -272,19 +390,35 @@ def _run_trace(genomes: torch.Tensor, policy: str, tables: EvalTables,
                       violation=excess.sum(dim=1), ttft=ttft, tpot=tpot)
 
 
-def _objectives(res: EvalResult) -> torch.Tensor:
-    """(P, 3) means (RQ, C, RT) over the requests."""
-    return torch.stack([(1.0 - res.q).mean(dim=1), res.cost.mean(dim=1),
-                        res.rt.mean(dim=1)], dim=1)
+def _objectives(res: EvalResult, tables: EvalTables, objectives: str
+                ) -> torch.Tensor:
+    """(P, M) masked means over the valid requests: (RQ, C, RT), and the
+    SLO violation rate V for ``objectives="qoe"``. Padded rows hold exact
+    zeros, so the sums over the padded axis are the unpadded sums."""
+    vf = tables.valid.to(torch.float32)
+    n = torch.clamp(vf.sum(), min=1.0)
+    F = [(vf - res.q).sum(dim=1) / n, res.cost.sum(dim=1) / n,
+         res.rt.sum(dim=1) / n]
+    if objectives == "qoe":
+        ok = slo_ok(res.ttft, res.tpot, tables.ttft_deadline,
+                    tables.tpot_deadline) & tables.valid
+        F.append(1.0 - ok.to(torch.float32).sum(dim=1) / n)
+    return torch.stack(F, dim=1)
 
 
 class TraceEvaluator:
     """Evaluate routing decisions over a fixed (trace × cluster) on
-    ``device`` (CUDA unless the caller asks for another)."""
+    ``device`` (CUDA unless the caller asks for another).
+
+    ``bucket="pow2"`` pads the tables to the next power of two over I with
+    a validity mask, as the reference's compile-once re-fit does; ``run_*``
+    results are sliced back to the ``n_valid`` real requests."""
 
     def __init__(self, trace: Trace, cluster: ClusterSpec,
                  cfg: EvalConfig = EvalConfig(), seed: int = 0,
-                 device: Device = None):
+                 bucket=None, device: Device = None):
+        assert not cfg.open_loop or trace.has_arrivals, \
+            "mode='open' needs a trace with arrival_time (workload.arrivals)"
         self.device = resolve(device)
         self.trace = trace
         self.cluster = cluster
@@ -292,19 +426,37 @@ class TraceEvaluator:
         self.tables, self.arrays = build_tables(trace, cluster, seed=seed,
                                                 device=self.device)
         self.n_slots = _max_conc(self.arrays)
+        self.n_valid = trace.n_requests
+        if bucket is not None:
+            self.tables = pad_tables(self.tables,
+                                     bucket_size(self.n_valid, bucket))
+        self.n_padded = int(self.tables.quality.shape[0])
 
     def _genomes(self, policy: str, genomes) -> torch.Tensor:
         spec = get_policy(policy).genome_spec
         dtype = torch.int32 if spec.discrete else torch.float32
         g = torch.as_tensor(genomes).to(device=self.device, dtype=dtype)
         assert g.dim() == 2, "genomes must be (P, D)"
+        if spec.per_request and g.shape[1] < self.n_padded:
+            # one gene per request: padded rows get gene 0, as the
+            # reference pads them (their decisions are masked)
+            g = torch.nn.functional.pad(g, (0, self.n_padded - g.shape[1]))
         return g
 
     # -- runs -----------------------------------------------------------------
+    def _run(self, policy: str, genomes: torch.Tensor) -> EvalResult:
+        """(P, n_padded) results over the (padded) tables."""
+        return _run_trace(genomes, policy, self.tables, self.arrays, self.cfg,
+                          self.n_slots)
+
     def run_population(self, policy: str, genomes) -> EvalResult:
-        """Evaluate P genomes of a registered policy: (P, I) results."""
-        return _run_trace(self._genomes(policy, genomes), policy, self.tables,
-                          self.arrays, self.cfg, self.n_slots)
+        """Evaluate P genomes of a registered policy: (P, I) results over
+        the real requests."""
+        res = self._run(policy, self._genomes(policy, genomes))
+        if self.n_padded == self.n_valid:
+            return res
+        n = self.n_valid
+        return EvalResult(*(t if t.dim() == 1 else t[:, :n] for t in res))
 
     def run_policy(self, policy: str, genome) -> EvalResult:
         """Evaluate one genome of a registered policy: (I,) results."""
@@ -317,25 +469,30 @@ class TraceEvaluator:
     def run_thresholds(self, thresholds) -> EvalResult:
         return self.run_policy("threshold", thresholds)
 
+    def run_slo_policy(self, params) -> EvalResult:
+        """Run the SLO-aware policy (genome = [γ, κ], see core.policies)."""
+        return self.run_policy("slo", params)
+
     # -- population fitness (for NSGA2) --------------------------------------
     def make_fitness(self, genome: str, objectives: str = "paper"):
         """Return a fitness function mapping (P, D) genomes to
-        ((P, 3) objectives (RQ, C, RT), (P,) violation)."""
-        if objectives != "paper":
-            raise NotImplementedError(
-                f"objectives={objectives!r} needs SLO deadlines on the trace, "
-                f"not ported yet: ROADMAP.md Queue 1 item 9 brings them")
+        ((P, M) objectives, (P,) violation): M = 3 (RQ, C, RT) for
+        ``objectives="paper"``; "qoe" appends the SLO violation rate as a
+        4th minimized objective (the trace must carry deadlines)."""
+        assert objectives in ("paper", "qoe")
+        assert objectives != "qoe" or self.trace.has_slos, \
+            "qoe objectives need a trace with SLOs (workload.slo.attach_slos)"
         get_policy(genome)                 # validates the registry name
 
         def fitness(genomes: torch.Tensor):
-            res = self.run_population(genome, genomes)
-            return _objectives(res), res.violation
+            res = self._run(genome, self._genomes(genome, genomes))
+            return _objectives(res, self.tables, objectives), res.violation
 
         return fitness
 
     # -- reporting ------------------------------------------------------------
     def summarize(self, res: EvalResult) -> dict:
-        return {
+        out = {
             "avg_quality": float(res.q.mean()),
             "avg_response_time": float(res.rt.mean()),
             "avg_cost": float(res.cost.mean()),
@@ -344,6 +501,12 @@ class TraceEvaluator:
             "avg_ttft": float(res.ttft.mean()),
             "avg_tpot": float(res.tpot.mean()),
         }
+        if self.trace.has_slos:
+            n = self.n_valid
+            ok = slo_ok(res.ttft, res.tpot, self.tables.ttft_deadline[:n],
+                        self.tables.tpot_deadline[:n])
+            out["slo_attainment"] = float(ok.to(torch.float32).mean())
+        return out
 
     def per_dataset_quality(self, res: EvalResult) -> dict:
         out = {}

@@ -58,6 +58,29 @@ class NSGA2Config:
         assert self.pop_size % 2 == 0, "pop_size must be even"
         assert self.genome in ("continuous", "discrete")
 
+    @classmethod
+    def from_policy(cls, policy, **overrides) -> "NSGA2Config":
+        """Derive the genome encoding from a registered RoutingPolicy.
+
+        ``policy`` is a registry name or RoutingPolicy object. Continuous
+        policies contribute their search bounds (D = GenomeSpec.length, so
+        genome-length defaults cannot drift from the decision rule);
+        discrete per-request policies ("direct") set ``genome="discrete"``
+        and require the caller to pass trace-dependent ``genome_length`` /
+        ``n_choices`` via ``overrides``. Other NSGA-II hyper-parameters
+        (pop_size, n_generations, ...) pass through ``overrides``.
+        """
+        from .policies import get_policy
+        pol = get_policy(policy) if isinstance(policy, str) else policy
+        spec = pol.genome_spec
+        if spec.discrete:
+            overrides.setdefault("genome", "discrete")
+            return cls(**overrides)
+        overrides.setdefault("genome", "continuous")
+        overrides.setdefault("lo", np.asarray(spec.lo))
+        overrides.setdefault("hi", np.asarray(spec.hi))
+        return cls(**overrides)
+
     @property
     def n_genes(self) -> int:
         """Genome dimensionality D implied by the config."""
@@ -171,6 +194,45 @@ def reassignment_mutation(gate: torch.Tensor, fresh: torch.Tensor,
     """Paper §IV-B.4: reassign a small fraction of requests to other pairs
     (``fresh`` holds the new pair of every gene)."""
     return torch.where(gate < pm, fresh.to(x.dtype), x)
+
+
+# ---------------------------------------------------------------------------
+# Warm start
+# ---------------------------------------------------------------------------
+
+def archive_init(archive, cfg: NSGA2Config
+                 ) -> Callable[[torch.Generator], torch.Tensor]:
+    """``init_fn`` seeding a population from an elite archive (warm start).
+
+    The first ``min(len(archive), pop_size)`` individuals are copied from the
+    archive (a previous run's survival-ordered population or Pareto front —
+    ``NSGA2State.genomes`` rows are already sorted best-first by
+    (rank, -crowding)); the remainder is drawn from the default random init
+    on the generator's device, so the restarted search keeps exploring.
+    ``NSGA2.init(archive=)`` does the same for the default init.
+    """
+    archive = torch.as_tensor(archive)
+    assert archive.dim() == 2, "archive must be (A, D) genomes"
+    n_seed = min(archive.shape[0], cfg.pop_size)
+
+    def init_fn(generator: torch.Generator) -> torch.Tensor:
+        dev = generator.device
+        shape = (cfg.pop_size, cfg.n_genes)
+        if cfg.genome == "continuous":
+            lo, hi = (torch.as_tensor(np.asarray(b), dtype=torch.float32,
+                                      device=dev) for b in (cfg.lo, cfg.hi))
+            u = torch.rand(shape, generator=generator, device=dev)
+            fresh = lo + u * (hi - lo)
+            seeds = torch.clamp(archive[:n_seed].to(dev, fresh.dtype), lo, hi)
+        else:
+            fresh = torch.randint(0, cfg.n_choices, shape,
+                                  generator=generator, device=dev,
+                                  dtype=torch.int32)
+            seeds = archive[:n_seed].to(dev, torch.int32)
+        fresh[:n_seed] = seeds
+        return fresh
+
+    return init_fn
 
 
 # ---------------------------------------------------------------------------
@@ -341,8 +403,8 @@ class NSGA2:
 
     def select_index(self, state: NSGA2State, weights) -> int:
         """Index of the policy the paper's Eq. (1) weighted sum over min-max
-        normalized objectives (ω1 RQ + ω2 C + ω3 RT) picks from the feasible
-        front."""
+        normalized objectives (ω1 RQ + ω2 C + ω3 RT, and ω4 V under the
+        QoE fitness) picks from the feasible front."""
         F = state.F_raw
         w = torch.as_tensor(weights, dtype=F.dtype, device=F.device)
         fmin = F.min(dim=0).values

@@ -5,7 +5,9 @@ configuration. Adding a policy is one file in this package: subclass
 :class:`~repro_torch.core.policies.base.RoutingPolicy` and call
 :func:`register_policy` at module bottom; modules here are imported in
 sorted name order on first import. The port has ``threshold`` (paper
-Alg. 2) and ``direct`` (one gene per request) so far.
+Alg. 2), ``slo`` (cheapest pair within the request's deadlines) and
+``direct`` (one gene per request) so far; the runtime router takes the
+first two (:func:`runtime_policies`).
 """
 from __future__ import annotations
 
@@ -47,10 +49,17 @@ def list_policies() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
+def runtime_policies() -> Tuple[str, ...]:
+    """Policies that can drive the runtime router (fixed-length genomes;
+    excludes per-request encodings like "direct")."""
+    return tuple(n for n in list_policies()
+                 if not _REGISTRY[n].genome_spec.per_request)
+
+
 for _info in sorted(pkgutil.iter_modules(__path__), key=lambda m: m.name):
     if _info.name != "base" and not _info.name.startswith("_"):
         importlib.import_module(f"{__name__}.{_info.name}")
 del _info
 
 __all__ = ["GenomeSpec", "PolicyInputs", "RoutingPolicy", "register_policy",
-           "get_policy", "list_policies"]
+           "get_policy", "list_policies", "runtime_policies"]

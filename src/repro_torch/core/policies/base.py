@@ -104,6 +104,10 @@ class RoutingPolicy:
     genome_spec: GenomeSpec = GenomeSpec(per_request=True)
     requires: frozenset = frozenset()
     state_size: int = 0
+    #: decision index space: "pair" policies return an index into the
+    #: (node, model) pair table; "route" policies (disaggregated serving,
+    #: ROADMAP.md item 9c) an index into the (prefill, decode) route table
+    decides: str = "pair"
 
     # -- decisions -----------------------------------------------------------
     def decide_torch(self, genomes, inp: PolicyInputs, arrays, state):

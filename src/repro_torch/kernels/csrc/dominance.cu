@@ -22,10 +22,14 @@
 //   * a thread owns 16 consecutive columns j and keeps their objectives
 //     resident for the whole block: in registers for M <= 8 (the objective
 //     loop unrolled to M by a template, as the counts kernel below), read
-//     from shared memory for 9 <= M <= 32. A block stages its 512 columns'
-//     objectives once, by a coalesced copy, in a layout whose 16-byte reads
-//     hit distinct banks (a lane's 48 strided loads from device memory cost
-//     more than all the compares);
+//     from shared memory for 9 <= M <= 32 (<0>). A block stages its 512
+//     columns' objectives once, by a coalesced copy, in a layout whose
+//     16-byte reads hit distinct banks (a lane's 48 strided loads from
+//     device memory cost more than all the compares). Past 32 objectives
+//     (dominance_matrix_chunked_kernel) a block stages 32 at a time (80
+//     KiB), keeps for a batch of 16 rows a warp a bit of "all <=" and one
+//     of "any <" per column across the chunks, and stages each chunk again
+//     for the next batch;
 //   * the block's 8 warps walk a long run of rows i in turns, reading a
 //     row's M values from shared memory as a broadcast, and end each row in
 //     one 16-byte store of its 16 results: a warp writes 512 contiguous
@@ -53,7 +57,8 @@
 
 namespace {
 
-constexpr int kMaxM = 32;        // objectives; checked by the wrapper
+constexpr int kChunkM = 32;      // most objectives of <0>; chunk size past it
+constexpr int kBatchRows = 16;   // rows a warp holds bits for past <0>
 constexpr int kCols = 16;        // consecutive columns per thread
 constexpr int kStrip = 32 * kCols;   // columns per block: a warp's 512
 constexpr int kRowWarps = 8;     // warps per block, taking rows in turns
@@ -103,25 +108,28 @@ __device__ __forceinline__ uint32_t pack_signs(const uint32_t (&y)[4]) {
   return s & 0x01010101u;
 }
 
-// The objectives of columns [strip0, strip0 + 512) into shared memory by
-// one coalesced copy, objective-major, each lane's 16 columns padded to 20
-// floats so that the lanes' 16-byte reads of them fall in distinct banks;
-// -0 becomes +0 (it compares equal to +0 anyway) and columns past P zeros.
+// Objectives [m0, m0 + mc) of columns [strip0, strip0 + 512) into shared
+// memory by one coalesced copy (contiguous when mc == M), objective-major,
+// each lane's 16 columns padded to 20 floats so that the lanes' 16-byte
+// reads of them fall in distinct banks; -0 becomes +0 (it compares equal to
+// +0 anyway) and columns past P zeros.
 __device__ __forceinline__ void stage_columns(float* fT,
                                               const float* __restrict__ F,
-                                              int P, int M, int strip0) {
+                                              int P, int M, int strip0,
+                                              int m0, int mc) {
   const int ncol = min(kStrip, P - strip0);
-  for (int e = threadIdx.x; e < kStrip * M; e += kMatrixThreads) {
-    const int c = e / M, m = e - c * M;
+  const float* src = F + (size_t)strip0 * M + m0;
+  for (int e = threadIdx.x; e < kStrip * mc; e += kMatrixThreads) {
+    const int c = e / mc, m = e - c * mc;
     fT[m * kStripPad + (c / kCols) * kLanePad + c % kCols] =
-        c < ncol ? F[(size_t)strip0 * M + e] + 0.0f : 0.0f;
+        c < ncol ? src[mc == M ? e : c * M + m] + 0.0f : 0.0f;
   }
 }
 
 // Block (strip, split): columns [strip * 512, strip * 512 + 512), rows
 // [split * rows_per_split, ...) of D; its 8 warps share the columns and take
 // the rows in turns. kM = M for 1 <= M <= 8 (the column objectives in
-// registers); 0 for any M up to kMaxM (read from shared memory per row,
+// registers); 0 for 9 <= M <= kChunkM (read from shared memory per row,
 // M * kStripPad floats of dynamic shared memory).
 template <int kM>
 __global__ void __launch_bounds__(kMatrixThreads)
@@ -139,7 +147,7 @@ dominance_matrix_kernel(const float* __restrict__ F, uint8_t* __restrict__ D,
   if constexpr (kM > 0) {
     __shared__ __align__(16) float fT[kM * kStripPad];
     __shared__ float frow[kRowTile * kM];   // a tile of the split's rows
-    stage_columns(fT, F, P, kM, strip0);
+    stage_columns(fT, F, P, kM, strip0, 0, kM);
     float fj[kM][kCols];
     bool cols_finite = true;
     for (int t0 = i_begin; t0 < i_end; t0 += kRowTile) {
@@ -212,7 +220,7 @@ dominance_matrix_kernel(const float* __restrict__ F, uint8_t* __restrict__ D,
   } else {
     const int M = M_any;
     extern __shared__ __align__(16) float fT[];   // M x kStripPad
-    stage_columns(fT, F, P, M, strip0);
+    stage_columns(fT, F, P, M, strip0, 0, M);
     __syncthreads();
     if (n <= 0) return;
     for (int i = i_begin + warp; i < i_end; i += kRowWarps) {
@@ -241,6 +249,78 @@ dominance_matrix_kernel(const float* __restrict__ F, uint8_t* __restrict__ D,
   }
 }
 
+// M > kChunkM: the objectives kChunkM at a time, each chunk staged again
+// for every batch of rows. For each of up to kBatchRows rows a warp keeps
+// one bit per column of "all <=" and one of "any <" across the chunks, and
+// stores the rows when every chunk is seen. Same block and grid as above;
+// kChunkM * kStripPad floats of dynamic shared memory.
+__global__ void __launch_bounds__(kMatrixThreads)
+dominance_matrix_chunked_kernel(const float* __restrict__ F,
+                                uint8_t* __restrict__ D, int P, int M,
+                                int rows_per_split) {
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int strip0 = blockIdx.x * kStrip;
+  const int j0 = strip0 + lane * kCols;
+  const int n = min(kCols, P - j0);        // this thread's valid columns
+  const int i_begin = blockIdx.y * rows_per_split;
+  const int i_end = min(P, i_begin + rows_per_split);
+  const int lane_off = lane * kLanePad;
+  extern __shared__ __align__(16) float fT[];   // kChunkM x kStripPad
+  for (int b0 = i_begin; b0 < i_end; b0 += kRowWarps * kBatchRows) {
+    uint32_t le[kBatchRows], lt[kBatchRows];
+#pragma unroll
+    for (int r = 0; r < kBatchRows; ++r) le[r] = 0xFFFFu, lt[r] = 0u;
+    for (int m0 = 0; m0 < M; m0 += kChunkM) {
+      const int mc = min(kChunkM, M - m0);
+      __syncthreads();  // every warp is done with the previous chunk
+      stage_columns(fT, F, P, M, strip0, m0, mc);
+      __syncthreads();
+      if (n <= 0) continue;
+#pragma unroll
+      for (int r = 0; r < kBatchRows; ++r) {
+        const int i = b0 + r * kRowWarps + warp;
+        if (i < i_end) {
+          uint32_t e = le[r], t = lt[r];
+          for (int m = 0; m < mc; ++m) {
+            const float a = __ldg(F + (size_t)i * M + m0 + m);
+            const float4* b = reinterpret_cast<const float4*>(
+                fT + m * kStripPad + lane_off);
+            uint32_t em = 0u, tm = 0u;
+#pragma unroll
+            for (int k = 0; k < kCols / 4; ++k) {
+              const float4 x = b[k];
+              em |= (uint32_t)(a <= x.x) << (4 * k) |
+                    (uint32_t)(a <= x.y) << (4 * k + 1) |
+                    (uint32_t)(a <= x.z) << (4 * k + 2) |
+                    (uint32_t)(a <= x.w) << (4 * k + 3);
+              tm |= (uint32_t)(a < x.x) << (4 * k) |
+                    (uint32_t)(a < x.y) << (4 * k + 1) |
+                    (uint32_t)(a < x.z) << (4 * k + 2) |
+                    (uint32_t)(a < x.w) << (4 * k + 3);
+            }
+            e &= em, t |= tm;
+          }
+          le[r] = e, lt[r] = t;
+        }
+      }
+    }
+    if (n <= 0) continue;
+#pragma unroll
+    for (int r = 0; r < kBatchRows; ++r) {
+      const int i = b0 + r * kRowWarps + warp;
+      if (i < i_end) {
+        const uint32_t dom = le[r] & lt[r];
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int c = 0; c < kCols; ++c)
+          w[c / 4] |= ((dom >> c) & 1u) << (8 * (c % 4));
+        store_run(D + (size_t)i * P + j0, w, n);
+      }
+    }
+  }
+}
+
 template <int kM>
 int launch_matrix(const float* F, uint8_t* D, int P, int M, int rows,
                   dim3 grid, cudaStream_t s) {
@@ -254,6 +334,18 @@ int launch_matrix(const float* F, uint8_t* D, int P, int M, int rows,
   }
   dominance_matrix_kernel<kM><<<grid, kMatrixThreads, smem, s>>>(F, D, P, M,
                                                                   rows);
+  return (int)cudaGetLastError();
+}
+
+int launch_matrix_chunked(const float* F, uint8_t* D, int P, int M, int rows,
+                          dim3 grid, cudaStream_t s) {
+  static int smem_allowed = 48 * 1024;
+  const int smem = (int)sizeof(float) * kChunkM * kStripPad;
+  cudaError_t e = repro_async::allow_smem(dominance_matrix_chunked_kernel,
+                                          smem, &smem_allowed);
+  if (e != cudaSuccess) return (int)e;
+  dominance_matrix_chunked_kernel<<<grid, kMatrixThreads, smem, s>>>(
+      F, D, P, M, rows);
   return (int)cudaGetLastError();
 }
 
@@ -273,8 +365,10 @@ int launch_matrix(const float* F, uint8_t* D, int P, int M, int rows,
 //
 // What the design does about it: one thread per column j holds F[j] in
 // registers (the objective loop is unrolled, to M itself for M <= 8 and to
-// kMaxM with a guard above, so the row stays in registers and the loop has
-// no branch where it matters) and counts its dominators in a register.
+// 32 with a guard above, so the row stays in registers and the loop has no
+// branch where it matters) and counts its dominators in a register; past
+// 32 objectives (dominance_counts_chunked_kernel) it holds 32 at a time
+// and keeps bits across the chunks.
 // Each block of kCountThreads columns walks its share of the i rows in
 // tiles of at most kCountTileI staged in shared memory (contiguous rows,
 // read by every thread as a broadcast). The TPU grid's sequential i axis
@@ -288,13 +382,13 @@ constexpr int kCountThreads = 128;
 constexpr int kCountTileI = 256;
 constexpr int kCountRowStep = 32;   // the rows of a split: a multiple of it
 
-template <int kM>   // kM = M for 1 <= M <= 8; 0 for any M up to kMaxM
+template <int kM>   // kM = M for 1 <= M <= 8; 0 for 9 <= M <= kChunkM
 __global__ void __launch_bounds__(kCountThreads)
 dominance_counts_kernel(const float* __restrict__ F, int* __restrict__ C,
                         int P, int M_any, int rows_per_split) {
-  constexpr int kUnroll = kM > 0 ? kM : kMaxM;
+  constexpr int kUnroll = kM > 0 ? kM : kChunkM;
   const int M = kM > 0 ? kM : M_any;
-  __shared__ float fi[kCountTileI * kMaxM];
+  __shared__ float fi[kCountTileI * kChunkM];
   const int j = blockIdx.x * kCountThreads + threadIdx.x;
   float fj[kUnroll];
 #pragma unroll
@@ -330,6 +424,68 @@ dominance_counts_kernel(const float* __restrict__ F, int* __restrict__ C,
     atomicAdd(&C[j], count);
 }
 
+// M > kChunkM: a thread holds kChunkM objectives of its column at a time,
+// and for each row of the tile one bit of "all <=" and one of "any <"
+// across the chunks, counted when every chunk is seen. Same block and grid
+// as above.
+__global__ void __launch_bounds__(kCountThreads)
+dominance_counts_chunked_kernel(const float* __restrict__ F,
+                                int* __restrict__ C, int P, int M,
+                                int rows_per_split) {
+  constexpr int kWords = kCountTileI / 32;   // a tile's rows, as bits
+  __shared__ float fi[kCountTileI * kChunkM];
+  const int j = blockIdx.x * kCountThreads + threadIdx.x;
+  const int i_begin = blockIdx.y * rows_per_split;
+  const int i_end = min(P, i_begin + rows_per_split);
+  int count = 0;
+  for (int i0 = i_begin; i0 < i_end; i0 += kCountTileI) {
+    const int ni = min(kCountTileI, i_end - i0);
+    uint32_t le[kWords], lt[kWords];
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) le[w] = ~0u, lt[w] = 0u;
+    for (int m0 = 0; m0 < M; m0 += kChunkM) {
+      const int mc = min(kChunkM, M - m0);
+      float fj[kChunkM];
+#pragma unroll
+      for (int m = 0; m < kChunkM; ++m)
+        fj[m] = (j < P && m < mc) ? F[(size_t)j * M + m0 + m] : 0.0f;
+      __syncthreads();  // the previous chunk is consumed
+      for (int e = threadIdx.x; e < ni * mc; e += kCountThreads) {
+        const int il = e / mc, m = e - il * mc;
+        fi[e] = F[(size_t)(i0 + il) * M + m0 + m];
+      }
+      __syncthreads();
+      if (j >= P) continue;
+#pragma unroll
+      for (int w = 0; w < kWords; ++w) {
+        uint32_t e_bits = le[w], t_bits = lt[w];
+        for (int b = 0; b < 32 && w * 32 + b < ni; ++b) {
+          const float* a = fi + (w * 32 + b) * mc;
+          bool l = true, t = false;
+#pragma unroll
+          for (int m = 0; m < kChunkM; ++m) {
+            if (m < mc) {
+              l &= a[m] <= fj[m];
+              t |= a[m] < fj[m];
+            }
+          }
+          e_bits &= ~((uint32_t)!l << b);
+          t_bits |= (uint32_t)t << b;
+        }
+        le[w] = e_bits, lt[w] = t_bits;
+      }
+    }
+    // rows past ni never set an "any <" bit
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) count += __popc(le[w] & lt[w]);
+  }
+  if (j >= P) return;
+  if (gridDim.y == 1)
+    C[j] = count;
+  else if (count)
+    atomicAdd(&C[j], count);
+}
+
 template <int kM>
 void launch_counts(const float* F, int* C, int P, int M, int rows, dim3 grid,
                    cudaStream_t s) {
@@ -344,7 +500,7 @@ void launch_counts(const float* F, int* C, int P, int M, int rows, dim3 grid,
 // and returns cudaGetLastError().
 extern "C" int repro_dominance_counts(const void* F, void* C, int P, int M,
                                       void* stream) {
-  if (P <= 0 || M <= 0 || M > kMaxM) return (int)cudaErrorInvalidValue;
+  if (P <= 0 || M <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int col_blocks = (P + kCountThreads - 1) / kCountThreads;
   // about two blocks per SM in all, each split a multiple of 32 rows
@@ -368,7 +524,12 @@ extern "C" int repro_dominance_counts(const void* F, void* C, int P, int M,
     case 6: launch_counts<6>(f, c, P, M, rows, grid, s); break;
     case 7: launch_counts<7>(f, c, P, M, rows, grid, s); break;
     case 8: launch_counts<8>(f, c, P, M, rows, grid, s); break;
-    default: launch_counts<0>(f, c, P, M, rows, grid, s);
+    default:
+      if (M <= kChunkM)
+        launch_counts<0>(f, c, P, M, rows, grid, s);
+      else
+        dominance_counts_chunked_kernel<<<grid, kCountThreads, 0, s>>>(
+            f, c, P, M, rows);
   }
   return (int)cudaGetLastError();
 }
@@ -381,7 +542,7 @@ extern "C" int repro_dominance_counts(const void* F, void* C, int P, int M,
 extern "C" int repro_dominance_matrix(const void* F, void* D, int P, int M,
                                       int strips, int splits,
                                       int rows_per_split, void* stream) {
-  if (P <= 0 || M <= 0 || M > kMaxM || rows_per_split <= 0 ||
+  if (P <= 0 || M <= 0 || rows_per_split <= 0 ||
       strips != (P + kStrip - 1) / kStrip ||
       splits != (P + rows_per_split - 1) / rows_per_split || splits > 65535)
     return (int)cudaErrorInvalidValue;
@@ -399,6 +560,8 @@ extern "C" int repro_dominance_matrix(const void* F, void* D, int P, int M,
     case 6: return launch_matrix<6>(f, d, P, M, r, grid, s);
     case 7: return launch_matrix<7>(f, d, P, M, r, grid, s);
     case 8: return launch_matrix<8>(f, d, P, M, r, grid, s);
-    default: return launch_matrix<0>(f, d, P, M, r, grid, s);
+    default:
+      return M <= kChunkM ? launch_matrix<0>(f, d, P, M, r, grid, s)
+                          : launch_matrix_chunked(f, d, P, M, r, grid, s);
   }
 }

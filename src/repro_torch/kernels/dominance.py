@@ -16,7 +16,6 @@ import torch
 
 from . import _build
 
-MAX_OBJECTIVES = 32
 #: columns of D one block of the matrix kernel covers: 32 lanes x 16
 STRIP = 512
 #: warps of a matrix block, taking the rows of its split in turns
@@ -38,9 +37,8 @@ def _objectives(name: str, F: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"F must be a 2-D floating tensor, got "
                          f"{tuple(F.shape)} {F.dtype}")
     P, M = F.shape
-    if P < 1 or not 1 <= M <= MAX_OBJECTIVES:
-        raise ValueError(f"need P >= 1 and 1 <= M <= {MAX_OBJECTIVES}, got "
-                         f"P={P}, M={M}")
+    if P < 1 or M < 1:
+        raise ValueError(f"need P >= 1 and M >= 1, got P={P}, M={M}")
     if F.dtype != torch.float32 or not F.is_contiguous():
         F = F.to(torch.float32).contiguous()
     return F

@@ -1,6 +1,7 @@
-"""Request workloads: numpy copies of ``repro.workload``'s closed-loop trace
-builder, its multi-turn session trace (``sessions``), and the generators,
-classifier and features they use."""
+"""Request workloads: numpy copies of ``repro.workload``'s closed-loop
+trace, its open-loop traces (``arrivals``), its QoE deadlines (``slo``),
+its multi-turn session trace (``sessions``), and the generators, classifier
+and features they use."""
 from .tokenizer import count_tokens
 from .trace import Trace, build_trace, trace_from_requests
 

@@ -5,10 +5,11 @@
 SQuAD, repeating). The requests are evenly distributed across the four
 datasets, with 125 requests per dataset."
 
-A copy of ``repro.workload.trace`` pruned to what the port uses: the
-closed-loop trace, and the arrival times and session identity of the
-multi-turn session trace (``workload.sessions``); no SLO deadlines or
-workload phases yet. It must build the same trace bit for bit. ``Trace`` is
+A copy of ``repro.workload.trace`` (the port imports nothing of ``repro``):
+the closed-loop trace, the QoE deadlines of ``workload.slo``, the open-loop
+arrival times and workload phases of ``workload.arrivals``, and the session
+identity of the multi-turn session trace (``workload.sessions``). It must
+build the same trace bit for bit. ``Trace`` is
 the array-of-structs view that ``core.fitness.build_tables`` reads;
 everything is deterministic given ``seed``.
 """
@@ -40,9 +41,14 @@ class Trace:
     resp_tokens_mean: np.ndarray  # (I,) float32
     difficulty: np.ndarray      # (I,) float32 latent
     query_bytes: np.ndarray     # (I,) float32
+    # Optional QoE contract (see workload.slo.attach_slos). None = no SLOs.
+    ttft_deadline: Optional[np.ndarray] = None   # (I,) float32 seconds
+    tpot_deadline: Optional[np.ndarray] = None   # (I,) float32 s/token
+    slo_interactive: Optional[np.ndarray] = None  # (I,) bool deadline class
     # Optional open-loop arrival timestamps (sorted ascending, seconds).
     # None = closed-loop trace.
     arrival_time: Optional[np.ndarray] = None    # (I,) float32
+    phase_id: Optional[np.ndarray] = None        # (I,) int32 workload phase
     # Optional multi-turn session identity (workload.sessions): session id
     # (-1 = single-shot), shared-system-prompt class, and the token length of
     # that shared prefix.
@@ -53,6 +59,10 @@ class Trace:
     @property
     def n_requests(self) -> int:
         return self.task.shape[0]
+
+    @property
+    def has_slos(self) -> bool:
+        return self.ttft_deadline is not None and self.tpot_deadline is not None
 
     @property
     def has_arrivals(self) -> bool:

@@ -204,3 +204,52 @@ def test_dominance_finite_fast_path_is_exact(M):
     got = _fast_path(Fc[:, None, :], Fc[None, :, :])
     want = ref.dominance_matrix(torch.from_numpy(F)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def _chunked(F: np.ndarray, chunk: int = 32, cols: int = COLS,
+             rows: int = 16) -> np.ndarray:
+    """The chunked kernels' plan (M > 32; up to 32 it is one chunk), for
+    the matrix kernel (a thread's 16 columns as bits, a batch of rows) and
+    the counts kernel (a tile's rows as bits): the objectives taken
+    ``chunk`` at a time, one word of
+    "all <=" bits and one of "any <" bits per row across the chunks, the
+    entry the AND of the two once every chunk is seen."""
+    P, M = F.shape
+    out = np.zeros((P, P), bool)
+    for i0 in range(0, P, rows):
+        for j0 in range(0, P, cols):
+            fi, fj = F[i0:i0 + rows], F[j0:j0 + cols]
+            le = np.full(len(fi), (1 << len(fj)) - 1, np.uint32)
+            lt = np.zeros(len(fi), np.uint32)
+            bit = np.uint32(1) << np.arange(len(fj), dtype=np.uint32)
+            for m0 in range(0, M, chunk):
+                for m in range(m0, min(M, m0 + chunk)):
+                    a, b = fi[:, m, None], fj[None, :, m]
+                    le &= ((a <= b) * bit).sum(axis=1, dtype=np.uint32)
+                    lt |= ((a < b) * bit).sum(axis=1, dtype=np.uint32)
+            dom = le & lt
+            out[i0:i0 + rows, j0:j0 + cols] = (dom[:, None] & bit) != 0
+    return out
+
+
+@pytest.mark.parametrize("M", [9, 32, 33, 64, 70])
+def test_dominance_chunked_objectives_are_exact(M):
+    """Past 32 objectives the chunked kernels carry their bits across
+    chunks of 32: with ties, +-inf, NaN and signed zeros the plan gives the plain
+    version's matrix and column sums exactly."""
+    rng = np.random.default_rng(M)
+    F = (np.round(rng.random((70, M)) * 4) / 4).astype(np.float32)
+    F[5] = F[3]
+    F[7, M - 1] = np.nan
+    F[9, 0], F[10, M // 2], F[11, M - 1] = np.inf, -np.inf, -0.0
+    F[12] = F[0]
+    F[12, 40 % M] -= 0.25                   # differs past the first chunk
+    want = ref.dominance_matrix(torch.from_numpy(F)).numpy()
+    got = _chunked(F)
+    np.testing.assert_array_equal(got, want)
+    assert want.any()
+    np.testing.assert_array_equal(
+        got.sum(axis=0, dtype=np.int32),
+        ref.dominance_counts(torch.from_numpy(F)).numpy())
+    with pytest.raises(ValueError, match="CUDA"):
+        dominance.dominance_matrix_cuda(torch.from_numpy(F))

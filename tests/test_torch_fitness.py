@@ -26,6 +26,7 @@ from repro_torch.core.policies.threshold import (BOUNDS_HI, BOUNDS_LO,
                                                  PAPER_DEFAULTS,
                                                  decide_pair_py,
                                                  decide_pair_torch)
+from repro_torch.workload.slo import attach_slos
 from repro_torch.workload.trace import build_trace
 
 N_REQ = 120
@@ -139,17 +140,28 @@ def test_threshold_decision_twins_agree(seed):
 
 
 def test_registry_and_unported_modes():
-    assert list_policies() == ("direct", "threshold")
+    assert list_policies() == ("direct", "slo", "threshold")
     with pytest.raises(ValueError, match="registered policies"):
-        get_policy("slo")
-    for kw in (dict(mode="open"), dict(prefix_cache=True),
-               dict(disaggregated=True), dict(faulty=True),
-               dict(learned=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_policy("affinity")
+    for kw in (dict(prefix_cache=True), dict(disaggregated=True),
+               dict(faulty=True), dict(learned=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*9c"):
             EvalConfig(**kw)
+    # the open mode and the QoE fitness are ported: they need a trace with
+    # arrivals and one with deadlines
+    assert EvalConfig(mode="open").open_loop
     ev, _ = _evaluators("eq5", 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(AssertionError, match="arrival_time"):
+        TraceEvaluator(ev.trace, paper_testbed(), EvalConfig(mode="open"),
+                       device="cpu")
+    with pytest.raises(AssertionError, match="SLOs"):
         ev.make_fitness("threshold", objectives="qoe")
+    slo_trace = attach_slos(build_trace(N_REQ, seed=1), seed=1)
+    qoe = TraceEvaluator(slo_trace, paper_testbed(), EvalConfig(mode="eq5"),
+                         device="cpu").make_fitness("threshold", "qoe")
+    F, viol = qoe(torch.from_numpy(_genomes(4)))
+    assert F.shape == (4, 4) and viol.shape == (4,)
+    assert bool(((F[:, 3] >= 0) & (F[:, 3] <= 1)).all())
 
 
 def test_objectives_match_reference():

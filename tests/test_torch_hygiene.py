@@ -11,15 +11,17 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch import _device, serve
+from repro_torch import _device, online, serve
 from repro_torch.cluster.spec import paper_testbed
-from repro_torch.core.fitness import TraceEvaluator
+from repro_torch.core.fitness import EvalConfig, TraceEvaluator
+from repro_torch.core.router import RequestRouter
 from repro_torch.configs import get
 from repro_torch.kernels import (_build, decode_attention, dominance,
                                  flash_attention, ops, paged_attention)
 from repro_torch.models import lm
 from repro_torch.quickstart import run_quickstart
 from repro_torch.serving import EngineConfig, LLMEngine
+from repro_torch.workload.arrivals import PhaseSpec, build_open_loop_trace
 from repro_torch.workload.trace import build_trace
 
 REPO = Path(__file__).resolve().parent.parent
@@ -47,6 +49,7 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 def test_port_modules_import_no_jax_at_runtime():
     code = ("import sys, repro_torch, repro_torch.quickstart, "
+            "repro_torch.online, repro_torch.core.router, "
             "repro_torch.convert, repro_torch.serve, "
             "repro_torch.serving.engine, repro_torch.serving.kvcache, "
             "repro_torch.workload.sessions, repro_torch.models.lm, "
@@ -78,6 +81,17 @@ def test_entry_points_require_cuda_without_an_explicit_device(monkeypatch):
         TraceEvaluator(build_trace(8), paper_testbed())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         paper_testbed().to_arrays()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        online.run_online()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        online.main([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TraceEvaluator(build_open_loop_trace(8, (PhaseSpec(1.0, 1e9),)),
+                       paper_testbed(), EvalConfig(mode="open"))
+    # the router's re-fit runs on its device: CUDA unless the CPU is asked
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RequestRouter(paper_testbed())
+    assert RequestRouter(paper_testbed(), device="cpu").device.type == "cpu"
     assert _device.resolve("cpu") == torch.device("cpu")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
