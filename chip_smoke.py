@@ -5,9 +5,10 @@
 
 Builds the port's CUDA kernels from the sources in this checkout and runs
 the port's paths on the card, the routing loop, the serving engine and its
-prefix reuse on session traffic, and the runtime router's rolling-horizon
-re-fit on open-loop SLO traffic, in phases that each print one JSON line
-(run in the order 1-5, 9, 13, 6, 10, 7, 8, 11, 12):
+prefix reuse on session traffic, the runtime router's rolling-horizon
+re-fit on open-loop SLO traffic, and the whole policy registry on the
+policy matrix, in phases that each print one JSON line (run in the order
+1-5, 9, 13, 14, 6, 10, 7, 8, 11, 12):
 
 1. card: ``nvidia-smi`` name and power limit, torch/CUDA versions, build time;
 2. kernels: the dominance kernel against its plain PyTorch version on the
@@ -89,7 +90,23 @@ re-fit on open-loop SLO traffic, in phases that each print one JSON line
    burst phase, one population evaluation of its 256-row table profiled,
    and the kernel timed at the re-fit's P = 32 and 64, M = 4; last, every
    objective matrix that these sorts saw (131) goes through the matrix and
-   counts kernels again, each exactly equal to its plain version.
+   counts kernels again, each exactly equal to its plain version;
+14. policy matrix: ``repro_torch.policy_matrix.run()`` at the reference's
+   full size (192 session requests with SLO deadlines, the prefix cache
+   on, pop 16 x 12 generations a policy, QoE objectives): a tuned row for
+   every registered policy; the dominance kernel must launch 13 times a
+   fit (117 for the nine policies) and run ``dominance_matrix_kernel<4>``;
+   every row's genome, replayed on the card in the three configurations
+   of its decision space (clean, straggler on static priors, straggler
+   with the learned estimators), equals a CPU evaluator's assignments
+   exactly, with rows and QoE objectives within 1e-6; one population
+   evaluation profiled per configuration (six); ``route()`` timed for
+   every runtime policy, static and learned; the learned ``affinity`` and
+   ``disagg`` routers driven over the trace with ``record(ttft=, tpot=)``
+   (decisions and estimator state equal to a CPU router's), then one
+   ``maybe_reoptimize`` each at the router's defaults (21 launches each);
+   last, both dominance kernels exactly equal to their plain versions on
+   all 159 matrices those sorts saw.
 
 Phase 6 also holds the flash kernel's prefix-extend variant against its
 plain version (bucketed and exact-length, garbage and NaN past prefix_len).
@@ -768,6 +785,228 @@ def phase_online():
                             [float(x) for x in genome],
                         "profile": prof}
     row["timing"] = timing
+    emit(row)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# the policy matrix: every registered policy, every evaluator mode
+# ---------------------------------------------------------------------------
+
+def _qoe_objectives(ev, res):
+    """(P, 4) QoE objectives of (P, n_valid) results, by the evaluator's own
+    masked-mean arithmetic over the real requests, on the results'
+    device."""
+    import types
+    from repro_torch.core import fitness
+    t, n, dev = ev.tables, ev.n_valid, res.q.device
+    view = types.SimpleNamespace(valid=t.valid[:n].to(dev),
+                                 ttft_deadline=t.ttft_deadline[:n].to(dev),
+                                 tpot_deadline=t.tpot_deadline[:n].to(dev))
+    return fitness._objectives(res, view, "qoe")
+
+
+def _matrix_replays(rows, trace, cluster):
+    """Every row's genome (default and tuned) on a CPU evaluator of each
+    configuration of its decision space, a policy's rows as one
+    population, against the card's results behind the rows: assignments
+    exact, per-request rows and QoE objectives within 1e-6 (relative past
+    1)."""
+    import numpy as np
+    import torch
+    from repro_torch import policy_matrix as pm
+    cpu = pm.evaluators(trace, cluster, "cpu")
+    mism = replays = 0
+    row_rel = obj_rel = 0.0
+    configs = set()
+    rel = lambda x, y: float(((x - y).abs()  # noqa: E731
+                              / y.abs().clamp(min=1.0)).max())
+    for policy in dict.fromkeys(r.policy for r in rows):
+        mine = [r for r in rows if r.policy == policy]
+        space = pm.space_of(policy)
+        G = np.stack([r.genome for r in mine])
+        for regime in pm.REGIMES:
+            ev = cpu[space, regime]
+            b = ev.run_population(policy, G)
+            for k, r in enumerate(mine):
+                a, bk = r.results[regime], type(b)(*(t[k:k + 1]
+                                                     for t in b))
+                mism += int((a.assign.cpu() != bk.assign).sum())
+                for f in ("q", "cost", "rt", "ttft", "tpot", "hit",
+                          "transfer"):
+                    x, y = getattr(a, f).cpu(), getattr(bk, f)
+                    assert torch.allclose(x, y, rtol=1e-6, atol=1e-6), (
+                        policy, regime, f, rel(x, y))
+                    row_rel = max(row_rel, rel(x, y))
+                Fd = _qoe_objectives(ev, a).cpu()
+                Fc = _qoe_objectives(ev, bk)
+                assert torch.allclose(Fd, Fc, rtol=1e-6, atol=1e-6), (Fd, Fc)
+                obj_rel = max(obj_rel, rel(Fd, Fc))
+                replays += 1
+            configs.add((space, regime))
+    assert mism == 0, f"{mism} card/CPU assignment mismatches"
+    assert len(configs) == 6, configs
+    return {"replays": replays, "configurations": len(configs),
+            "assign_mismatches": mism, "max_rel_err_rows": row_rel,
+            "max_rel_err_objectives": obj_rel}
+
+
+def _drive_router(router, trace, block=16):
+    """Route the matrix trace through ``router`` as a serving loop would:
+    dispatch, the served prefix recorded on the serving node(s), a
+    completion four requests later, and ``record`` with realized TTFT and
+    TPOT (the cloud node three times slower than the tables). Returns the
+    decisions and the host microseconds per ``route()`` call."""
+    mon = router.monitor
+    decisions, inflight, route_s = [], [], 0.0
+    for i, req in enumerate(trace.requests):
+        now = float(trace.arrival_time[i])
+        dl = dict(ttft_deadline=float(trace.ttft_deadline[i]),
+                  tpot_deadline=float(trace.tpot_deadline[i]))
+        t0 = time.perf_counter()
+        d = router.route(req, now=now, **dl)
+        route_s += time.perf_counter() - t0
+        mon.on_dispatch(d.node)
+        legs = {d.node} if d.prefill_pair is None else {
+            d.node, int(router.arrays.pair_node[d.prefill_pair])}
+        for node in sorted(legs):
+            if req.session_id >= 0:
+                mon.record_prefix(node, ("sess", req.session_id),
+                                  req.prompt_tokens // block * block)
+            if req.sys_id >= 0:
+                mon.record_prefix(node, ("sys", req.sys_id),
+                                  req.sys_tokens // block * block)
+        inflight.append(d.node)
+        if len(inflight) > 4:
+            mon.on_complete(inflight.pop(0), 1.0)
+        slow = 3.0 if d.node == 0 else 1.0
+        router.record(req, d, quality=0.5, cost=d.est_cost, rt=1.0, now=now,
+                      ttft=d.est_ttft * slow, tpot=d.est_tpot * slow, **dl)
+        decisions.append(d)
+    return decisions, route_s / len(trace.requests) * 1e6
+
+
+def phase_policy_matrix():
+    """The whole routing-policy registry on the policy-matrix path, on the
+    card: ``policy_matrix.run()`` as a user calls it, its rows replayed on
+    the CPU, one population evaluation profiled per evaluator
+    configuration, ``route()`` timed for every runtime policy, and the
+    learned affinity and disagg routers driven and re-fit on the card."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from repro_torch import policy_matrix as pm
+    from repro_torch.cluster.spec import paper_testbed
+    from repro_torch.core.policies import (get_policy, list_policies,
+                                           runtime_policies)
+    from repro_torch.core.router import RequestRouter
+    from repro_torch.kernels import ops
+    n_pol = len(list_policies())
+    per_fit = 1 + pm.GENS               # the init sort + one a generation
+    sorted_F = SortedObjectives()
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with sorted_F:
+        rows = pm.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(dominance_matrix=per_fit * n_pol)[
+        "dominance_matrix"]
+    assert len(sorted_F.Fs) == launches, (len(sorted_F.Fs), launches)
+    shapes = Counter(str(tuple(F.shape)) for F in sorted_F.Fs)
+    assert shapes == {f"({pm.POP}, 4)": n_pol,
+                      f"({2 * pm.POP}, 4)": pm.GENS * n_pol}, shapes
+    names = {_kernel_name(k) for k in device_kernel_names(
+        ops.dominance_matrix, sorted_F.Fs[-1]) if "dominance_matrix" in k}
+    assert names == {"dominance_matrix_kernel<4>"}, names
+    tuned = {r.policy for r in rows if r.variant == "tuned"}
+    assert tuned == set(list_policies()), tuned
+    for r in rows:
+        assert all(math.isfinite(c) for c in r.cells()[2:]), r
+    cluster = paper_testbed()
+    trace = pm.workload(pm.N_REQUESTS)
+    parts = {"matrix_s": wall}
+    t0 = time.perf_counter()
+    checks = _matrix_replays(rows, trace, cluster)
+    parts["cpu_replays_s"] = time.perf_counter() - t0
+
+    # one population evaluation per evaluator configuration, profiled
+    t0 = time.perf_counter()
+    evs = pm.evaluators(trace, cluster, "cuda")
+    gen = torch.Generator().manual_seed(3)
+    profiles = {}
+    for (space, regime), ev in evs.items():
+        policy = "disagg" if space == "route" else "affinity"
+        spec = get_policy(policy).genome_spec
+        lo, hi = (torch.as_tensor(b) for b in (spec.lo, spec.hi))
+        G = (lo + torch.rand((pm.POP, len(lo)), generator=gen) * (hi - lo))
+        profiles[f"{space}/{regime}"] = {"policy": policy, **profile_fitness(
+            ev.make_fitness(policy, "qoe"), G.cuda(), trace.n_requests)}
+
+    parts["profiles_s"] = time.perf_counter() - t0
+
+    # route() on the host, every runtime policy, static and learned
+    t0 = time.perf_counter()
+    route_us = {}
+    for mode in runtime_policies():
+        for learned in (False, True):
+            router = RequestRouter(cluster, mode=mode, learned=learned,
+                                   device="cuda")
+            _, us = _drive_router(router, trace)
+            route_us[f"{mode}{'/learned' if learned else ''}"] = us
+
+    parts["routers_s"] = time.perf_counter() - t0
+
+    # the learned affinity and disagg routers on the card: decisions equal
+    # a CPU router's, then one re-fit each at the router's defaults
+    t0 = time.perf_counter()
+    refits, refit_Fs = {}, []
+    for mode in ("affinity", "disagg"):
+        card = RequestRouter(cluster, mode=mode, learned=True, device="cuda")
+        host = RequestRouter(cluster, mode=mode, learned=True, device="cpu")
+        got, _ = _drive_router(card, trace)
+        want, _ = _drive_router(host, trace)
+        assert [dc.astuple(d) for d in got] == [dc.astuple(d) for d in want]
+        assert (card.monitor.estimator.state.tobytes()
+                == host.monitor.estimator.state.tobytes())
+        refit_F = SortedObjectives()
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with refit_F:
+            genome = card.maybe_reoptimize(force=True)
+        torch.cuda.synchronize()
+        refit_s = time.perf_counter() - t0
+        n = launch_counts(dominance_matrix=1 + REFIT_GENS)[
+            "dominance_matrix"]
+        assert genome is not None and np.isfinite(genome).all()
+        assert len(refit_F.Fs) == n
+        refit_Fs += refit_F.Fs
+        refits[mode] = {"window": trace.n_requests, "padded_to": 256,
+                        "pop": REFIT_POP, "generations": REFIT_GENS,
+                        "wall_s": refit_s, "launches": n,
+                        "decisions_equal_cpu": len(got),
+                        "genome": [float(x) for x in genome]}
+    parts["learned_routers_and_refits_s"] = time.perf_counter() - t0
+    # every matrix the matrix's fits and the re-fits sorted, through both
+    # dominance kernels again, each exactly equal to its plain version
+    t0 = time.perf_counter()
+    matrices = _check_sorted(sorted_F.Fs + refit_Fs)
+    parts["matrix_checks_s"] = time.perf_counter() - t0
+
+    row = {"phase": "policy_matrix", "wall_s": wall,
+           "requests": trace.n_requests, "pop": pm.POP,
+           "generations": pm.GENS, "policies": n_pol, "launches": launches,
+           "sorted_shapes": dict(shapes), "kernel": sorted(names),
+           "matrices_checked": matrices,
+           "fit_s": {r.policy: r.nsga2_fit_s for r in rows
+                     if r.variant == "tuned"},
+           "rows": {f"{r.policy}.{r.variant}": dict(zip(
+               pm.COLUMNS[2:], r.cells()[2:])) for r in rows},
+           "checks": checks, "profiles": profiles,
+           "route_us_per_decision": route_us, "refits": refits,
+           "parts_s": parts}
     emit(row)
     return row
 
@@ -1711,6 +1950,7 @@ def main():
     large = timed("large_population", phase_large_population, sorted_F)
     counts = timed("counts_kernel", phase_counts_kernel, sorted_F)
     onl = timed("online", phase_online)
+    mat = timed("policy_matrix", phase_policy_matrix)
     attn = timed("attention_kernels", phase_attention_kernels)
     paged = timed("paged_kernel", phase_paged_kernel)
     run, model, served = timed("serve", phase_serve)
@@ -1735,6 +1975,9 @@ def main():
         "launches": launches, "launches_large_population": large,
         "launches_online": onl["launches"],
         "launches_online_refit_256": onl["refit_256"]["launches"],
+        "launches_policy_matrix": mat["launches"],
+        "launches_policy_matrix_refits": {
+            m: r["launches"] for m, r in mat["refits"].items()},
         **onl["timing"],
         "cases": kern["cases"], "exact": kern["exact"],
         "max_abs_err": kern["max_abs_err"],

@@ -5,5 +5,6 @@ is the counterpart of ``repro/core/fitness.py``) and imports neither JAX nor
 ``repro``: the numpy modules it needs are copies kept here. Entry points run
 on CUDA unless the caller passes ``device="cpu"``.
 """
-__all__ = ["cluster", "configs", "convert", "core", "kernels", "models",
-           "quickstart", "serve", "serving", "workload"]
+__all__ = ["cluster", "configs", "convert", "core", "faults", "kernels",
+           "learn", "models", "obs", "online", "policy_matrix", "quickstart",
+           "serve", "serving", "workload"]

@@ -18,13 +18,16 @@ Heartbeats are initialized to the construction time — a node that has
 *never* heartbeated is not considered stale until a full
 ``heartbeat_timeout`` has elapsed since construction.
 
+The monitor also holds the live state two router inputs read: the
+prefix-cache state of cache-affinity routing (which session and system
+prompt prefixes each node holds) and the optional online estimator of the
+learned-estimator loop (:meth:`feed_estimator`).
+
 A copy of ``repro.cluster.monitor`` pruned to what the runtime router
-reads (the port imports nothing of ``repro``): the learned estimator, the
-prefix-cache state of cache-affinity routing, the hedging hooks
+reads (the port imports nothing of ``repro``): the hedging hooks
 (``on_cancel``, ``straggler_threshold``), the fleet counters and the
-metrics registry come with the slices that port their consumers (ROADMAP.md
-Queue 1 items 9c and 11). Its state after a sequence of events must equal
-the reference's.
+metrics registry come with the serving fleet (ROADMAP.md Queue 1 item 11).
+Its state after a sequence of events must equal the reference's.
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+from ..learn import OnlineEstimator
 
 
 @dataclasses.dataclass
@@ -51,6 +56,12 @@ class NodeStats:
     ewma_slow: float = 0.0
     alpha_fast: float = 0.3
     alpha_slow: float = 0.03
+    # prefix-cache state: (kind, group) -> cached prefix tokens on this node,
+    # where kind is "sess" (one session's latest prompt) or "sys" (a shared
+    # system prompt). The cache-affinity router reads this to estimate the
+    # cached-prefix fraction per candidate node.
+    cached_prefixes: Dict[Tuple[str, int], int] = dataclasses.field(
+        default_factory=dict)
     # circuit breaker (closed -> open on error-rate EWMA, open -> half-open
     # after a cooldown, half-open admits ONE probe whose outcome decides
     # closed vs re-open). Inert unless the monitor was built with
@@ -70,7 +81,8 @@ class ClusterMonitor:
                  now: float = 0.0,
                  breaker_threshold: Optional[float] = None,
                  breaker_alpha: float = 0.3, breaker_min_obs: int = 4,
-                 breaker_cooldown: float = 20.0):
+                 breaker_cooldown: float = 20.0,
+                 estimator: Optional[OnlineEstimator] = None):
         self.stats: Dict[int, NodeStats] = {
             j: NodeStats(last_heartbeat=now) for j in range(n_nodes)}
         self.heartbeat_timeout = heartbeat_timeout
@@ -84,6 +96,10 @@ class ClusterMonitor:
         self.breaker_min_obs = breaker_min_obs
         self.breaker_cooldown = breaker_cooldown
         self.breaker_opens = np.zeros(n_nodes, np.int64)
+        # optional online-learned estimator (repro_torch.learn): the router
+        # reads its residual predictions on the hot path, completion
+        # observations feed it via :meth:`feed_estimator`
+        self.estimator = estimator
 
     # -- data plane callbacks -------------------------------------------------
     def on_dispatch(self, node: int) -> None:
@@ -124,6 +140,22 @@ class ClusterMonitor:
         s = self.stats[node]
         s.last_heartbeat = now
         s.healthy = True
+
+    def feed_estimator(self, category: int, node_p: int, node_q: int,
+                       prompt_tokens: float, complexity: float,
+                       y_prefill: float, y_tpot: float,
+                       y_quality: float = 0.0) -> None:
+        """Forward one completed request's residual targets into the
+        attached :class:`~repro_torch.learn.OnlineEstimator` (no-op without
+        one). ``y_*`` are residual targets in the caller's clock domain;
+        decision-time queue depths come from this monitor's outstanding
+        counts."""
+        if self.estimator is None:
+            return
+        self.estimator.observe(
+            category, node_p, node_q, prompt_tokens, complexity,
+            np.asarray(self.queue_lengths(), np.int64),
+            self.estimator.node_conc, y_prefill, y_tpot, y_quality)
 
     def mark_down(self, node: int) -> None:
         self.stats[node].healthy = False
@@ -187,6 +219,41 @@ class ClusterMonitor:
 
     def breaker_states(self) -> Tuple[str, ...]:
         return tuple(self.stats[j].breaker_state for j in sorted(self.stats))
+
+    # -- prefix-cache state (cache-affinity routing) ---------------------------
+    def record_prefix(self, node: int, key: Tuple[str, int],
+                      tokens: int) -> None:
+        """A prompt prefix of ``tokens`` tokens is now cached on ``node``
+        (monotone max: sessions only ever extend their prompts)."""
+        cp = self.stats[node].cached_prefixes
+        cp[key] = max(cp.get(key, 0), int(tokens))
+
+    def cached_tokens(self, node: int, key: Tuple[str, int]) -> int:
+        return self.stats[node].cached_prefixes.get(key, 0)
+
+    def drop_prefixes(self, node: int) -> None:
+        """Node restart / cache flush: forget its prefix state."""
+        self.stats[node].cached_prefixes.clear()
+
+    def hit_fractions(self, session: int, sys: int, prompt_tokens: float,
+                      sys_tokens: float, block: int = 16) -> Tuple[float, ...]:
+        """Expected cached-prefix fraction of this prompt per node.
+
+        Whole-block granularity (the paged pool shares only full blocks);
+        the session's own cached prompt dominates the shared system prompt
+        when both are resident."""
+        blk_p = (int(prompt_tokens) // block) * block
+        blk_s = (int(sys_tokens) // block) * block
+        out = []
+        for j in sorted(self.stats):
+            hit = 0
+            if session >= 0:
+                hit = min(self.cached_tokens(j, ("sess", session)), blk_p)
+            if sys >= 0:
+                hit = max(hit, min(self.cached_tokens(j, ("sys", sys)),
+                                   blk_s))
+            out.append(hit / max(float(prompt_tokens), 1.0))
+        return tuple(out)
 
     # -- router-facing views ---------------------------------------------------
     def queue_lengths(self) -> Tuple[int, ...]:

@@ -5,11 +5,11 @@ deployment map M(n_j) ⊆ M (the paper's model deployment function). The routing
 solution space is S = {(n_j, m_k) | m_k ∈ M(n_j)}, enumerated once as a flat
 *pair table* so the evaluator indexes decisions by a single integer.
 
-A copy of ``repro.cluster.spec`` pruned to what the port's routing loop uses:
-the disaggregated prefill/decode tables (node roles, KV links, the route
-table) and the larger testbeds wait for the slice that ports them. Every
-array is built in numpy exactly as the reference builds it and moved to the
-device last (``to_arrays(device)``).
+A copy of ``repro.cluster.spec`` with the disaggregated prefill/decode
+tables (node roles, KV links, the route table); the fleet testbed waits for
+the serving fleet (ROADMAP.md Queue 1 item 11). Every array is built in
+numpy exactly as the reference builds it and moved to the device last
+(``to_arrays(device)``).
 
 Quality model
 -------------
@@ -41,10 +41,16 @@ class ModelSpec:
     base_quality: Tuple[float, float, float, float]  # per TASKS order
     difficulty_slope: float         # quality sensitivity to request difficulty
     verbosity: float = 1.0          # response-length multiplier vs task mean
+    kv_bytes_per_token: float = 0.0  # KV-cache footprint; 0 → params_b * 1024
 
     def __post_init__(self):
         assert self.model_type in MODEL_TYPES
         assert len(self.base_quality) == len(TASKS)
+
+    @property
+    def kv_bytes(self) -> float:
+        """Bytes of KV cache per prompt token (drives transfer sizing)."""
+        return self.kv_bytes_per_token or self.params_b * 1024.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,9 +75,18 @@ class NodeSpec:
     prefill_tps: Dict[str, float]
     decode_tps: Dict[str, float]
     concurrency: int = 4              # parallel execution slots (capacity C_j)
+    # disaggregated serving: a node may specialize in one phase
+    role: str = "unified"             # 'unified' | 'prefill' | 'decode'
+    price_factor: float = 1.0         # node price multiplier on model $/Mtok
+    # node<->node KV-transfer link (prefill -> decode handoff)
+    kv_bw_bps: float = 1e9            # KV link bandwidth, bytes/s
+    kv_lat_s: float = 0.002           # per-transfer setup latency, s
+    kv_egress_per_gb: float = 0.0     # $ per GB leaving this node
 
     def __post_init__(self):
         assert self.kind in ("cloud", "edge")
+        assert self.role in ("unified", "prefill", "decode"), self.role
+        assert self.price_factor > 0 and self.kv_bw_bps > 0
         for m in self.models:
             assert m in self.prefill_tps and m in self.decode_tps, m
 
@@ -101,6 +116,17 @@ class ClusterArrays(NamedTuple):
     # first-edge-pair by model type, ordered by node index: (n_types, n_edge)
     edge_pairs_by_type: torch.Tensor  # int32 pair idx, -1 padded
     cloud_fallback_pair: torch.Tensor  # int32 scalar: high-capacity cloud model
+    # disaggregated prefill/decode tables
+    node_role: torch.Tensor           # int32: 0 unified, 1 prefill, 2 decode
+    kv_lat: torch.Tensor              # (n_nodes, n_nodes) transfer setup, s
+    kv_inv_bw: torch.Tensor           # (n_nodes, n_nodes) s/byte, 0 diagonal
+    kv_egress: torch.Tensor           # (n_nodes, n_nodes) $/byte, 0 diagonal
+    pair_kv_bytes_per_token: torch.Tensor  # (n_pairs,) KV footprint per token
+    # route table: every feasible (prefill_pair, decode_pair) combination,
+    # same model on both legs; colocated routes (p == q) are included so a
+    # tuned policy can *choose* not to disaggregate
+    route_prefill: torch.Tensor       # (n_routes,) int32 pair idx
+    route_decode: torch.Tensor        # (n_routes,) int32 pair idx
 
     @property
     def n_pairs(self) -> int:
@@ -109,6 +135,10 @@ class ClusterArrays(NamedTuple):
     @property
     def n_nodes(self) -> int:
         return self.node_is_edge.shape[0]
+
+    @property
+    def n_routes(self) -> int:
+        return self.route_prefill.shape[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,19 +188,22 @@ class ClusterSpec:
         pair_bq = np.zeros((n_pairs, len(TASKS)), np.float32)
         pair_slope = np.zeros(n_pairs, np.float32)
         pair_verb = np.zeros(n_pairs, np.float32)
+        pair_kv_bpt = np.zeros(n_pairs, np.float32)
         for p, (j, k) in enumerate(pairs):
             node, model = self.nodes[j], self.models[k]
             pair_node[p] = j
             pair_model[p] = k
             pair_is_edge[p] = node.kind == "edge"
             pair_model_type[p] = MODEL_TYPE_INDEX[model.model_type]
-            pair_price[p] = model.price_per_mtok
+            pair_price[p] = model.price_per_mtok * node.price_factor
             pair_prefill[p] = node.prefill_tps[model.name]
             pair_decode[p] = node.decode_tps[model.name]
             pair_bq[p] = model.base_quality
             pair_slope[p] = model.difficulty_slope
             pair_verb[p] = model.verbosity
+            pair_kv_bpt[p] = model.kv_bytes
 
+        n_nodes = len(self.nodes)
         node_is_edge = np.array([n.kind == "edge" for n in self.nodes])
         node_bw_up = np.array([n.link.bw_up_bps for n in self.nodes], np.float32)
         node_bw_down = np.array([n.link.bw_down_bps for n in self.nodes], np.float32)
@@ -195,6 +228,34 @@ class ClusterSpec:
         assert cloud_pairs, "cluster must contain at least one cloud pair"
         fallback = max(cloud_pairs, key=lambda t: t[1])[0]
 
+        # disaggregated tables: node roles, KV link matrices, route table
+        role_ix = {"unified": 0, "prefill": 1, "decode": 2}
+        node_role = np.array([role_ix[n.role] for n in self.nodes], np.int32)
+        kv_lat = np.zeros((n_nodes, n_nodes), np.float32)
+        kv_inv_bw = np.zeros((n_nodes, n_nodes), np.float32)
+        kv_egress = np.zeros((n_nodes, n_nodes), np.float32)
+        for a, na in enumerate(self.nodes):
+            for b, nb in enumerate(self.nodes):
+                if a == b:
+                    continue
+                kv_lat[a, b] = na.kv_lat_s + nb.kv_lat_s
+                kv_inv_bw[a, b] = 1.0 / min(na.kv_bw_bps, nb.kv_bw_bps)
+                kv_egress[a, b] = na.kv_egress_per_gb / 1e9
+        # routes: same model on both legs; prefill leg never on a
+        # decode-specialized node, decode leg never on a prefill-specialized
+        # node. Colocated (p == q) routes therefore exist exactly on unified
+        # nodes, so the route-valued genome can decline to disaggregate.
+        route_p, route_q = [], []
+        for p, (jp, kp) in enumerate(pairs):
+            if node_role[jp] == 2:          # decode-only node can't prefill
+                continue
+            for q, (jq, kq) in enumerate(pairs):
+                if kq != kp or node_role[jq] == 1:   # model mismatch / no decode
+                    continue
+                route_p.append(p)
+                route_q.append(q)
+        assert route_p, "cluster must admit at least one (prefill, decode) route"
+
         return dict(
             pair_node=pair_node, pair_model=pair_model,
             pair_is_edge=pair_is_edge, pair_model_type=pair_model_type,
@@ -205,7 +266,11 @@ class ClusterSpec:
             node_bw_down=node_bw_down, node_lat_up=node_lat_up,
             node_lat_down=node_lat_down, node_conc=node_conc,
             edge_pairs_by_type=edge_by_type,
-            cloud_fallback_pair=np.asarray(fallback, np.int32))
+            cloud_fallback_pair=np.asarray(fallback, np.int32),
+            node_role=node_role, kv_lat=kv_lat, kv_inv_bw=kv_inv_bw,
+            kv_egress=kv_egress, pair_kv_bytes_per_token=pair_kv_bpt,
+            route_prefill=np.asarray(route_p, np.int32),
+            route_decode=np.asarray(route_q, np.int32))
 
     def to_arrays(self, device: Device = None) -> ClusterArrays:
         """The pair table as tensors on ``device`` (CUDA unless asked)."""
@@ -269,3 +334,44 @@ def paper_testbed(edge_concurrency: int = 4, cloud_concurrency: int = 8
         for i in range(3)
     )
     return ClusterSpec(nodes=nodes, models=models)
+
+
+def disagg_testbed(kv_bw_bps: float = 2.5e9,
+                   n_decode: int = 2,
+                   unified_concurrency: int = 4) -> ClusterSpec:
+    """Disaggregated variant of the testbed: one shared cloud model served
+    by a prefill-optimized node (batchy compute, weak decode), decode-
+    optimized nodes (high decode throughput, poor prefill, cheaper $/Mtok via
+    ``price_factor``), and unified nodes that can do both. ``kv_bw_bps``
+    parameterizes the prefill->decode KV link.
+    """
+    model = ModelSpec(
+        name="gemma3:27b", model_type="general", params_b=27.0,
+        price_per_mtok=0.83,
+        base_quality=(0.650, 0.420, 0.905, 0.320),
+        difficulty_slope=0.08, verbosity=1.0)
+    link = LinkSpec(bw_up_bps=6.25e6, bw_down_bps=6.25e6,
+                    latency_up_s=0.020, latency_down_s=0.020)
+    name = model.name
+    nodes = (
+        NodeSpec(name="prefill-0", kind="cloud", models=(name,), link=link,
+                 prefill_tps={name: 9000.0}, decode_tps={name: 6.0},
+                 concurrency=8, role="prefill", price_factor=0.9,
+                 kv_bw_bps=kv_bw_bps, kv_lat_s=0.002),
+    ) + tuple(
+        NodeSpec(name=f"decode-{i}", kind="cloud", models=(name,), link=link,
+                 prefill_tps={name: 250.0}, decode_tps={name: 34.0},
+                 concurrency=8, role="decode", price_factor=0.7,
+                 kv_bw_bps=kv_bw_bps, kv_lat_s=0.002)
+        for i in range(n_decode)
+    ) + (
+        NodeSpec(name="unified-0", kind="cloud", models=(name,), link=link,
+                 prefill_tps={name: 2200.0}, decode_tps={name: 19.0},
+                 concurrency=unified_concurrency, role="unified",
+                 kv_bw_bps=kv_bw_bps, kv_lat_s=0.002),
+        NodeSpec(name="unified-1", kind="cloud", models=(name,), link=link,
+                 prefill_tps={name: 2200.0}, decode_tps={name: 19.0},
+                 concurrency=unified_concurrency, role="unified",
+                 kv_bw_bps=kv_bw_bps, kv_lat_s=0.002),
+    )
+    return ClusterSpec(nodes=nodes, models=(model,))

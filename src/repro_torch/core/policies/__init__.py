@@ -4,10 +4,12 @@ One registry drives the evaluator (``core.fitness``) and the NSGA-II genome
 configuration. Adding a policy is one file in this package: subclass
 :class:`~repro_torch.core.policies.base.RoutingPolicy` and call
 :func:`register_policy` at module bottom; modules here are imported in
-sorted name order on first import. The port has ``threshold`` (paper
-Alg. 2), ``slo`` (cheapest pair within the request's deadlines) and
-``direct`` (one gene per request) so far; the runtime router takes the
-first two (:func:`runtime_policies`).
+sorted name order on first import. The registry holds the reference's
+nine policies: ``threshold`` (paper Alg. 2), ``direct`` (one gene per
+request), ``slo``, ``affinity`` (prefix-cache aware), ``p2c-hedge``,
+``budget`` (per-window spend ledger), ``bandit`` (learned quality rows),
+``resilient`` (brownout under faults) and the route-valued ``disagg``; the
+runtime router takes every one but ``direct`` (:func:`runtime_policies`).
 """
 from __future__ import annotations
 

@@ -34,7 +34,11 @@ class PolicyInputs(NamedTuple):
 
     Request scalars are 0-d; per-pair vectors are ``(n_pairs,)``. The live
     state ``queue_len`` is per node: ``(P, n_nodes)`` inside the evaluator,
-    one row per genome, and ``(n_nodes,)`` for ``decide_py``.
+    one row per genome, and ``(n_nodes,)`` for ``decide_py``. Inside the
+    evaluator, rows that depend on a genome's own state are ``(P,
+    n_pairs)``: ``hit_frac`` under the prefix cache, ``up`` under faults
+    (dead nodes masked), and ``prefill``/``tpot``/``quality``/``unc`` under
+    the learned estimators. ``decide_torch`` broadcasts either shape.
     """
 
     index: int                 # request index (monotone at runtime)
@@ -56,7 +60,12 @@ class PolicyInputs(NamedTuple):
     hit_frac: Array            # (n_pairs,) expected cached-prefix fraction
     # live cluster state
     queue_len: Array           # (P, n_nodes) busy execution slots
+    # disaggregated serving: whole-block KV footprint of this prompt on each
+    # pair's model (bytes to move if prefill and decode run on different
+    # nodes); zero-filled unless the policy declares "transfer"
     kv_bytes: Array = np.float32(0.0)   # (n_pairs,) KV bytes to move
+    # learned-estimator rows (repro_torch.learn): expected quality and the
+    # estimator's uncertainty (zeros on static priors)
     quality: Array = np.float32(0.0)    # (n_pairs,) expected quality
     unc: Array = np.float32(0.0)        # (n_pairs,) estimator uncertainty
 
@@ -105,8 +114,9 @@ class RoutingPolicy:
     requires: frozenset = frozenset()
     state_size: int = 0
     #: decision index space: "pair" policies return an index into the
-    #: (node, model) pair table; "route" policies (disaggregated serving,
-    #: ROADMAP.md item 9c) an index into the (prefill, decode) route table
+    #: (node, model) pair table; "route" policies return an index into the
+    #: (prefill_pair, decode_pair) route table (disaggregated serving) and
+    #: must be evaluated with ``EvalConfig(disaggregated=True)``.
     decides: str = "pair"
 
     # -- decisions -----------------------------------------------------------

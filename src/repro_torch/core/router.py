@@ -22,17 +22,24 @@ fault-aware:
   the caller asks for the CPU; survival through the dominance kernel), and
   installs the re-selected policy parameters.
 
-The decision rule is pluggable: ``mode=`` names a runtime-capable policy of
-the registry (``core.policies.runtime_policies()``: "threshold" and "slo" in
-the port). The router consults the policy's declared ``requires`` set to
-decide which inputs to assemble per request, builds one ``PolicyInputs``
-bundle, and calls ``policy.decide_py``; the re-fit derives its genome
-encoding from the same policy object (``NSGA2Config.from_policy``).
+The decision rule is pluggable: ``mode=`` names any runtime-capable policy
+of the registry (``core.policies.runtime_policies()``: "threshold", "slo",
+"affinity", "p2c-hedge", "budget", "bandit", "resilient", "disagg"). The
+router consults the policy's declared ``requires`` set to decide which
+inputs to assemble per request (per-pair phase/cost estimates, deadlines,
+the monitor's prefix-cache hit fractions, KV-transfer bytes), builds one
+``PolicyInputs`` bundle, and calls ``policy.decide_py``; per-policy state
+(the budget ledger) is threaded through ``update_py``. A route-valued
+policy (``disagg``) picks a (prefill, decode) route, failed over to a route
+with both endpoints healthy when one is down. With ``learned=True`` the
+monitor's :class:`~repro_torch.learn.OnlineEstimator` corrects the estimate
+rows, and ``record(ttft=, tpot=)`` feeds it. The re-fit derives its genome
+encoding from the same policy object (``NSGA2Config.from_policy``) and
+evaluates it under the same models (prefix cache on session windows, the
+route table, the estimators).
 
-The port of ``repro.core.router``. The reference's other modes (cache
-affinity, hedged power-of-two, budget, bandit, resilient, disaggregated
-routes), its learned estimators and its audit log come with ROADMAP.md
-Queue 1 item 9c; asking for them raises ``NotImplementedError``.
+The port of ``repro.core.router``; the audit log comes with ROADMAP.md
+Queue 1 item 11, and passing ``audit=`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -45,22 +52,15 @@ import torch
 from .._device import Device, resolve
 from ..cluster.monitor import ClusterMonitor
 from ..cluster.spec import ClusterArrays, ClusterSpec
+from ..learn import LearnConfig, OnlineEstimator
+from ..learn import estimators as learn_est
 from ..workload.classifier import classify
 from ..workload.datasets import Request
 from ..workload.features import complexity_score
 from ..workload.slo import DEFAULT_SLO_TABLE, slo_arrays
-from .fitness import request_pair_estimates
+from .fitness import DEAD_QUEUE, DEAD_UP, request_pair_estimates
 from .policies import (PolicyInputs, get_policy, list_policies,
                        runtime_policies)
-
-#: the reference's runtime modes that ROADMAP.md Queue 1 item 9c ports
-ITEM_9C_MODES = ("affinity", "p2c-hedge", "budget", "bandit", "resilient",
-                 "disagg")
-
-# dead-node sentinels of the reference router (and of its evaluator's
-# fault masking, item 9c)
-DEAD_QUEUE = 10**6
-DEAD_UP = 1e9
 
 
 @dataclasses.dataclass
@@ -71,12 +71,16 @@ class RouteDecision:
     go_edge: bool
     features: Tuple[float, int, float]   # (c_i, t_i, p_t)
     backup_pair: Optional[int] = None
-    # disaggregated serving (item 9c): the prefill leg's pair; None here
+    # disaggregated serving (route-valued policies): the prefill leg's pair.
+    # None for ordinary pair decisions; equal to ``pair`` on colocated
+    # routes. ``pair`` is always the decode (billing/retirement) pair.
     prefill_pair: Optional[int] = None
     # modelled $ of the chosen pair (0.0 when the policy never requested
     # estimate rows)
     est_cost: float = 0.0
-    # the estimates this decision acted on (zero without estimate rows)
+    # the (possibly learned-corrected) estimates the decision acted on —
+    # fed back through ``record(ttft=, tpot=)`` as the expected side of the
+    # online estimator's residual targets (zero without estimate rows)
     est_ttft: float = 0.0
     est_tpot: float = 0.0
     est_quality: float = 0.0
@@ -103,12 +107,15 @@ class RequestRouter:
                  mode: str = "threshold",
                  slo_params: Optional[Sequence[float]] = None,
                  slo_table=DEFAULT_SLO_TABLE,
+                 cache_block: int = 16,
                  params: Optional[Sequence[float]] = None,
-                 learned: bool = False, device: Device = None):
-        if mode in ITEM_9C_MODES or learned:
+                 audit=None, learned: bool = False,
+                 learner: LearnConfig = LearnConfig(),
+                 device: Device = None):
+        if audit is not None:
             raise NotImplementedError(
-                f"{'learned=True' if learned else f'mode={mode!r}'} is not "
-                f"ported yet: ROADMAP.md Queue 1 item 9c brings it")
+                "the audit log is not ported yet: ROADMAP.md Queue 1 item 11 "
+                "brings it")
         self.policy = get_policy(mode)     # ValueError lists registry names
         if self.policy.genome_spec.per_request:
             raise ValueError(
@@ -134,9 +141,18 @@ class RequestRouter:
             self._params["slo"] = np.asarray(slo_params, np.float32)
         if params is not None:
             self._params[self.policy.name] = np.asarray(params, np.float32)
+        self.cache_block = cache_block
         self._slo_ttft, self._slo_tpot = slo_arrays(slo_table)
         self.monitor = monitor or ClusterMonitor(len(cluster.nodes))
         self._rng = np.random.default_rng(0)
+        # online learned estimators (repro_torch.learn): corrections ride on
+        # the monitor, so a completion path can feed observations without
+        # holding a router reference
+        self.learned = learned
+        self.learner = learner
+        if learned and self.monitor.estimator is None:
+            self.monitor.estimator = OnlineEstimator(
+                learner, len(cluster.nodes), node_conc=self.arrays.node_conc)
         self._pair_node = self.arrays.pair_node
         self._pair_is_edge = self.arrays.pair_is_edge
         self._n_pairs = len(self._pair_node)
@@ -186,8 +202,11 @@ class RequestRouter:
 
         Explicit per-request deadlines override the per-category SLO table
         defaults (consumed by policies declaring the "deadlines"
-        requirement). ``now`` is the decision timestamp; it defaults to the
-        router's request counter."""
+        requirement). ``now`` is the decision timestamp for time-windowed
+        policies (the budget ledger); it defaults to the router's request
+        counter (pseudo-seconds: one window = WINDOW_S requests). Callers
+        that pass ``now=`` to :meth:`record` must pass the same clock here,
+        or the re-fit tunes the window budget on another time base."""
         pol = self.policy
         pred_cat, conf = classify(req, self._rng)
         c_i = complexity_score(req, pred_cat)
@@ -218,10 +237,33 @@ class RequestRouter:
             + np.asarray(self.arrays.pair_diff_slope, np.float32)
             * (np.float32(0.5) - np.float32(c_i)),
             np.float32(0.0), np.float32(1.0)).astype(np.float32)
+        unc_row = zeros
+        if self.learned and self.monitor.estimator is not None:
+            d_p, d_t, d_q, unc_n = self.monitor.estimator.predict(
+                pred_cat, req.prompt_tokens, c_i, masked_queue,
+                self.arrays.node_conc)
+            prefill, tpot, quality_row, unc_row = learn_est.corrected_rows(
+                np, np.asarray(prefill, np.float32),
+                np.asarray(tpot, np.float32), quality_row, d_p, d_t, d_q,
+                unc_n, self._pair_node)
         ttft_dl = (ttft_deadline if ttft_deadline is not None
                    else float(self._slo_ttft[pred_cat]))
         tpot_dl = (tpot_deadline if tpot_deadline is not None
                    else float(self._slo_tpot[pred_cat]))
+        hit = zeros
+        if "cache" in pol.requires:
+            hit_node = self.monitor.hit_fractions(
+                req.session_id, req.sys_id, float(req.prompt_tokens),
+                float(req.sys_tokens), block=self.cache_block)
+            hit = np.asarray(hit_node, np.float32)[self._pair_node]
+        kv_bytes = zeros
+        if "transfer" in pol.requires:
+            blk = float(self.cache_block)
+            kv_blk = np.float32(np.floor(
+                np.float32(req.prompt_tokens) / np.float32(blk)) * blk)
+            kv_bytes = (kv_blk * np.asarray(
+                self.arrays.pair_kv_bytes_per_token,
+                np.float32)).astype(np.float32)
 
         inp = PolicyInputs(
             index=np.int32(self._n_routed),
@@ -231,24 +273,49 @@ class RequestRouter:
             tpot_deadline=np.float32(tpot_dl),
             prompt_tokens=np.float32(req.prompt_tokens),
             up=up, prefill=prefill, tpot=tpot, cost=cost,
-            prompt_cost=prompt_cost, hit_frac=zeros, queue_len=masked_queue,
-            kv_bytes=zeros, quality=quality_row, unc=zeros)
-        pair = int(pol.decide_py(self.params, inp, self.arrays,
-                                 self._pstate))
-        node = int(self._pair_node[pair])
+            prompt_cost=prompt_cost, hit_frac=hit, queue_len=masked_queue,
+            kv_bytes=kv_bytes, quality=quality_row, unc=unc_row)
+        decision = int(pol.decide_py(self.params, inp, self.arrays,
+                                     self._pstate))
 
-        # failover: if the policy returned a pair on a dead node (e.g. the
-        # cloud fallback itself is down), pick any healthy pair
-        if not healthy[node]:
-            alive = [p for p in range(self._n_pairs)
-                     if healthy[self._pair_node[p]]]
-            if not alive:
-                raise RuntimeError("no healthy nodes in cluster")
-            # prefer healthy cloud, then least-loaded healthy edge
-            cloud_alive = [p for p in alive if not self._pair_is_edge[p]]
-            pair = (cloud_alive[0] if cloud_alive else
-                    min(alive, key=lambda p: queue[self._pair_node[p]]))
+        prefill_pair = None
+        if pol.decides == "route":
+            # route-valued decision: resolve the (prefill, decode) legs;
+            # ``pair`` is the decode pair from here on
+            rp, rq = self.arrays.route_prefill, self.arrays.route_decode
+            prefill_pair, pair = int(rp[decision]), int(rq[decision])
+            node_p = int(self._pair_node[prefill_pair])
             node = int(self._pair_node[pair])
+            if not (healthy[node_p] and healthy[node]):
+                # failover: re-pick among routes with both endpoints healthy,
+                # preferring colocated ones (no handoff exposure while the
+                # cluster is degraded), then least-loaded decode node
+                cands = [r for r in range(len(rp))
+                         if healthy[self._pair_node[rp[r]]]
+                         and healthy[self._pair_node[rq[r]]]]
+                if not cands:
+                    raise RuntimeError("no healthy nodes in cluster")
+                colo = [r for r in cands if rp[r] == rq[r]]
+                decision = min(colo or cands,
+                               key=lambda r: queue[self._pair_node[rq[r]]])
+                prefill_pair, pair = int(rp[decision]), int(rq[decision])
+                node = int(self._pair_node[pair])
+        else:
+            pair = decision
+            node = int(self._pair_node[pair])
+
+            # failover: if the policy returned a pair on a dead node (e.g.
+            # the cloud fallback itself is down), pick any healthy pair
+            if not healthy[node]:
+                alive = [p for p in range(self._n_pairs)
+                         if healthy[self._pair_node[p]]]
+                if not alive:
+                    raise RuntimeError("no healthy nodes in cluster")
+                # prefer healthy cloud, then least-loaded healthy edge
+                cloud_alive = [p for p in alive if not self._pair_is_edge[p]]
+                pair = (cloud_alive[0] if cloud_alive else
+                        min(alive, key=lambda p: queue[self._pair_node[p]]))
+                node = int(self._pair_node[pair])
 
         # policy state advances on the pair actually dispatched (post
         # failover), and only for requests dispatched at all
@@ -257,13 +324,16 @@ class RequestRouter:
         self._n_routed += 1
 
         backup = self.backup_pair(pair) if want_backup else None
+        # the estimates this decision acted on (TTFT on the prefill leg,
+        # TPOT on the decode pair): the expected side of record()'s targets
+        pp = pair if prefill_pair is None else prefill_pair
         return RouteDecision(
             pair=int(pair), node=node,
             model=int(self.arrays.pair_model[pair]),
             go_edge=bool(self._pair_is_edge[pair]),
             features=(c_i, pred_cat, conf), backup_pair=backup,
-            est_cost=float(cost[pair]),
-            est_ttft=float(up[pair] + prefill[pair]),
+            prefill_pair=prefill_pair, est_cost=float(cost[pair]),
+            est_ttft=float(up[pp] + prefill[pp]),
             est_tpot=float(tpot[pair]),
             est_quality=float(quality_row[pair]))
 
@@ -286,11 +356,32 @@ class RequestRouter:
     def record(self, req: Request, decision: RouteDecision, quality: float,
                cost: float, rt: float, now: Optional[float] = None,
                ttft_deadline: Optional[float] = None,
-               tpot_deadline: Optional[float] = None) -> None:
+               tpot_deadline: Optional[float] = None,
+               ttft: Optional[float] = None,
+               tpot: Optional[float] = None) -> None:
         """Append one served request + realized objectives to the rolling
         history window ``maybe_reoptimize`` re-fits against. ``now`` is the
         request's arrival timestamp (enables open-loop re-fitting); the
-        deadline pair is its QoE contract if it carried one."""
+        deadline pair is its QoE contract if it carried one. Realized
+        ``ttft``/``tpot`` (the caller's clock units — the ratio residual
+        absorbs the scale) close the learning loop: each becomes a
+        realized-vs-estimated residual against the decision's own estimates
+        and goes to the monitor's :class:`OnlineEstimator`."""
+        est_obj = self.monitor.estimator
+        if est_obj is not None and (ttft is not None or tpot is not None):
+            y_p = (OnlineEstimator.ratio(decision.est_ttft, ttft)
+                   if ttft is not None else 0.0)
+            y_t = (OnlineEstimator.ratio(decision.est_tpot, tpot)
+                   if tpot is not None else 0.0)
+            y_q = (float(np.float32(quality)
+                         - np.float32(decision.est_quality))
+                   if decision.est_quality > 0.0 else 0.0)
+            node_p = (decision.node if decision.prefill_pair is None
+                      else int(self._pair_node[decision.prefill_pair]))
+            self.monitor.feed_estimator(
+                int(decision.features[1]), node_p, decision.node,
+                req.prompt_tokens, float(decision.features[0]),
+                y_p, y_t, y_q)
         self._history.append(Observation(
             req=req, pair=decision.pair, features=decision.features,
             quality=quality, cost=cost, rt=rt, now=now,
@@ -395,9 +486,14 @@ class RequestRouter:
         cfg_eval = EvalConfig(
             mode="open" if trace.has_arrivals else "queued",
             concurrency=concurrency,
-            # the prefix-cache and disaggregated models (item 9c)
+            # re-fit against the cache dynamics the window actually had
             prefix_cache=(trace.has_arrivals and trace.has_sessions),
-            disaggregated=pol.decides == "route")
+            cache_block=self.cache_block,
+            # route-valued policies re-fit against the disaggregated model
+            disaggregated=pol.decides == "route",
+            # re-fit with the estimator loop the live router runs, so the
+            # tuned genome suits corrected (not static-prior) estimate rows
+            learned=self.learned, learner=self.learner)
         evaluator = TraceEvaluator(trace, self.cluster, cfg_eval,
                                    bucket="pow2", device=self.device)
 

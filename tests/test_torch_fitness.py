@@ -140,13 +140,37 @@ def test_threshold_decision_twins_agree(seed):
 
 
 def test_registry_and_unported_modes():
-    assert list_policies() == ("direct", "slo", "threshold")
+    """The registry is the reference's, policy for policy, and the four
+    evaluator modes construct (with the reference's own preconditions)."""
+    from repro.core.policies import get_policy as ref_get_policy
+    from repro.core.policies import list_policies as ref_list_policies
+    from repro.core.policies import runtime_policies as ref_runtime
+    from repro_torch.core.policies import runtime_policies
+    assert list_policies() == ref_list_policies()
+    assert len(list_policies()) == 9
+    assert runtime_policies() == ref_runtime()
+    for name in list_policies():
+        pol, ref = get_policy(name), ref_get_policy(name)
+        assert (pol.requires, pol.decides, pol.state_size) == (
+            ref.requires, ref.decides, ref.state_size), name
+        np.testing.assert_array_equal(pol.init_state(), ref.init_state())
+        spec, rspec = pol.genome_spec, ref.genome_spec
+        assert (spec.names, spec.discrete, spec.per_request, spec.length) \
+            == (rspec.names, rspec.discrete, rspec.per_request,
+                rspec.length), name
+        for f in ("lo", "hi", "defaults"):
+            a, b = getattr(spec, f), getattr(rspec, f)
+            assert (a is None) == (b is None), (name, f)
+            if a is not None:
+                assert np.asarray(a).tobytes() == np.asarray(b).tobytes()
     with pytest.raises(ValueError, match="registered policies"):
-        get_policy("affinity")
+        get_policy("nope")
     for kw in (dict(prefix_cache=True), dict(disaggregated=True),
                dict(faulty=True), dict(learned=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*9c"):
-            EvalConfig(**kw)
+        cfg = EvalConfig(mode="open", **kw)
+        assert all(getattr(cfg, k) for k in kw)
+    with pytest.raises(AssertionError, match="open-loop"):
+        EvalConfig(prefix_cache=True)
     # the open mode and the QoE fitness are ported: they need a trace with
     # arrivals and one with deadlines
     assert EvalConfig(mode="open").open_loop

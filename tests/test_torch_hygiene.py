@@ -11,7 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch import _device, online, serve
+from repro_torch import _device, online, policy_matrix, serve
 from repro_torch.cluster.spec import paper_testbed
 from repro_torch.core.fitness import EvalConfig, TraceEvaluator
 from repro_torch.core.router import RequestRouter
@@ -49,7 +49,8 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 def test_port_modules_import_no_jax_at_runtime():
     code = ("import sys, repro_torch, repro_torch.quickstart, "
-            "repro_torch.online, repro_torch.core.router, "
+            "repro_torch.online, repro_torch.policy_matrix, "
+            "repro_torch.core.router, "
             "repro_torch.convert, repro_torch.serve, "
             "repro_torch.serving.engine, repro_torch.serving.kvcache, "
             "repro_torch.workload.sessions, repro_torch.models.lm, "
@@ -85,6 +86,10 @@ def test_entry_points_require_cuda_without_an_explicit_device(monkeypatch):
         online.run_online()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         online.main([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        policy_matrix.run(smoke=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        policy_matrix.main(["--smoke"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TraceEvaluator(build_open_loop_trace(8, (PhaseSpec(1.0, 1e9),)),
                        paper_testbed(), EvalConfig(mode="open"))

@@ -449,10 +449,19 @@ def test_refit_on_reference_draws_installs_reference_genome(mode,
 
 
 def test_router_refuses_what_item_9c_brings():
-    for kw in (dict(mode="affinity"), dict(mode="budget"),
-               dict(learned=True)):
-        with pytest.raises(NotImplementedError, match="9c"):
-            RequestRouter(paper_testbed(), device="cpu", **kw)
+    """Every runtime policy drives the router, with and without the
+    learned estimators; ``direct`` and unknown names still raise, and the
+    audit log (item 11) raises naming its item."""
+    from repro_torch.core.policies import runtime_policies
+    assert len(runtime_policies()) == 8
+    for mode in runtime_policies():
+        for learned in (False, True):
+            r = RequestRouter(paper_testbed(), mode=mode, learned=learned,
+                              device="cpu")
+            assert r.mode == mode and r.learned == learned
+            assert (r.monitor.estimator is not None) == learned
+    with pytest.raises(NotImplementedError, match="item 11"):
+        RequestRouter(paper_testbed(), audit=object(), device="cpu")
     with pytest.raises(ValueError, match="registered policies"):
         RequestRouter(paper_testbed(), mode="nope", device="cpu")
     with pytest.raises(ValueError, match="per-request"):
