@@ -6,9 +6,9 @@
 Builds the port's CUDA kernels from the sources in this checkout and runs
 the port's paths on the card, the routing loop, the serving engine and its
 prefix reuse on session traffic, the runtime router's rolling-horizon
-re-fit on open-loop SLO traffic, and the whole policy registry on the
-policy matrix, in phases that each print one JSON line (run in the order
-1-5, 9, 13, 14, 6, 10, 7, 8, 11, 12):
+re-fit on open-loop SLO traffic, the whole policy registry on the policy
+matrix, and the cluster server end to end, in phases that each print one
+JSON line (run in the order 1-5, 9, 13, 14, 6, 10, 7, 8, 11, 12, 15):
 
 1. card: ``nvidia-smi`` name and power limit, torch/CUDA versions, build time;
 2. kernels: the dominance kernel against its plain PyTorch version on the
@@ -106,7 +106,36 @@ policy matrix, in phases that each print one JSON line (run in the order
    (decisions and estimator state equal to a CPU router's), then one
    ``maybe_reoptimize`` each at the router's defaults (21 launches each);
    last, both dominance kernels exactly equal to their plain versions on
-   all 159 matrices those sorts saw.
+   all 159 matrices those sorts saw;
+15. cluster: the serving launcher (``repro_torch.launch.serve.run_launch``)
+   at the published widths, stablelm-3b for the cloud pair and one
+   qwen3-1.7b shared by the 9 edge pairs (2 cohorts: 1 and 9 members),
+   random bf16 weights from seeds 0 and 1, engines of 8 slots x 128
+   positions. Run A: NSGA-II tunes the thresholds (pop 48 x 30 generations
+   on the 64-request trace), then the trace's 64 requests are served in
+   ticks of 8 decode iterations, node 1 failing after the 6th submission
+   (the tuned router sends every request to the cloud, so node 1 holds no
+   flight then and only hedges reach the edge). Run B: the same with the
+   paper's default thresholds, under which node 1 holds live flights when
+   it fails; at least one is cancelled and re-routed. Asserted for each:
+   every request done with its budget of tokens; each node's dispatches
+   closed as completed, failed or cancelled, queues drained; no block
+   leaked (vacuous: these engines keep no prefix cache); an engine's own
+   tokens (its count less its cohort's) only from decodes of its own;
+   node 1 the only node down, no request served there, its failures equal
+   to the reroutes; every token a teacher-forced maximum; launches exactly
+   31 dominance in A (1 + generations) and none in B, flash n_layers per
+   admission, decode n_layers per cohort iteration (one launch a layer for
+   all of a cohort's rows) plus per engine-own iteration, paged and counts
+   never. Then a saturated tick (every slot busy) timed fleet against the
+   per-engine loop in turns, the two servers' tokens compared slot by slot
+   (parting only at near-ties, reported), one fleet tick profiled (the
+   card's idle share), the decode kernel timed at the cohort's 72 rows and
+   the cloud's 8 beside SDPA and the bound; last the launcher's run at
+   full width and 2 layers a model, fleet on and off, under the tuned and
+   the default thresholds: the same routing decisions (audit records),
+   QoE records and token counts, node 1 the only node down, tokens parting
+   only at near-ties (counted and reported).
 
 Phase 6 also holds the flash kernel's prefix-extend variant against its
 plain version (bucketed and exact-length, garbage and NaN past prefix_len).
@@ -156,6 +185,9 @@ QUICKSTART = dict(n_requests=500, pop_size=100, n_generations=60)
 LARGE_POP, LARGE_GENS = 2048, 5
 # the router's own re-fit defaults, on a window of the burst phase
 REFIT_REQUESTS, REFIT_POP, REFIT_GENS = 256, 32, 20
+# the serving launcher's runs: 64 requests, 30 generations of tuning, node 1
+# failed after the 6th submission
+CLUSTER_REQUESTS, CLUSTER_GENS, CLUSTER_FAIL = 64, 30, (1, 5)
 
 
 def emit(obj):
@@ -229,30 +261,47 @@ def device_kernel_names(fn, *args, iters=5, attempts=3):
     return []
 
 
-def device_kernel_grids(fn, *args, name, iters=3, attempts=3):
-    """The grids (blocks along x, y, z) of the device kernels whose name
-    holds ``name`` over ``iters`` calls of ``fn``, from the profiler's
-    Chrome trace (written under build/, read and removed)."""
+def device_kernel_grids(fn, *args, name, iters=3, attempts=8):
+    """(grids, windows): the grids (blocks along x, y, z) of the device
+    kernels whose name holds ``name`` over ``iters`` calls of ``fn``, from
+    the profiler's Chrome trace (written under build/, read and removed),
+    and, for each profiled window, the trace's kernel events and the
+    profiler's own device events (``prof.events()``) whose name holds
+    ``name``. A window whose trace holds no such kernel is profiled again
+    after a pause that doubles from 0.5 s to 4 s, up to ``attempts`` times
+    (the profiler now and then records nothing for a window, and once for
+    eight windows 0.5 s apart); the windows are reported so that a
+    recurring dropout, or a kernel that really goes missing, shows (and
+    which of the two records lost it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     path = Path(__file__).resolve().parent / "build" / "chip_smoke_trace.json"
     path.parent.mkdir(exist_ok=True)
     fn(*args)
     torch.cuda.synchronize()
+    windows = []
     for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn(*args)
             torch.cuda.synchronize()
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text())["traceEvents"]
         path.unlink()
-        grids = [tuple(e["args"]["grid"]) for e in events
-                 if e.get("cat") == "kernel" and name in e.get("name", "")
-                 and "grid" in e.get("args", {})]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        grids = [tuple(e["args"]["grid"]) for e in kernels
+                 if name in e.get("name", "") and "grid" in e.get("args", {})]
+        windows.append({"trace_kernels": len(kernels),
+                        "trace_named": len(grids),
+                        "profiler_named": sum(
+                            1 for ev in prof.events()
+                            if ev.device_type.name == "CUDA"
+                            and name in ev.name)})
         if grids:
-            return grids
-    return []
+            return grids, windows
+        time.sleep(min(0.5 * 2 ** (len(windows) - 1), 4.0))
+    return [], windows
 
 
 def dominance_bound_ms(P, M):
@@ -1908,18 +1957,424 @@ def phase_paged_on_pools(run, cfg):
                 span, splits = decode_attention.decode_split(
                     B, cfg.n_kv_heads, mb * bs, torch.cuda
                     .get_device_properties(0).multi_processor_count)
-                grids = device_kernel_grids(ops.paged_gqa_decode_attention,
-                                            q, kp, vp, bt, kl,
-                                            name=PAGED_KERNEL)
+                grids, windows = device_kernel_grids(
+                    ops.paged_gqa_decode_attention, q, kp, vp, bt, kl,
+                    name=PAGED_KERNEL)
                 assert grids and set(grids) == {
-                    (splits, cfg.n_kv_heads, B)}, (grids, splits)
+                    (splits, cfg.n_kv_heads, B)}, (grids, splits, windows)
                 timing.update(span=span, splits=splits,
-                              blocks_per_call=splits * cfg.n_kv_heads * B)
+                              blocks_per_call=splits * cfg.n_kv_heads * B,
+                              grid_profile_windows=windows)
     assert n and timing is not None
     row = {"phase": "paged_on_pools", "prompts": len(tables),
            "calls": n, "layers": cfg.n_layers, "max_abs_err": err,
            "equal_to_decode_kernel": n, "timing": timing,
            "library": "none: no PyTorch call reads a block table"}
+    emit(row)
+    return row
+
+
+
+# ---------------------------------------------------------------------------
+# the cluster server end to end
+# ---------------------------------------------------------------------------
+
+def _served_by(srv, rid, res):
+    """The pair whose engine produced the result ``res`` of request
+    ``rid``."""
+    return next(p for p, e in srv.engines.items()
+                if e.results.get(rid) is res)
+
+
+def _cluster_teacher_forced(run):
+    """Every served token of a launcher run a teacher-forced maximum of its
+    pair's model (``train_logits`` on the card); (tokens checked, worst gap
+    over max|logit|)."""
+    import torch
+    from repro_torch.models import lm
+    srv, worst, n = run.server, 0.0, 0
+    for rid, r in run.done.items():
+        e = srv.engines[_served_by(srv, rid, r)]
+        prompt = srv._tokenize(run.trace.requests[rid], e.cfg.vocab)
+        seq = list(prompt) + r["tokens"][:-1]
+        logits = lm.train_logits(e.model, e.cfg, torch.tensor(
+            [seq], device="cuda"))[0, len(prompt) - 1:]
+        for j, t in enumerate(r["tokens"]):
+            ok, rel = _near_tie_ok(logits[j], t)
+            assert ok, (rid, j, rel)
+            worst = max(worst, rel)
+            n += 1
+        del logits
+    return n, worst
+
+
+def _own_tokens(e):
+    """Tokens an engine emitted in its own decodes: an adopted engine's
+    count less what its cohort's dispatches committed for it."""
+    if e._fleet is None:
+        return e.tokens_emitted
+    cohort, m = e._fleet
+    return e.tokens_emitted - int(cohort.counters.emitted[m])
+
+
+def _cluster_accounting(run):
+    """Completion, conservation, drained queues, the fleet counters against
+    the engines, and the failed node (the only node down) left with no
+    served request, its failures the reroutes."""
+    srv = run.server
+    assert sorted(run.done) == list(range(CLUSTER_REQUESTS))
+    for rid, r in run.done.items():
+        assert len(r["tokens"]) == run.budgets[rid], rid
+    for node, s in srv.monitor.stats.items():
+        assert s.total_dispatched == (s.total_completed + s.total_failed
+                                      + s.total_cancelled), (node, s)
+        assert s.outstanding == 0, (node, s)
+    st = srv.stats()
+    assert all(q == 0 for q in st["queue_lengths"]), st["queue_lengths"]
+    assert st["active"] == st["queued"] == 0
+    engines = list(srv.engines.values())
+    assert st["active"] == sum(e.active_count for e in engines)
+    emitted = sum(e.tokens_emitted for e in engines)
+    assert st["fleet"]["emitted"] == sum(c["emitted"] for c in st["cohorts"])
+    own = [_own_tokens(e) for e in engines]
+    # an engine emits tokens of its own only in decodes of its own
+    for e, n in zip(engines, own):
+        assert 0 <= n <= e.decode_iterations * e.ecfg.max_slots, (n, e)
+    # no prefix cache at these engines: the check holds only vacuously
+    leaked = sum(int((e.kv.cache.pool.ref > 0).sum()) for e in engines
+                 if e.kv is not None)
+    assert leaked == 0
+    assert srv._down_nodes == {CLUSTER_FAIL[0]}, srv._down_nodes
+    pair_node = srv.router.arrays.pair_node
+    served_on = {int(pair_node[_served_by(srv, rid, r)])
+                 for rid, r in run.done.items()}
+    assert CLUSTER_FAIL[0] not in served_on, served_on
+    assert (srv.monitor.stats[CLUSTER_FAIL[0]].total_failed
+            == st["reroutes"]), st["reroutes"]
+    return st, emitted, sum(own), leaked
+
+
+def _cluster_launches(srv, tuned):
+    """The run's launches, held to the arithmetic: dominance 1 + generations
+    when tuned, flash n_layers per admission, decode n_layers per cohort
+    iteration plus per engine-own iteration."""
+    engines = list(srv.engines.values())
+    return launch_counts(
+        dominance_matrix=1 + CLUSTER_GENS if tuned else 0,
+        flash_attention=sum(e.cfg.n_layers * e.admissions for e in engines),
+        gqa_decode_attention=(
+            sum(c.cfg.n_layers * c.counters.iterations for c in srv._cohorts)
+            + sum(e.cfg.n_layers * e.decode_iterations for e in engines)))
+
+
+def _parting(e, prompt, ta, tb, **key):
+    """Where two token streams of one request first part, both tokens are
+    near-tie maxima of the model's logits there (teacher forcing on the
+    card); the parting with its top-2 gap over max|logit|."""
+    import torch
+    from repro_torch.models import lm
+    j = next(i for i, (x, y) in enumerate(zip(ta, tb)) if x != y)
+    row = lm.train_logits(e.model, e.cfg, torch.tensor(
+        [list(prompt) + list(ta[:j])], device="cuda"))[0, -1]
+    for t in (ta[j], tb[j]):
+        ok, rel = _near_tie_ok(row, t)
+        assert ok, ("token streams part away from a near-tie", key, j, t,
+                    rel)
+    top2 = row.topk(2).values
+    return dict(key, position=j,
+                top2_gap=float(top2[0] - top2[1]) / float(row.abs().max()))
+
+
+def _saturated_server(models, fleet):
+    """A full-width server with every slot of every engine busy (64-token
+    budgets), admitted directly on each pair."""
+    from repro_torch.core.policies.threshold import PAPER_DEFAULTS
+    from repro_torch.launch import serve as launch
+    from repro_torch.serving import ClusterServer, ServeRequest
+    from repro_torch.cluster.spec import paper_testbed
+    from repro_torch.workload.trace import build_trace
+    srv = ClusterServer(paper_testbed(), models, PAPER_DEFAULTS,
+                        launch.FULL_ENGINE, hedge_after=10 ** 9,
+                        fleet=fleet, device="cuda")
+    tr = build_trace(64, seed=0)
+    rid = 0
+    for pair in srv.engines:
+        for _ in range(launch.FULL_ENGINE.max_slots):
+            srv._dispatch(ServeRequest(request_id=rid,
+                                       req=tr.requests[rid % 64],
+                                       max_new_tokens=64), pair)
+            rid += 1
+    assert all(e.active_count == launch.FULL_ENGINE.max_slots
+               for e in srv.engines.values())
+    return srv
+
+
+def _saturated_partings(a, b):
+    """Every slot's generated tokens of two saturated servers that took the
+    same requests and ticks (fleet on and off): the same lengths, parting
+    only at near-ties. Returns (tokens compared, partings)."""
+    from repro_torch.workload.trace import build_trace
+    tr = build_trace(64, seed=0)
+    n, parts = 0, []
+    for pair, ea in a.engines.items():
+        eb = b.engines[pair]
+        for sa, sb in zip(ea.slots, eb.slots):
+            assert sa.request_id == sb.request_id, pair
+            ta, tb = sa.generated, sb.generated
+            assert len(ta) == len(tb), (pair, sa.request_id)
+            n += len(ta)
+            if ta != tb:
+                prompt = a._tokenize(tr.requests[sa.request_id % 64],
+                                     ea.cfg.vocab)
+                parts.append(_parting(ea, prompt, ta, tb, pair=pair,
+                                      request=sa.request_id))
+    return n, parts
+
+
+def _tick_walls(srv, n=5):
+    import torch
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def _profile_tick(srv, wall):
+    """One saturated tick profiled: the card's busy time against ``wall``,
+    the median host time of an unprofiled tick (the profiler inflates the
+    host's), and the top device and host ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.step()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    by_name, host = Counter(), Counter()
+    n_events = 0
+    for ev in prof.events():
+        if ev.device_type.name == "CUDA":
+            by_name[ev.name[:60]] += ev.time_range.elapsed_us()
+            n_events += 1
+        else:
+            host[ev.name[:60]] += ev.self_cpu_time_total
+    busy = sum(by_name.values()) / 1e6
+    return {"tick_wall_s": wall, "profiled_tick_wall_s": prof_wall,
+            "device_busy_s": busy, "idle_share": 1 - busy / wall,
+            "device_events": n_events,
+            "top_device_us": by_name.most_common(8),
+            "top_host_self_us": host.most_common(8)}
+
+
+def _check_models():
+    """The launcher's model map at full width and 2 layers a model."""
+    from repro_torch import serve
+    from repro_torch.configs import get
+    from repro_torch.launch import serve as launch
+    models = {}
+    for names, arch, seed in ((launch.CLOUD_NAMES, launch.CLOUD_MODEL, 0),
+                              (launch.EDGE_NAMES, launch.EDGE_MODEL, 1)):
+        cfg = dataclasses.replace(get(arch).config(),
+                                  n_layers=CHECK_LAYERS)
+        m = serve.build_model(cfg, "cuda", seed=seed)
+        models.update({n: (cfg, m) for n in names})
+    return models
+
+
+def _fleet_vs_engines(models, thresholds):
+    """The launcher's run on ``models``, fleet on and off, on the card:
+    the same routing decisions, QoE records and token counts, node 1 the
+    only node down with its failures the reroutes; tokens may part only at
+    near-ties (teacher forcing on the card)."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.obs import Obs
+    runs = {}
+    for fleet in (True, False):
+        o = Obs()
+        runs[fleet] = (launch.run_launch(
+            CLUSTER_REQUESTS, device="cuda", models=models,
+            thresholds=thresholds, fail_node=CLUSTER_FAIL[0],
+            fail_at=CLUSTER_FAIL[1], fleet=fleet, obs=o), o)
+    (a, oa), (b, ob) = runs[True], runs[False]
+    assert [r.key() for r in oa.audit.records()] == \
+        [r.key() for r in ob.audit.records()]
+    assert sorted(a.done) == sorted(b.done)
+    sa, sb = a.server.stats(), b.server.stats()
+    for k in sa:
+        if k not in ("cohorts", "decode_dispatches", "fleet"):
+            assert sa[k] == sb[k], k
+    for srv in (a.server, b.server):
+        assert srv._down_nodes == {CLUSTER_FAIL[0]}, srv._down_nodes
+    assert (a.server.monitor.stats[CLUSTER_FAIL[0]].total_failed
+            == sa["reroutes"]), sa["reroutes"]
+    parts, differing = [], 0
+    for rid, ra in a.done.items():
+        rb = b.done[rid]
+        assert {k: v for k, v in ra.items() if k != "tokens"} == \
+            {k: v for k, v in rb.items() if k != "tokens"}, rid
+        ta, tb = ra["tokens"], rb["tokens"]
+        assert len(ta) == len(tb), rid
+        differing += sum(x != y for x, y in zip(ta, tb))
+        if ta != tb:
+            e = a.server.engines[_served_by(a.server, rid, ra)]
+            prompt = a.server._tokenize(a.trace.requests[rid], e.cfg.vocab)
+            parts.append(_parting(e, prompt, ta, tb, request=rid))
+    return {"layers": CHECK_LAYERS, "requests": len(a.done),
+            "reroutes": sa["reroutes"], "hedges": sa["hedges"],
+            "route_decisions": len(oa.audit),
+            "tokens": sum(len(r["tokens"]) for r in a.done.values()),
+            "fleet_decode_dispatches": sa["decode_dispatches"],
+            "engine_decode_dispatches": sb["decode_dispatches"],
+            "fleet_wall_s": a.wall_s, "engine_wall_s": b.wall_s,
+            "diverged_requests": len(parts), "differing_tokens": differing,
+            "divergences": parts}
+
+
+def _served_summary(run, st, emitted, own):
+    srv = run.server
+    tokens = sum(len(r["tokens"]) for r in run.done.values())
+    return {"requests": len(run.done), "tokens": tokens,
+            "wall_s": run.wall_s, "tokens_per_s": tokens / run.wall_s,
+            "ticks": srv.ticks, "reroutes": st["reroutes"],
+            "hedges": st["hedges"], "cancelled": st["cancelled"],
+            "decode_dispatches": st["decode_dispatches"],
+            "cohort_participants": [int(x) for x in srv.metrics.counter(
+                "cohort_participants").values],
+            "fleet": st["fleet"], "engine_tokens_emitted": emitted,
+            "engine_own_tokens_emitted": own,
+            "percentiles": {k: st["percentiles"][k]
+                            for k in ("latency", "ttft", "tpot")}}
+
+
+def _cohort_rows(srv):
+    return [{"model": c.cfg.name, "layers": c.cfg.n_layers,
+             "members": len(c), "rows": len(c) * c.ecfg.max_slots,
+             "dispatches": c.counters.dispatches,
+             "iterations": c.counters.iterations,
+             "emitted": int(c.counters.emitted.sum()),
+             "decode_ms_per_iteration": (
+                 1e3 * c.counters.decode_seconds / c.counters.iterations
+                 if c.counters.iterations else None)}
+            for c in srv._cohorts]
+
+
+def phase_cluster():
+    import torch
+    from repro_torch.core.policies.threshold import PAPER_DEFAULTS
+    from repro_torch.launch import serve as launch
+    t0 = time.perf_counter()
+    models = launch.build_models("cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # warm-up: both models admit and decode at the engines' shapes
+    launch.run_launch(4, device="cuda", models=models)
+    torch.cuda.reset_peak_memory_stats()
+
+    # run A: the launcher's tuned router
+    zero_launches()
+    run = launch.run_launch(CLUSTER_REQUESTS, device="cuda",
+                            optimize_router=True, generations=CLUSTER_GENS,
+                            fail_node=CLUSTER_FAIL[0],
+                            fail_at=CLUSTER_FAIL[1], models=models)
+    srv = run.server
+    engines = list(srv.engines.values())
+    launches = _cluster_launches(srv, tuned=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st, emitted, own, leaked = _cluster_accounting(run)
+    n_tok, worst = _cluster_teacher_forced(run)
+    by_model = {}
+    for e in engines:
+        m = by_model.setdefault(e.cfg.name, {
+            "layers": e.cfg.n_layers, "engines": 0, "admissions": 0,
+            "own_decode_iterations": 0, "prefill_s": 0.0})
+        m["engines"] += 1
+        m["admissions"] += e.admissions
+        m["own_decode_iterations"] += e.decode_iterations
+        m["prefill_s"] += e.prefill_seconds
+    cohorts = _cohort_rows(srv)
+    served = _served_summary(run, st, emitted, own)
+    served.update(tuning_s=run.tuned.seconds,
+                  thresholds=[float(x) for x in run.tuned.thresholds],
+                  objectives=[float(x) for x in run.tuned.objectives])
+    thresholds = run.tuned.thresholds
+    print(f"cluster: {len(run.done)} requests, {served['tokens']} tokens "
+          f"in {run.wall_s:.3f} s, {srv.ticks} ticks, reroutes "
+          f"{st['reroutes']}, hedges {st['hedges']}", flush=True)
+    del run, srv, engines
+
+    # run B: the paper's default thresholds, which send node 1 traffic, so
+    # its failure cancels and re-routes live flights
+    zero_launches()
+    run = launch.run_launch(CLUSTER_REQUESTS, device="cuda",
+                            thresholds=PAPER_DEFAULTS,
+                            fail_node=CLUSTER_FAIL[0],
+                            fail_at=CLUSTER_FAIL[1], models=models)
+    launches_b = _cluster_launches(run.server, tuned=False)
+    st_b, emitted_b, own_b, _ = _cluster_accounting(run)
+    assert st_b["reroutes"] > 0, "node 1 held no flight when it failed"
+    n_tok_b, worst_b = _cluster_teacher_forced(run)
+    served_b = _served_summary(run, st_b, emitted_b, own_b)
+    served_b.update(cohorts=_cohort_rows(run.server),
+                    teacher_forced_tokens=n_tok_b,
+                    worst_gap_over_max_logit=worst_b, launches=launches_b)
+    print(f"cluster, paper defaults: {served_b['tokens']} tokens in "
+          f"{run.wall_s:.3f} s, reroutes {st_b['reroutes']}, hedges "
+          f"{st_b['hedges']}", flush=True)
+    del run
+
+    # a saturated tick, fleet against the per-engine loop, in turns
+    walls = {True: [], False: []}
+    sat = {f: _saturated_server(models, f) for f in (True, False)}
+    for f in (True, False, False, True):
+        walls[f] += _tick_walls(sat[f], n=3)
+    sat_tokens, sat_parts = _saturated_partings(sat[True], sat[False])
+    fsrv = sat[True]
+    edge = max(fsrv._cohorts, key=len)
+    cloud = min(fsrv._cohorts, key=len)
+    lens = (edge.state.cache.kv_len + 1).tolist()   # the profiled tick's
+    cloud_lens = (cloud.state.cache.kv_len + 1).tolist()
+    prof = _profile_tick(fsrv, statistics.median(walls[True]))
+    prof.update(decode_kv_len=lens, cloud_decode_kv_len=cloud_lens)
+    del sat, fsrv
+    Smax = launch.FULL_ENGINE.max_seq
+    dec = decode_timing(lens, Smax=Smax, Hq=edge.cfg.n_heads,
+                        Hkv=edge.cfg.n_kv_heads, D=edge.cfg.hd)
+    dec_cloud = decode_timing(cloud_lens, Smax=Smax, Hq=cloud.cfg.n_heads,
+                              Hkv=cloud.cfg.n_kv_heads, D=cloud.cfg.hd)
+    del edge, cloud
+    small = _check_models()
+    check = {"tuned": _fleet_vs_engines(small, thresholds),
+             "paper_defaults": _fleet_vs_engines(small, PAPER_DEFAULTS)}
+    assert check["paper_defaults"]["reroutes"] > 0
+    del small
+    total = {k: launches[k] + launches_b[k] for k in launches}
+    row = {"phase": "cluster", "requests": CLUSTER_REQUESTS,
+           "models": {c.name: {"layers": c.n_layers,
+                               "params": c.param_counts()["total"]}
+                      for c, _ in models.values()},
+           "engine": dataclasses.asdict(launch.FULL_ENGINE),
+           "chunk": launch.FULL_CHUNK, "generations": CLUSTER_GENS,
+           "pop": launch.POP, "fail_node_after": list(CLUSTER_FAIL),
+           "init_s": init_s, "launches": total, "launches_tuned": launches,
+           "served": served, "by_model": by_model, "cohorts": cohorts,
+           "served_paper_defaults": served_b,
+           "leaked_blocks": leaked, "teacher_forced_tokens": n_tok,
+           "worst_gap_over_max_logit": worst, "peak_memory_gb": peak_gb,
+           "saturated_tick_s": {
+               "fleet": walls[True], "per_engine": walls[False],
+               "fleet_median": statistics.median(walls[True]),
+               "per_engine_median": statistics.median(walls[False])},
+           "saturated_tokens_compared": sat_tokens,
+           "saturated_partings": sat_parts,
+           "saturated_tick_profile": prof,
+           "decode_at_cohort_rows": dec, "decode_at_cloud_rows": dec_cloud,
+           "fleet_vs_per_engine": check}
     emit(row)
     return row
 
@@ -1958,6 +2413,7 @@ def main():
     sess_run, sess = timed("serve_sessions", phase_serve_sessions, model,
                            run.cfg)
     pools = timed("paged_on_pools", phase_paged_on_pools, sess_run, run.cfg)
+    clu = timed("cluster", phase_cluster)
     emit({"phase": "times", "card": smi, "seconds": phase_s,
           "total_s": sum(phase_s.values())})
 
@@ -1975,6 +2431,7 @@ def main():
         "launches": launches, "launches_large_population": large,
         "launches_online": onl["launches"],
         "launches_online_refit_256": onl["refit_256"]["launches"],
+        "launches_cluster": clu["launches"]["dominance_matrix"],
         "launches_policy_matrix": mat["launches"],
         "launches_policy_matrix_refits": {
             m: r["launches"] for m, r in mat["refits"].items()},
@@ -2006,18 +2463,22 @@ def main():
         "replaces": "src/repro/kernels/decode_attention.py:79",
         "launches": served["launches"]["gqa_decode_attention"],
         "launches_serve_sessions": sess_launches["gqa_decode_attention"],
+        "launches_cluster": clu["launches"]["gqa_decode_attention"],
         "cases": dec["cases"],
         "max_abs_err": max(dec["max_abs_err"].values()),
         "max_abs_err_by_dtype": dec["max_abs_err"],
         **{k: dec["serving"].get(k) for k in timing_keys},
         "full_cache": dec["full_cache"],
         "session": sess["decode_at_profiled_iteration"],
+        "cluster_cohort": clu["decode_at_cohort_rows"],
+        "cluster_cloud": clu["decode_at_cloud_rows"],
         "splits": attn["routes"]["decode_split"]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:89",
         "launches": served["launches"]["flash_attention"],
         "launches_serve_sessions": sess_launches["flash_attention"],
+        "launches_cluster": clu["launches"]["flash_attention"],
         "cases": fa["cases"] + attn["flash_extend"]["cases"],
         "max_abs_err": max(list(fa["max_abs_err"].values())
                            + list(attn["flash_extend"]["max_abs_err"]

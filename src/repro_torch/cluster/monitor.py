@@ -3,7 +3,8 @@ module"; §VI future work: "real-time monitoring mechanisms for node and model
 status, coupled with fault-tolerant strategies").
 
 Tracks, per node: outstanding request count (the q_j feature), health state
-with heartbeat expiry and a circuit breaker, and EWMA latency.
+with heartbeat expiry and a circuit breaker, and EWMA latency per node
+used for straggler detection (hedging threshold) by the cluster server.
 
 Beyond that, the monitor is the **drift sensor** for the rolling-horizon
 re-optimization loop (``core.router.maybe_reoptimize``): each completion
@@ -23,11 +24,11 @@ prefix-cache state of cache-affinity routing (which session and system
 prompt prefixes each node holds) and the optional online estimator of the
 learned-estimator loop (:meth:`feed_estimator`).
 
-A copy of ``repro.cluster.monitor`` pruned to what the runtime router
-reads (the port imports nothing of ``repro``): the hedging hooks
-(``on_cancel``, ``straggler_threshold``), the fleet counters and the
-metrics registry come with the serving fleet (ROADMAP.md Queue 1 item 11).
-Its state after a sequence of events must equal the reference's.
+A copy of ``repro.cluster.monitor`` (the port imports nothing of
+``repro``): the serving fleet's hooks (``on_cancel``,
+``record_fleet``, ``fleet_totals``, ``straggler_threshold``) and the
+metrics registry the monitor owns included. Its state after a
+sequence of events must equal the reference's.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from ..learn import OnlineEstimator
+from ..obs.metrics import MetricsRegistry
 
 
 @dataclasses.dataclass
@@ -45,11 +47,14 @@ class NodeStats:
     total_dispatched: int = 0
     total_completed: int = 0
     total_failed: int = 0
+    total_cancelled: int = 0
     healthy: bool = True
     last_heartbeat: float = 0.0
     ewma_latency: float = 0.0
     ewma_alpha: float = 0.2
-    # seeded on the FIRST completion (whatever its latency, zero included)
+    # seeded on the FIRST completion (whatever its latency, zero included);
+    # the old ``ewma or latency`` idiom re-seeded whenever the EWMA happened
+    # to be exactly 0.0
     ewma_initialized: bool = False
     # drift sensing: fast tracker vs slow baseline of the same signal
     ewma_fast: float = 0.0
@@ -75,10 +80,11 @@ class NodeStats:
 
 class ClusterMonitor:
     """Thread-light monitor; all methods take an explicit ``now`` so the same
-    code runs under a simulated clock and in wall-clock serving."""
+    code runs under the discrete-event simulator and in wall-clock serving."""
 
     def __init__(self, n_nodes: int, heartbeat_timeout: float = 10.0,
                  now: float = 0.0,
+                 metrics: Optional[MetricsRegistry] = None,
                  breaker_threshold: Optional[float] = None,
                  breaker_alpha: float = 0.3, breaker_min_obs: int = 4,
                  breaker_cooldown: float = 20.0,
@@ -86,19 +92,37 @@ class ClusterMonitor:
         self.stats: Dict[int, NodeStats] = {
             j: NodeStats(last_heartbeat=now) for j in range(n_nodes)}
         self.heartbeat_timeout = heartbeat_timeout
-        # the monitor's own clock: every caller advances it explicitly via
-        # :meth:`advance` — heartbeats, staleness expiry, and breaker
+        # the monitor's own clock: every caller advances it explicitly
+        # (simulated seconds under the DES, scheduler ticks when serving)
+        # via :meth:`advance` — heartbeats, staleness expiry, and breaker
         # cooldowns all live in this ONE domain, never mixed with wall time
         self.now = now
         # per-node circuit breakers: disabled unless a threshold is given
+        # (error-rate EWMA >= threshold after >= min_obs observations opens
+        # the breaker; after ``breaker_cooldown`` clock units it admits one
+        # half-open probe whose outcome decides closed vs re-open)
         self.breaker_threshold = breaker_threshold
         self.breaker_alpha = breaker_alpha
         self.breaker_min_obs = breaker_min_obs
         self.breaker_cooldown = breaker_cooldown
-        self.breaker_opens = np.zeros(n_nodes, np.int64)
-        # optional online-learned estimator (repro_torch.learn): the router
-        # reads its residual predictions on the hot path, completion
-        # observations feed it via :meth:`feed_estimator`
+        # all monitor series live in one queryable MetricsRegistry (shared
+        # with the scheduler's when serving; private otherwise)
+        self.metrics = MetricsRegistry() if metrics is None else metrics
+        # fleet counters: per-node emitted-token / retired-slot totals fed in
+        # one vectorized update per cohort dispatch from the stacked
+        # (member, n, 3, B) chunk output — no per-engine host pulls. Backed
+        # by registry CounterVecs so fleet_totals() and metrics_flat() read
+        # the same storage.
+        self.fleet_emitted = self.metrics.counter(
+            "fleet_tokens_emitted", n_nodes).values
+        self.fleet_retired = self.metrics.counter(
+            "fleet_slots_retired", n_nodes).values
+        self.breaker_opens = self.metrics.counter(
+            "breaker_open_total", n_nodes).values
+        # optional online-learned estimator (repro_torch.learn): the live third
+        # leg of the learned-estimator loop — the router reads its residual
+        # predictions on the hot path, completion observations feed it via
+        # :meth:`feed_estimator`
         self.estimator = estimator
 
     # -- data plane callbacks -------------------------------------------------
@@ -127,6 +151,7 @@ class ClusterMonitor:
                            + (1 - s.alpha_fast) * s.ewma_fast)
             s.ewma_slow = (s.alpha_slow * latency
                            + (1 - s.alpha_slow) * s.ewma_slow)
+        self.metrics.observe("latency", latency, node=node)
         self._breaker_observe(node, 0.0)
 
     def on_failure(self, node: int) -> None:
@@ -135,8 +160,38 @@ class ClusterMonitor:
         s.total_failed += 1
         self._breaker_observe(node, 1.0)
 
+    def on_cancel(self, node: int) -> None:
+        """A dispatched request was cancelled (e.g. a hedged duplicate lost
+        the race): close its accounting without counting it as served."""
+        s = self.stats[node]
+        s.outstanding = max(0, s.outstanding - 1)
+        s.total_cancelled += 1
+
+    def record_fleet(self, nodes, emitted, retired) -> None:
+        """Accumulate per-node decode progress from one cohort dispatch.
+
+        ``nodes``/``emitted``/``retired`` are parallel arrays over the
+        cohort's members (a node hosting several member engines accumulates
+        via ``np.add.at``). Called once per stacked dispatch — the fleet
+        counterpart of per-request ``on_complete`` accounting."""
+        np.add.at(self.fleet_emitted, np.asarray(nodes, np.int64),
+                  np.asarray(emitted, np.int64))
+        np.add.at(self.fleet_retired, np.asarray(nodes, np.int64),
+                  np.asarray(retired, np.int64))
+
+    def fleet_totals(self) -> Dict[str, int]:
+        return {"emitted": int(self.fleet_emitted.sum()),
+                "retired": int(self.fleet_retired.sum())}
+
     def heartbeat(self, node: int, now: float) -> None:
-        """Mark ``node`` alive at ``now`` (the caller's clock)."""
+        """Mark ``node`` alive at ``now`` (the caller's clock).
+
+        ``now`` is required: the pre-clock-discipline silent
+        ``time.monotonic()`` fallback mixed wall clock into simulated-tick
+        runs, poisoning ``sweep`` expiry. It survived one release as a
+        DeprecationWarning shim and has been removed — wall-clock callers
+        pass ``heartbeat(node, now=time.monotonic())`` explicitly.
+        """
         s = self.stats[node]
         s.last_heartbeat = now
         s.healthy = True
@@ -146,10 +201,12 @@ class ClusterMonitor:
                        y_prefill: float, y_tpot: float,
                        y_quality: float = 0.0) -> None:
         """Forward one completed request's residual targets into the
-        attached :class:`~repro_torch.learn.OnlineEstimator` (no-op without
-        one). ``y_*`` are residual targets in the caller's clock domain;
-        decision-time queue depths come from this monitor's outstanding
-        counts."""
+        attached :class:`~repro_torch.learn.OnlineEstimator` (no-op without one).
+
+        ``y_*`` are residual targets computed by the caller in its own clock
+        domain — typically ``OnlineEstimator.ratio(expected, realized)`` for
+        the latency signals; decision-time queue depths come from this
+        monitor's outstanding counts."""
         if self.estimator is None:
             return
         self.estimator.observe(
@@ -167,9 +224,10 @@ class ClusterMonitor:
                 s.healthy = False
 
     def advance(self, now: float) -> None:
-        """Advance the monitor's clock to ``now``: expires stale heartbeats
-        and moves cooled-down open breakers to half-open (one probe
-        admitted). The one clock entry point a periodic caller needs."""
+        """Advance the monitor's clock to ``now`` (the caller's domain —
+        scheduler ticks or simulated seconds): expires stale heartbeats and
+        moves cooled-down open breakers to half-open (one probe admitted).
+        The one clock entry point a periodic caller needs."""
         self.now = now
         self.sweep(now)
         if self.breaker_threshold is None:
@@ -209,8 +267,8 @@ class ClusterMonitor:
             self.breaker_opens[node] += 1
 
     def reset_breaker(self, node: int) -> None:
-        """Explicit recovery: close the breaker and forget its error
-        history."""
+        """Explicit recovery (``ClusterServer.recover_node``): close the
+        breaker and forget its error history."""
         s = self.stats[node]
         s.breaker_state = "closed"
         s.err_ewma = 0.0
@@ -267,6 +325,11 @@ class ClusterMonitor:
                 return False
             return not (s.breaker_state == "half-open" and s.probe_inflight)
         return tuple(ok(self.stats[j]) for j in sorted(self.stats))
+
+    def straggler_threshold(self, node: int, factor: float = 3.0) -> float:
+        """Hedge a request if it exceeds factor × EWMA latency of its node."""
+        base = self.stats[node].ewma_latency
+        return factor * base if base > 0 else float("inf")
 
     def drift_score(self) -> float:
         """Max over nodes of the relative fast-vs-slow EWMA latency gap.

@@ -6,8 +6,8 @@ solution space is S = {(n_j, m_k) | m_k ∈ M(n_j)}, enumerated once as a flat
 *pair table* so the evaluator indexes decisions by a single integer.
 
 A copy of ``repro.cluster.spec`` with the disaggregated prefill/decode
-tables (node roles, KV links, the route table); the fleet testbed waits for
-the serving fleet (ROADMAP.md Queue 1 item 11). Every array is built in
+tables (node roles, KV links, the route table) and the testbeds of the
+paper, the disaggregated variant and the large fleet. Every array is built in
 numpy exactly as the reference builds it and moved to the device last
 (``to_arrays(device)``).
 
@@ -375,3 +375,33 @@ def disagg_testbed(kv_bw_bps: float = 2.5e9,
                  kv_bw_bps=kv_bw_bps, kv_lat_s=0.002),
     )
     return ClusterSpec(nodes=nodes, models=(model,))
+
+
+def fleet_testbed(n_edge: int = 56, n_cloud: int = 8,
+                  edge_concurrency: int = 4, cloud_concurrency: int = 8
+                  ) -> ClusterSpec:
+    """A large heterogeneous fleet: ``n_cloud`` cloud nodes each serving
+    the big general model and ``n_edge`` edge nodes each serving the three
+    small specialist models, the paper testbed's shape scaled up. With one
+    model object per model size the cluster server forms exactly two decode
+    cohorts, whatever the node count."""
+    models = paper_models()
+    edge_models = tuple(m.name for m in models[1:])
+    edge_link = LinkSpec(bw_up_bps=12.5e6, bw_down_bps=12.5e6,
+                         latency_up_s=0.004, latency_down_s=0.004)
+    cloud_link = LinkSpec(bw_up_bps=6.25e6, bw_down_bps=6.25e6,
+                          latency_up_s=0.035, latency_down_s=0.035)
+    nodes = tuple(
+        NodeSpec(name=f"cloud-{i}", kind="cloud", models=("gemma3:27b",),
+                 link=cloud_link, prefill_tps={"gemma3:27b": 2200.0},
+                 decode_tps={"gemma3:27b": 19.0},
+                 concurrency=cloud_concurrency)
+        for i in range(n_cloud)
+    ) + tuple(
+        NodeSpec(name=f"edge-{i}", kind="edge", models=edge_models,
+                 link=edge_link, prefill_tps={m: 300.0 for m in edge_models},
+                 decode_tps={m: 5.2 for m in edge_models},
+                 concurrency=edge_concurrency)
+        for i in range(n_edge)
+    )
+    return ClusterSpec(nodes=nodes, models=models)

@@ -38,8 +38,8 @@ encoding from the same policy object (``NSGA2Config.from_policy``) and
 evaluates it under the same models (prefix cache on session windows, the
 route table, the estimators).
 
-The port of ``repro.core.router``; the audit log comes with ROADMAP.md
-Queue 1 item 11, and passing ``audit=`` raises ``NotImplementedError``.
+With ``audit=`` (an :class:`~repro_torch.obs.AuditLog`) every ``route()``
+call records its decision breakdown. The port of ``repro.core.router``.
 """
 from __future__ import annotations
 
@@ -112,10 +112,6 @@ class RequestRouter:
                  audit=None, learned: bool = False,
                  learner: LearnConfig = LearnConfig(),
                  device: Device = None):
-        if audit is not None:
-            raise NotImplementedError(
-                "the audit log is not ported yet: ROADMAP.md Queue 1 item 11 "
-                "brings it")
         self.policy = get_policy(mode)     # ValueError lists registry names
         if self.policy.genome_spec.per_request:
             raise ValueError(
@@ -142,6 +138,9 @@ class RequestRouter:
         if params is not None:
             self._params[self.policy.name] = np.asarray(params, np.float32)
         self.cache_block = cache_block
+        # optional obs.AuditLog: every route() call logs its per-candidate
+        # decision breakdown (None = zero overhead)
+        self.audit = audit
         self._slo_ttft, self._slo_tpot = slo_arrays(slo_table)
         self.monitor = monitor or ClusterMonitor(len(cluster.nodes))
         self._rng = np.random.default_rng(0)
@@ -277,6 +276,8 @@ class RequestRouter:
             kv_bytes=kv_bytes, quality=quality_row, unc=unc_row)
         decision = int(pol.decide_py(self.params, inp, self.arrays,
                                      self._pstate))
+        raw_decision = decision
+        failover = None
 
         prefill_pair = None
         if pol.decides == "route":
@@ -300,6 +301,7 @@ class RequestRouter:
                                key=lambda r: queue[self._pair_node[rq[r]]])
                 prefill_pair, pair = int(rp[decision]), int(rq[decision])
                 node = int(self._pair_node[pair])
+                failover = "route-endpoint-down"
         else:
             pair = decision
             node = int(self._pair_node[pair])
@@ -316,6 +318,7 @@ class RequestRouter:
                 pair = (cloud_alive[0] if cloud_alive else
                         min(alive, key=lambda p: queue[self._pair_node[p]]))
                 node = int(self._pair_node[pair])
+                failover = "node-down"
 
         # policy state advances on the pair actually dispatched (post
         # failover), and only for requests dispatched at all
@@ -324,6 +327,18 @@ class RequestRouter:
         self._n_routed += 1
 
         backup = self.backup_pair(pair) if want_backup else None
+        if self.audit is not None:
+            est = "estimates" in pol.requires
+            self.audit.record(
+                int(inp.index), float(inp.now), pol.name, pol.decides,
+                self.params, raw_decision, pair, node,
+                prefill_pair=prefill_pair, failover=failover,
+                healthy=np.asarray(healthy, np.float64), queue=masked_queue,
+                category=int(pred_cat),
+                up=up if est else None, prefill=prefill if est else None,
+                tpot=tpot if est else None, cost=cost if est else None,
+                hit=hit if "cache" in pol.requires else None,
+                est_cost=float(cost[pair]), backup_pair=backup)
         # the estimates this decision acted on (TTFT on the prefill leg,
         # TPOT on the decode pair): the expected side of record()'s targets
         pp = pair if prefill_pair is None else prefill_pair

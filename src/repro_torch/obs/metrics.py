@@ -1,20 +1,42 @@
-"""Fixed-edge log histogram on numpy (the port of ``repro.obs.metrics``,
-pruned to :class:`Histogram`: the counters, gauges and the metrics registry
-come with the serving fleet, ROADMAP.md Queue 1 item 11).
+"""Vectorized metrics: histograms, counters, gauges on numpy.
 
-Every histogram shares one set of log-spaced bucket edges, so percentiles
-come from bucket counts and two histograms of one metric merge exactly by
-summing their counts.
+Design constraints (and why):
+
+* **Fixed log-spaced bucket edges** shared by every histogram. Percentiles
+  come from bucket counts, so two histograms of the same metric (e.g. the
+  per-node TTFT hists) merge *exactly* by summing their count vectors —
+  ``MetricsRegistry.percentiles(name)`` aggregates across labels without
+  re-touching raw samples.
+* **Vectorized observe**: DES runs ingest whole result arrays in a handful
+  of ``np.searchsorted`` + ``np.add.at`` calls; the serving runtime
+  observes scalars per retirement. Both land in the same buckets.
+* **Label model**: every series is keyed ``(name, node, category)`` with
+  ``-1`` meaning "unlabelled/all". The registry auto-maintains the global
+  ``(-1, -1)`` series on labelled observes so unqualified percentile
+  queries never need a merge.
+
+Canonical metric names (unit = the emitter's clock/currency, documented in
+docs/architecture.md): ``ttft``, ``tpot``, ``queue_wait``, ``transfer``,
+``cache_hit_frac``, ``spend``, ``latency``.
+
+A copy of ``repro.obs.metrics`` (numpy; the port imports nothing of
+``repro``).
 """
 from __future__ import annotations
 
 import math
 from bisect import bisect_right
-from typing import Sequence
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["BUCKET_LO", "BUCKET_HI", "N_BUCKETS", "Histogram"]
+__all__ = ["BUCKET_LO", "BUCKET_HI", "N_BUCKETS", "Histogram",
+           "CounterVec", "Gauge", "MetricsRegistry", "METRIC_NAMES"]
+
+#: Metric vocabulary every emitter draws from (free-form names still work,
+#: these are the ones the docs/tests pin down).
+METRIC_NAMES = ("ttft", "tpot", "queue_wait", "transfer", "cache_hit_frac",
+                "spend", "latency")
 
 # Shared bucket layout: 120 log-spaced buckets spanning 1e-6 .. 1e6 plus an
 # underflow bucket for values <= lo (zeros included). ~26% resolution per
@@ -33,6 +55,9 @@ _REPR = np.concatenate([
     np.sqrt(_EDGES[:-1] * _EDGES[1:]),
     [BUCKET_HI],
 ])
+# bisect on a plain list beats np.searchsorted ~10x for single samples —
+# the serving retire path observes scalars, and its budget is 5% of fleet
+# throughput (benchmarks/obs_overhead.py)
 _EDGES_LIST = _EDGES.tolist()
 
 
@@ -102,3 +127,151 @@ class Histogram:
 
     def percentiles(self, qs: Sequence[float] = (50, 95, 99)) -> dict:
         return {f"p{g:g}": self.percentile(g) for g in qs}
+
+
+class CounterVec:
+    """A named vector of monotonic counters (one slot per node, say).
+
+    ``add`` is vectorized: ``add(nodes, values)`` scatters with
+    ``np.add.at`` so fleet phase-B commits update per-node token counters
+    in one call from the already-host-side stacked arrays.
+    """
+
+    __slots__ = ("values",)
+
+    def __init__(self, size: int = 1, dtype=np.int64):
+        self.values = np.zeros(size, dtype)
+
+    def add(self, idx=None, amount=1) -> None:
+        if idx is None:
+            self.values[0] += amount
+        elif isinstance(idx, (int, np.integer)):
+            self.values[idx] += amount
+        else:
+            np.add.at(self.values, np.asarray(idx), amount)
+
+    @property
+    def total(self):
+        return self.values.sum()
+
+    def __getitem__(self, i):
+        return self.values[i]
+
+
+class Gauge:
+    """Last-write-wins scalar (or vector) measurement."""
+
+    __slots__ = ("values",)
+
+    def __init__(self, size: int = 1):
+        self.values = np.zeros(size, np.float64)
+
+    def set(self, value, idx=None) -> None:
+        if idx is None:
+            self.values[...] = value
+        else:
+            self.values[np.asarray(idx)] = value
+
+    def __getitem__(self, i):
+        return self.values[i]
+
+
+LabelKey = Tuple[str, int, int]
+
+
+class MetricsRegistry:
+    """One queryable surface for every series a run produces.
+
+    Histograms are keyed ``(name, node, category)``; counters and gauges by
+    name alone (they carry their own vector index). Labelled observes also
+    feed the global ``(name, -1, -1)`` series, so ``percentiles("ttft")``
+    needs no merge and ``percentiles("ttft", node=3)`` is one lookup.
+    """
+
+    def __init__(self):
+        self._hists: Dict[LabelKey, Histogram] = {}
+        self._counters: Dict[str, CounterVec] = {}
+        self._gauges: Dict[str, Gauge] = {}
+
+    # -- histograms ----------------------------------------------------------
+    def hist(self, name: str, node: int = -1, category: int = -1
+             ) -> Histogram:
+        key = (name, node, category)
+        h = self._hists.get(key)
+        if h is None:
+            h = self._hists[key] = Histogram()
+        return h
+
+    def observe(self, name: str, values, node: int = -1,
+                category: int = -1) -> None:
+        self.hist(name, node, category).observe(values)
+        if node != -1 or category != -1:
+            self.hist(name).observe(values)
+
+    def observe_by(self, name: str, values, nodes,
+                   categories=None) -> None:
+        """Vectorized labelled ingest: group ``values`` by (node, category)
+        and observe each group once. One Python iteration per distinct
+        label pair, numpy everywhere else."""
+        v = np.asarray(values, np.float64).ravel()
+        nd = np.broadcast_to(np.asarray(nodes), v.shape)
+        ct = (np.broadcast_to(np.asarray(categories), v.shape)
+              if categories is not None else np.full(v.shape, -1))
+        self.hist(name).observe(v)
+        pairs = np.stack([nd, ct], axis=1)
+        uniq, inv = np.unique(pairs, axis=0, return_inverse=True)
+        for k, (node, cat) in enumerate(uniq):
+            self.hist(name, int(node), int(cat)).observe(v[inv == k])
+
+    # -- counters / gauges ---------------------------------------------------
+    def counter(self, name: str, size: int = 1) -> CounterVec:
+        c = self._counters.get(name)
+        if c is None:
+            c = self._counters[name] = CounterVec(size)
+        return c
+
+    def gauge(self, name: str, size: int = 1) -> Gauge:
+        g = self._gauges.get(name)
+        if g is None:
+            g = self._gauges[name] = Gauge(size)
+        return g
+
+    # -- queries -------------------------------------------------------------
+    def percentiles(self, name: str, qs: Sequence[float] = (50, 95, 99),
+                    node: Optional[int] = None,
+                    category: Optional[int] = None) -> dict:
+        """p-summary for one series; None label = aggregate across it."""
+        if node is not None and category is not None:
+            h = self._hists.get((name, node, category))
+        elif node is None and category is None:
+            h = self._hists.get((name, -1, -1))
+        else:  # one side fixed: exact merge over the free label
+            h = Histogram()
+            for (n, nd, ct), src in self._hists.items():
+                if n != name or nd == -1 and ct == -1:
+                    continue
+                if (node is None or nd == node) and \
+                        (category is None or ct == category):
+                    h.merge(src)
+        if h is None or h.n == 0:
+            return {f"p{g:g}": math.nan for g in qs} | {"n": 0}
+        return h.percentiles(qs) | {"n": h.n, "mean": h.mean}
+
+    def summary(self, names: Optional[Iterable[str]] = None,
+                qs: Sequence[float] = (50, 95, 99)) -> dict:
+        """{name: p-summary} for the global series of each metric name."""
+        if names is None:
+            names = sorted({k[0] for k in self._hists})
+        return {n: self.percentiles(n, qs) for n in names
+                if (n, -1, -1) in self._hists}
+
+    def labels(self, name: str) -> list:
+        """All (node, category) label pairs recorded for ``name``."""
+        return sorted((nd, ct) for (n, nd, ct) in self._hists
+                      if n == name and not (nd == -1 and ct == -1))
+
+    def counters(self) -> dict:
+        return {n: c.values.copy() for n, c in self._counters.items()}
+
+    def gauges(self) -> dict:
+        return {n: g.values.copy() for n, g in self._gauges.items()}

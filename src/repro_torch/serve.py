@@ -6,7 +6,8 @@ Builds a model from a seed (random weights at the config's widths), an
 ``--sessions``, the 47 requests of the multi-turn session trace
 (``workload.sessions.build_session_trace(SessionConfig(), seed=0)``) in
 arrival order. Each prompt is tokenized word by word as the cluster server
-does (prefix-stable: a later turn's tokens extend the earlier turn's), each
+does (``tokenize``, uncapped; prefix-stable: a later turn's tokens extend
+the earlier turn's), each
 request asks for its task's mean response length. Prints each request's
 tokens, the QoE summary and, with the prefix cache, its counters.
 
@@ -27,7 +28,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-import zlib
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -38,7 +38,7 @@ from .configs import get
 from .models import lm
 from .models.config import ModelConfig
 from .serving.engine import EngineConfig, LLMEngine
-from .workload.datasets import Request
+from .serving.scheduler import tokenize
 from .workload.sessions import SessionConfig, build_session_trace
 from .workload.trace import build_trace
 
@@ -51,21 +51,6 @@ SESSION_ENGINE = EngineConfig(max_slots=8, max_seq=1088, prefill_bucket=64,
                               cache_blocks=1088)
 CHUNK = 8            # decode iterations per read back
 SEED = 0
-
-
-def tokenize(req: Request, vocab: int,
-             cap: Optional[int] = None) -> np.ndarray:
-    """Deterministic, prefix-stable word-level tokens: each whitespace word
-    is ``zlib.crc32(word) % vocab`` (a copy of the cluster server's
-    ``_tokenize``). ``cap`` bounds the length; None keeps every word."""
-    words = req.text.split()
-    n = min(max(4, req.prompt_tokens), len(words))
-    if cap is not None:
-        n = min(n, cap)
-    toks = [zlib.crc32(w.encode()) % vocab for w in words[:n]]
-    if not toks:
-        toks = [zlib.crc32(b"<empty>") % vocab]
-    return np.asarray(toks, np.int32)
 
 
 def budget(resp_tokens_mean: float) -> int:

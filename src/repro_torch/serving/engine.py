@@ -28,11 +28,14 @@ reference engine. ``prefill_only``, ``export_kv``, ``release_export`` and
 ``import_kv`` are the two halves of a disaggregated prefill→decode KV
 handoff; ``flush_kv`` drops the pool.
 
-Not ported yet: fleet adoption (``_attach_fleet`` raises
-``NotImplementedError``), and decode over pool-resident pages (the paged
-decode kernel is ported, ``kernels.paged_attention``, but the engine decodes
-over its contiguous cache as the reference engine does) — ROADMAP Queue 1
-item 11.
+The device state (decode cache, next tokens) lives behind a store: the
+engine's own tensors, or, once a fleet cohort adopts the engine
+(``_attach_fleet``), views of its rows of the cohort's batch
+(``serving.fleet``). The control plane never knows the difference.
+
+Not ported yet: decode over pool-resident pages (the paged decode kernel is
+ported, ``kernels.paged_attention``, but the engine decodes over its
+contiguous cache as the reference engine does) — ROADMAP Queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -47,11 +50,8 @@ import torch
 from .._device import Device, resolve
 from ..models import lm
 from ..models.config import ModelConfig
-from .fleet import ChunkWork, decode_chunk_body
+from .fleet import ChunkWork, FleetMemberStore, decode_chunk_body
 from .kvcache import CacheStats, PagedKVStore
-
-_LATER = ("not ported yet (ROADMAP Queue 1 item 11: fleet cohorts and "
-          "engine adoption)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +79,17 @@ class _Slot:
     cached_tokens: int = 0     # whole-block prefix reused from the paged pool
 
 
+class _LocalStore:
+    """Engine-local device state (the backing until a cohort adopts the
+    engine)."""
+
+    __slots__ = ("cache", "next_token")
+
+    def __init__(self, cache: lm.Cache, next_token: torch.Tensor):
+        self.cache = cache
+        self.next_token = next_token
+
+
 class LLMEngine:
     """``model`` is a ``models.lm.LM`` on ``device`` (the card unless the
     caller asks for another device)."""
@@ -94,9 +105,10 @@ class LLMEngine:
         self.model = model
         self.ecfg = ecfg
         B = ecfg.max_slots
-        self.cache = lm.make_cache(cfg, B, ecfg.max_seq, self.device)
-        self._next_token = torch.zeros((B, 1), dtype=torch.int32,
-                                       device=self.device)
+        self._store = _LocalStore(
+            lm.make_cache(cfg, B, ecfg.max_seq, self.device),
+            torch.zeros((B, 1), dtype=torch.int32, device=self.device))
+        self._fleet = None   # (Cohort, member index) once adopted
         self.slots = [_Slot() for _ in range(B)]
         self.queue: deque = deque()
         self.results: Dict[int, dict] = {}
@@ -104,6 +116,9 @@ class LLMEngine:
         self.host_syncs = 0          # device->host reads on the decode path
         self.decode_dispatches = 0   # decode calls (a chunk counts once)
         self.tokens_emitted = 0
+        # decode iterations this engine ran itself (a cohort's dispatches
+        # count in its own counters)
+        self.decode_iterations = 0
         # host seconds in admissions and in decode calls, each ending in
         # its read back from the device
         self.prefill_seconds = 0.0
@@ -115,6 +130,45 @@ class LLMEngine:
             PagedKVStore(cfg, ecfg.cache_blocks, ecfg.block_size,
                          self.device) if ecfg.prefix_cache else None)
 
+    # -- device-state views (local or fleet-backed) ---------------------------
+    @property
+    def cache(self) -> lm.Cache:
+        return self._store.cache
+
+    @cache.setter
+    def cache(self, value: lm.Cache) -> None:
+        self._store.cache = value
+
+    @property
+    def _next_token(self) -> torch.Tensor:
+        return self._store.next_token
+
+    @_next_token.setter
+    def _next_token(self, value: torch.Tensor) -> None:
+        self._store.next_token = value
+
+    @property
+    def fleet_ok(self) -> bool:
+        """A cohort may decode past a member's committed iterations,
+        touching rows the per-engine path would not: exact only when batch
+        rows are independent (no MoE capacity coupling them)."""
+        return all(f != "moe" for _, f in self.cfg.pattern)
+
+    def _attach_fleet(self, cohort, member: int) -> None:
+        """Adopt this engine into a fleet cohort, which has already
+        concatenated its device state (and stacked its pools): from here on
+        reads and writes go through a view of its rows."""
+        self._fleet = (cohort, member)
+        self._store = FleetMemberStore(cohort, member)
+        self._sync_fleet_counters()
+
+    def _sync_fleet_counters(self) -> None:
+        if self._fleet is None:
+            return
+        cohort, m = self._fleet
+        cohort.counters.active[m] = self.active_count
+        cohort.counters.queued[m] = len(self.queue)
+
     # -- public API -----------------------------------------------------------
     def submit(self, request_id: int, tokens: np.ndarray,
                max_new_tokens: Optional[int] = None) -> None:
@@ -122,6 +176,7 @@ class LLMEngine:
                            max_new_tokens or self.ecfg.max_new_tokens,
                            self._steps))
         self._admit()
+        self._sync_fleet_counters()
 
     def step(self) -> List[int]:
         """One decode iteration for all active slots. Returns retired ids."""
@@ -138,6 +193,7 @@ class LLMEngine:
         self.decode_seconds += time.perf_counter() - t0
         self.host_syncs += 1
         self.decode_dispatches += 1
+        self.decode_iterations += 1
         self._next_token = nxt_dev[:, None]
         retired = []
         for i in active:
@@ -184,6 +240,7 @@ class LLMEngine:
         self._next_token = tok
         self.host_syncs += 1
         self.decode_dispatches += 1
+        self.decode_iterations += n_eff
         return self._commit_chunk(ChunkWork(outs=outs, n_eff=n_eff,
                                             active=tuple(active)))
 
@@ -219,10 +276,12 @@ class LLMEngine:
             if s.request_id == request_id:
                 self._release_slot(i)
                 self._admit()
+                self._sync_fleet_counters()
                 return True
         for k, item in enumerate(self.queue):
             if item[0] == request_id:
                 del self.queue[k]
+                self._sync_fleet_counters()
                 return True
         return False
 
@@ -351,16 +410,19 @@ class LLMEngine:
     def flush_kv(self) -> None:
         """Simulated node restart: drop every cached KV block. Active slots
         keep decoding from their contiguous caches; their block pins go
-        with the pool."""
+        with the pool. An adopted engine's fresh store is re-homed onto its
+        slice of the cohort's pools, which the copy of the fresh zeros
+        wipes."""
         if self.kv is None:
             return
         for s in self.slots:
             s.block_ids = []
         self.kv = PagedKVStore(self.cfg, self.ecfg.cache_blocks,
                                self.ecfg.block_size, self.device)
-
-    def _attach_fleet(self, cohort, member):
-        raise NotImplementedError(f"fleet adoption is {_LATER}")
+        if self._fleet is not None:
+            cohort, m = self._fleet
+            if cohort.kv_pools is not None:
+                self.kv.attach(cohort.kv_pools, m)
 
     # -- internals -------------------------------------------------------------
     def _release_slot_host(self, i: int) -> None:
@@ -370,6 +432,7 @@ class LLMEngine:
         if self.kv is not None and s.block_ids:
             self.kv.cache.release(s.block_ids)
         self.slots[i] = _Slot()
+        self._sync_fleet_counters()
 
     def _release_slot(self, i: int) -> None:
         """Retire or cancel slot ``i``: drop its pins, zero its ``kv_len``
@@ -407,6 +470,7 @@ class LLMEngine:
             request_id, tokens, budget, submit_step = self.queue.popleft()
             self._prefill_into(free[0], request_id, tokens, budget,
                                submit_step)
+        self._sync_fleet_counters()
 
     def _bucket_len(self, n: int) -> int:
         """Smallest prefill-bucket multiple >= n, capped at max_seq."""

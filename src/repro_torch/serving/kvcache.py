@@ -23,8 +23,11 @@ Reuse is exact up to rounding: K/V at position *j* depend only on tokens
 ``<= j`` (causal attention, absolute RoPE). As in the reference engine, the
 matched prefix is gathered into the slot's contiguous decode cache at
 admission; decode over pool-resident pages (the paged decode kernel,
-``kernels.paged_attention``) is not wired into the engine. Fleet adoption
-(``attach``, ``FleetKVPools``) is not ported yet.
+``kernels.paged_attention``) is not wired into the engine.
+
+:class:`FleetKVPools` stacks the pools of a fleet cohort's members into one
+k and one v tensor with a leading member axis; each member's store then
+works on its own slice of them (``PagedKVStore.attach``), in place.
 """
 from __future__ import annotations
 
@@ -290,6 +293,19 @@ class PagedKVStore:
         self.k = torch.zeros(shp, dtype=dtype_of(cfg), device=self.device)
         self.v = torch.zeros(shp, dtype=dtype_of(cfg), device=self.device)
 
+    def attach(self, fleet: "FleetKVPools", member: int,
+               copy: bool = True) -> None:
+        """Re-home this store's bytes onto slice ``member`` of a cohort's
+        stacked pools: from here on ``k`` and ``v`` are views of that slice,
+        and every write below lands there. ``copy`` writes the store's
+        current pools into the slice first (a fresh or flushed store zeroes
+        it); ``FleetKVPools.stack`` passes False, having stacked them. The
+        logical cache (pool, radix index, refcounts) stays per engine."""
+        if copy:
+            fleet.k[member].copy_(self.k)
+            fleet.v[member].copy_(self.v)
+        self.k, self.v = fleet.k[member], fleet.v[member]
+
     def _ids(self, blocks: Sequence[int]) -> torch.Tensor:
         return torch.tensor(list(blocks), dtype=torch.int64,
                             device=self.device)
@@ -347,3 +363,25 @@ class PagedKVStore:
         idx = self._ids(blocks)
         for pool, slab in zip((self.k, self.v), slabs):
             pool.index_copy_(1, idx, slab.to(self.device, pool.dtype))
+
+
+class FleetKVPools:
+    """The K/V pools of a fleet cohort stacked over its members: ``k`` and
+    ``v`` are each ``(n_members, n_layers, n_blocks, block_size, Hkv, D)``,
+    and member ``m``'s store works on ``k[m]`` and ``v[m]`` (contiguous
+    views). Block allocation, refcounts and the radix index stay per engine;
+    only the bytes are stacked, so export and import are unchanged at the
+    block level."""
+
+    def __init__(self, k: torch.Tensor, v: torch.Tensor):
+        self.k, self.v = k, v
+
+    @classmethod
+    def stack(cls, stores: Sequence[PagedKVStore]) -> "FleetKVPools":
+        """Stack the member stores' pools and re-home each store onto its
+        slice (no copy beyond the stack)."""
+        self = cls(torch.stack([s.k for s in stores]),
+                   torch.stack([s.v for s in stores]))
+        for m, s in enumerate(stores):
+            s.attach(self, m, copy=False)
+        return self

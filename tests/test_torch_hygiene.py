@@ -18,9 +18,10 @@ from repro_torch.core.router import RequestRouter
 from repro_torch.configs import get
 from repro_torch.kernels import (_build, decode_attention, dominance,
                                  flash_attention, ops, paged_attention)
+from repro_torch.launch import serve as launch
 from repro_torch.models import lm
 from repro_torch.quickstart import run_quickstart
-from repro_torch.serving import EngineConfig, LLMEngine
+from repro_torch.serving import ClusterServer, EngineConfig, LLMEngine
 from repro_torch.workload.arrivals import PhaseSpec, build_open_loop_trace
 from repro_torch.workload.trace import build_trace
 
@@ -54,7 +55,9 @@ def test_port_modules_import_no_jax_at_runtime():
             "repro_torch.convert, repro_torch.serve, "
             "repro_torch.serving.engine, repro_torch.serving.kvcache, "
             "repro_torch.workload.sessions, repro_torch.models.lm, "
-            "repro_torch.kernels.paged_attention\n"
+            "repro_torch.kernels.paged_attention, repro_torch.obs, "
+            "repro_torch.serving.scheduler, repro_torch.serving.fleet, "
+            "repro_torch.launch.serve\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -76,6 +79,16 @@ def test_entry_points_require_cuda_without_an_explicit_device(monkeypatch):
         serve.run_serve(smoke=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--smoke", "--requests", "1"])
+    # the cluster server, its engines and the launcher
+    models = {n: (cfg, model) for n in launch.CLOUD_NAMES + launch.EDGE_NAMES}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ClusterServer(paper_testbed(), models, None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch.build_models(smoke=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch.run_launch(1, smoke=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch.main(["--smoke", "--requests", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm.LM(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -451,7 +451,7 @@ def test_refit_on_reference_draws_installs_reference_genome(mode,
 def test_router_refuses_what_item_9c_brings():
     """Every runtime policy drives the router, with and without the
     learned estimators; ``direct`` and unknown names still raise, and the
-    audit log (item 11) raises naming its item."""
+    audit log (item 11, now ported) records one entry a decision."""
     from repro_torch.core.policies import runtime_policies
     assert len(runtime_policies()) == 8
     for mode in runtime_policies():
@@ -460,8 +460,13 @@ def test_router_refuses_what_item_9c_brings():
                               device="cpu")
             assert r.mode == mode and r.learned == learned
             assert (r.monitor.estimator is not None) == learned
-    with pytest.raises(NotImplementedError, match="item 11"):
-        RequestRouter(paper_testbed(), audit=object(), device="cpu")
+    from repro_torch.obs import AuditLog
+    from repro_torch.workload.trace import build_trace
+    audit = AuditLog()
+    r = RequestRouter(paper_testbed(), audit=audit, device="cpu")
+    pairs = [r.route(q).pair for q in build_trace(3, seed=0).requests]
+    assert [rec.pair for rec in audit.records()] == pairs
+    assert [rec.index for rec in audit.records()] == [0, 1, 2]
     with pytest.raises(ValueError, match="registered policies"):
         RequestRouter(paper_testbed(), mode="nope", device="cpu")
     with pytest.raises(ValueError, match="per-request"):

@@ -204,13 +204,25 @@ def test_cancel_frees_the_slot_and_the_queue():
 
 
 def test_later_slices_raise():
-    """Only fleet adoption is still to come: the prefix cache and the KV
-    handoff run (``tests/test_torch_kvcache.py`` holds them)."""
+    """Nothing of the engine waits for a later slice any more: the prefix
+    cache and the KV handoff run (``tests/test_torch_kvcache.py`` holds
+    them), and so does fleet adoption: a cohort re-homes each engine's
+    cache, next tokens and pools onto its rows of the cohort's tensors
+    (``tests/test_torch_fleet.py`` holds the cohorts)."""
+    from repro_torch.serving.fleet import Cohort
     _, _, cfg, model = _pair("qwen3-1.7b", "bfloat16")
-    eng = LLMEngine(cfg, model, EngineConfig(prefix_cache=True), device="cpu")
+    ecfg = EngineConfig(prefix_cache=True)
+    eng = LLMEngine(cfg, model, ecfg, device="cpu")
     assert eng.kv is not None and eng.cache_stats()["lookups"] == 0
-    with pytest.raises(NotImplementedError, match="fleet"):
-        eng._attach_fleet(None, 0)
+    other = LLMEngine(cfg, model, ecfg, device="cpu")
+    cohort = Cohort([other, eng])
+    assert eng._fleet == (cohort, 1)
+    B = ecfg.max_slots
+    assert eng.cache.k.data_ptr() == cohort.state.cache.k[:, B].data_ptr()
+    assert eng.kv.k.data_ptr() == cohort.kv_pools.k[1].data_ptr()
+    eng.submit(0, np.arange(5), max_new_tokens=2)
+    assert int(cohort.state.cache.kv_len[B]) == 5
+    assert cohort.counters.active.tolist() == [0, 1]
 
 
 def test_serve_tokenizes_as_the_cluster_server_does():
