@@ -7,8 +7,9 @@ Builds the port's CUDA kernels from the sources in this checkout and runs
 the port's paths on the card, the routing loop, the serving engine and its
 prefix reuse on session traffic, the runtime router's rolling-horizon
 re-fit on open-loop SLO traffic, the whole policy registry on the policy
-matrix, and the cluster server end to end, in phases that each print one
-JSON line (run in the order 1-5, 9, 13, 14, 6, 10, 7, 8, 11, 12, 15):
+matrix, the cluster server end to end, and every non-dense model family
+in the serving engine, in phases that each print one JSON line (run in the
+order 1-5, 9, 13, 14, 6, 10, 7, 8, 11, 12, 15, 16):
 
 1. card: ``nvidia-smi`` name and power limit, torch/CUDA versions, build time;
 2. kernels: the dominance kernel against its plain PyTorch version on the
@@ -135,7 +136,32 @@ JSON line (run in the order 1-5, 9, 13, 14, 6, 10, 7, 8, 11, 12, 15):
    full width and 2 layers a model, fleet on and off, under the tuned and
    the default thresholds: the same routing decisions (audit records),
    QoE records and token counts, node 1 the only node down, tokens parting
-   only at near-ties (counted and reported).
+   only at near-ties (counted and reported);
+16. families: each non-dense family at its published widths through
+   ``LLMEngine`` (8 slots x 256 positions, the trace's first 8 requests,
+   16 tokens each, decode chunks of 8), one model at a time from random
+   bf16 weights, depth cut only where the weights would not fit:
+   jamba-v0.1-52b 8 of 32 layers (one period: 1 attention + 7 Mamba, MoE
+   on 4), dbrx-132b 4 of 40, llama4-maverick-400b-a17b 2 of 48 (one
+   period: MoE then dense), xlstm-1.3b, llama-3.2-vision-11b (1,600 patch
+   tokens) and whisper-tiny (its encoder over 1,504 frames) whole; frames
+   and patches seeded, through ``submit(extra=)``. For each: the built
+   parameters equal ``param_counts()`` plus what it leaves out
+   (``uncounted_params``); launches exactly flash = (self-attention +
+   encoder layers) x admissions, decode = self-attention layers x decode
+   iterations (xLSTM neither); every token a near-tie maximum of its
+   request replayed alone (prefill, then decode) and of the full forward
+   (for MoE, requests whose passes drop an assignment held against the
+   replay only, and a token off a near tie accepted only after a reported
+   routing parting); prefill-then-decode logits within 5e-2 of max|logit|
+   of the full forward's; xLSTM, whose random-weight recurrences turn
+   bf16 rounding into diverging tokens, reported in bf16 and held in f32;
+   tokens/s, ms an admission and a decode iteration, one profiled
+   iteration, peak memory, and for xLSTM the sLSTM layers' share of an
+   admission. Then, in a fresh process (whose profiler has recorded
+   nothing yet), flash and decode against their plain versions at groups
+   5 and 6 (hd 128) and whisper's 6 heads of 64 (flash non-causal at S
+   1,500 and 1,504), timed beside SDPA and their bounds.
 
 Phase 6 also holds the flash kernel's prefix-extend variant against its
 plain version (bucketed and exact-length, garbage and NaN past prefix_len).
@@ -188,6 +214,25 @@ REFIT_REQUESTS, REFIT_POP, REFIT_GENS = 256, 32, 20
 # the serving launcher's runs: 64 requests, 30 generations of tuning, node 1
 # failed after the 6th submission
 CLUSTER_REQUESTS, CLUSTER_GENS, CLUSTER_FAIL = 64, 30, (1, 5)
+# phase 16: (model, layers built) at the published widths; depth is cut
+# only where the weights would not fit the card beside the run
+FAMILIES = (("jamba-v0.1-52b", 8), ("dbrx-132b", 4),
+            ("llama4-maverick-400b-a17b", 2), ("xlstm-1.3b", 48),
+            ("llama-3.2-vision-11b", 40), ("whisper-tiny", 4))
+FAMILY_ENGINE = dict(max_slots=8, max_seq=256, max_new_tokens=16,
+                     prefill_bucket=64)
+FAMILY_REQUESTS, FAMILY_BUDGET, FAMILY_CHUNK = 8, 16, 8
+# served in bf16 and checked in f32 as well: random-weight xLSTM amplifies
+# bf16 rounding from layer to layer into diverging tokens (the reference's
+# own prefill-then-decode parts from its full forward the same way)
+FAMILY_F32_CHECK = ("xlstm-1.3b",)
+# (Hq, Hkv, D, S, causal): llama4's group 5, dbrx's 6, whisper's encoder
+# (non-causal over 1,504 frames) and decoder
+FAMILY_FLASH = ((40, 8, 128, 64, True), (40, 8, 128, 131, True),
+                (48, 8, 128, 64, True), (48, 8, 128, 200, True),
+                (6, 6, 64, 1504, False), (6, 6, 64, 1500, False),
+                (6, 6, 64, 97, True))
+FAMILY_DECODE_HEADS = ((40, 8, 128), (48, 8, 128), (6, 6, 64))
 
 
 def emit(obj):
@@ -229,39 +274,57 @@ def _device_events(fn, *args, iters=20):
             if ev.device_type.name == "CUDA"]
 
 
-def device_kernel_ms(fn, *args, name="dominance_matrix", iters=20,
-                     attempts=3):
-    """Median device time of the named kernel from torch.profiler, or None
-    when the profiler records no device activity (a window without any is
-    profiled again, up to ``attempts`` times)."""
+def _profiled(events, attempts):
+    """The first non-empty result of ``events()`` over ``attempts`` windows
+    (the profiler now and then records no device activity for a window),
+    or []. No pause between them: once this process's profiler has stopped
+    recording, waiting did not bring it back."""
     for _ in range(attempts):
-        us = [t for n, t in _device_events(fn, *args, iters=iters)
-              if name in n]
-        if us:
-            return statistics.median(us) / 1e3
-    return None
-
-
-def device_total_ms(fn, *args, iters=20):
-    """Device time of one call of ``fn``, all its kernels together (the
-    mean over ``iters`` calls), or None when the profiler records no device
-    activity."""
-    us = [t for _, t in _device_events(fn, *args, iters=iters)]
-    return sum(us) / iters / 1e3 if us else None
-
-
-def device_kernel_names(fn, *args, iters=5, attempts=3):
-    """The names of the device kernels that calls of ``fn`` run (the
-    profiler now and then records no device activity for a window: then
-    the window is profiled again)."""
-    for _ in range(attempts):
-        names = sorted({n for n, _ in _device_events(fn, *args, iters=iters)})
-        if names:
-            return names
+        out = events()
+        if out:
+            return out
     return []
 
 
-def device_kernel_grids(fn, *args, name, iters=3, attempts=8):
+def device_kernel_ms(fn, *args, name="dominance_matrix", iters=20,
+                     attempts=3):
+    """Median device time of the named kernel from torch.profiler, or None
+    when no profiled window records it."""
+    us = _profiled(lambda: [t for n, t in _device_events(fn, *args,
+                                                         iters=iters)
+                            if name in n], attempts)
+    return statistics.median(us) / 1e3 if us else None
+
+
+def device_total_ms(fn, *args, iters=20, attempts=3):
+    """Device time of one call of ``fn``, all its kernels together (the
+    mean over ``iters`` calls), or None when no profiled window records
+    device activity."""
+    us = _profiled(lambda: [t for _, t in _device_events(fn, *args,
+                                                         iters=iters)],
+                   attempts)
+    return sum(us) / iters / 1e3 if us else None
+
+
+def device_kernel_names(fn, *args, iters=5, attempts=3, fresh=True):
+    """The names of the device kernels that calls of ``fn`` run (an empty
+    window is profiled again; with ``fresh``, when every window is empty,
+    in a new process: ``in_fresh_process``)."""
+    names = _profiled(lambda: sorted(
+        {n for n, _ in _device_events(fn, *args, iters=iters)}), attempts)
+    if not names and fresh:
+        names = _fresh(fn, args, "device_kernel_names", iters=iters)
+    return names
+
+
+def _idle(busy, wall):
+    """The card's idle share of a host wall time, or None where the
+    profiler recorded no device activity (not measured)."""
+    return None if busy is None else 1 - busy / wall
+
+
+def device_kernel_grids(fn, *args, name, iters=3, attempts=8,
+                        fresh=True):
     """(grids, windows): the grids (blocks along x, y, z) of the device
     kernels whose name holds ``name`` over ``iters`` calls of ``fn``, from
     the profiler's Chrome trace (written under build/, read and removed),
@@ -272,7 +335,9 @@ def device_kernel_grids(fn, *args, name, iters=3, attempts=8):
     (the profiler now and then records nothing for a window, and once for
     eight windows 0.5 s apart); the windows are reported so that a
     recurring dropout, or a kernel that really goes missing, shows (and
-    which of the two records lost it)."""
+    which of the two records lost it). With ``fresh``, when no window has
+    the kernel, the same calls are profiled in a new process
+    (``in_fresh_process``), reported as one more window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     path = Path(__file__).resolve().parent / "build" / "chip_smoke_trace.json"
@@ -301,7 +366,44 @@ def device_kernel_grids(fn, *args, name, iters=3, attempts=8):
         if grids:
             return grids, windows
         time.sleep(min(0.5 * 2 ** (len(windows) - 1), 4.0))
-    return [], windows
+    if not fresh:
+        return [], windows
+    grids, inner = _fresh(fn, args, "device_kernel_grids", name=name,
+                          iters=iters)
+    return [tuple(g) for g in grids], windows + [{"fresh_process": inner}]
+
+
+def in_fresh_process(call, setup=""):
+    """Evaluate ``call`` (an expression over this module, ``chip_smoke``,
+    after the statements ``setup``) in a new process and return its JSON
+    result. The new process loads the kernels this one built and profiles
+    with its own CUPTI state: late in a long run this process's profiler
+    drops windows, or records nothing at all (every window of phase 12 in
+    two runs, with the earlier phases' device times already missing)."""
+    root = Path(__file__).resolve().parent
+    code = (f"import json, sys\nsys.path[:0] = [{str(root)!r}, "
+            f"{str(root / 'src')!r}]\nimport torch, chip_smoke\n{setup}\n"
+            f"print(json.dumps({call}))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _fresh(fn, args, helper, **kw):
+    """``helper(fn, *args, fresh=False, **kw)`` of this module run by
+    ``in_fresh_process`` on copies of ``args`` (tensors keep their
+    strides; saved under build/)."""
+    import torch
+    path = Path(__file__).resolve().parent / "build" / "chip_smoke_args.pt"
+    torch.save([a.clone() if torch.is_tensor(a) else a for a in args], path)
+    try:
+        return in_fresh_process(
+            f"chip_smoke.{helper}(fn, *args, fresh=False, **{kw!r})",
+            f"from {fn.__module__} import {fn.__name__} as fn\n"
+            f"args = torch.load({str(path)!r})")
+    finally:
+        path.unlink(missing_ok=True)
 
 
 def dominance_bound_ms(P, M):
@@ -309,6 +411,35 @@ def dominance_bound_ms(P, M):
     once (P*P bytes), 2*P*P*M f32 comparisons."""
     return 1e3 * max((P * M * 4 + P * P) / HBM_BYTES_PER_S,
                      2 * P * P * M / F32_OPS_PER_S)
+
+
+def uncounted_params(cfg):
+    """Parameters a built model holds beyond ``cfg.param_counts()["total"]``
+    (the reference's arithmetic, copied): it leaves out the final norm,
+    LayerNorm biases, the third norm of a cross block (and counts two norms
+    where a block without FFN has one), the Mamba Δt path, ``A_log``, ``D``
+    and conv bias, the mLSTM's and sLSTM's own norms, the sLSTM's
+    recurrent matrices and the encoder's positions and final LayerNorm,
+    and it counts a GELU MLP as a SwiGLU one."""
+    d = cfg.d_model
+    nd = 2 * d if cfg.norm == "layernorm" else d      # one norm's params
+    mlp = -d * cfg.d_ff if cfg.activation == "gelu" else 0
+    gap = nd                                          # the final norm
+    for li in range(cfg.n_layers):
+        mixer, ffn = cfg.block_at(li)
+        norms = 1 + (mixer == "attn_cross") + (ffn != "none")
+        gap += norms * nd - 2 * d + (mlp if ffn == "dense" else 0)
+        if mixer == "mamba":
+            di = cfg.ssm.expand * d
+            gap += di * (2 * max(1, d // 16) + cfg.ssm.d_state + 1)
+        elif mixer == "mlstm":
+            gap += int(cfg.xlstm.proj_factor_m * d)
+        elif mixer == "slstm":
+            gap += 4 * d * (d // cfg.n_kv_heads) + d
+    if cfg.encoder is not None:
+        gap += cfg.encoder.n_frames * d + 2 * d       # positions, LayerNorm
+        gap += cfg.encoder.n_layers * (2 * nd - 2 * d + mlp)
+    return gap
 
 
 def phase_card():
@@ -509,10 +640,10 @@ def profile_fitness(fit, genomes, n_requests):
         if e.device_type.name == "CUDA":
             by_name[e.name[:60]] += e.time_range.elapsed_us()
             n_events += 1
-    busy = sum(by_name.values()) / 1e6
+    busy = sum(by_name.values()) / 1e6 if n_events else None
     return {"what": f"one fitness call, pop {genomes.shape[0]} x "
             f"{n_requests} requests", "wall_s": wall, "device_busy_s": busy,
-            "idle_share": 1 - busy / wall, "device_events": n_events,
+            "idle_share": _idle(busy, wall), "device_events": n_events,
             "us_per_request_step": wall / n_requests * 1e6,
             "top_device_us": by_name.most_common(6)}
 
@@ -1518,10 +1649,10 @@ def _profile_step(engine, n_steps=5):
             n_events += 1
         else:   # where the host's time goes (inflated by the profiler)
             host[ev.name[:60]] += ev.self_cpu_time_total
-    busy = sum(by_name.values()) / 1e6
+    busy = sum(by_name.values()) / 1e6 if n_events else None
     wall = statistics.median(walls)
     return {"step_wall_s": wall, "profiled_step_wall_s": prof_wall,
-            "device_busy_s": busy, "idle_share": 1 - busy / wall,
+            "device_busy_s": busy, "idle_share": _idle(busy, wall),
             "device_events": n_events, "decode_kv_len": decode_kv_len,
             "top_device_us": by_name.most_common(8),
             "top_host_self_us": host.most_common(8)}
@@ -2164,9 +2295,9 @@ def _profile_tick(srv, wall):
             n_events += 1
         else:
             host[ev.name[:60]] += ev.self_cpu_time_total
-    busy = sum(by_name.values()) / 1e6
+    busy = sum(by_name.values()) / 1e6 if n_events else None
     return {"tick_wall_s": wall, "profiled_tick_wall_s": prof_wall,
-            "device_busy_s": busy, "idle_share": 1 - busy / wall,
+            "device_busy_s": busy, "idle_share": _idle(busy, wall),
             "device_events": n_events,
             "top_device_us": by_name.most_common(8),
             "top_host_self_us": host.most_common(8)}
@@ -2379,6 +2510,436 @@ def phase_cluster():
     return row
 
 
+# ---------------------------------------------------------------------------
+# the non-dense families in the serving engine
+# ---------------------------------------------------------------------------
+
+def _moe_routing(fn, *args, **kw):
+    """(fn's result, [(choices, drops)] of every ``moe_apply`` it ran)."""
+    from repro_torch.models import moe
+    moe.ROUTING = []
+    try:
+        out = fn(*args, **kw)
+        rec = [(e, int(d)) for e, d in moe.ROUTING]
+    finally:
+        moe.ROUTING = None
+    return out, rec
+
+
+def _per_layer(rec, n_moe):
+    """Calls recorded over a prefill and its decode steps (one call a MoE
+    layer a pass, in layer order) -> each layer's choices by position."""
+    import torch
+    return [torch.cat([e for e, _ in rec[i::n_moe]]) for i in range(n_moe)]
+
+
+def _first_routing_parting(a, b):
+    """First position whose expert set differs in any layer, or None."""
+    import torch
+    firsts = []
+    for x, y in zip(a, b):
+        n = min(len(x), len(y))
+        diff = (torch.sort(x[:n], -1).values
+                != torch.sort(y[:n], -1).values).any(-1).nonzero()
+        if len(diff):
+            firsts.append(int(diff[0]))
+    return min(firsts) if firsts else None
+
+
+def _family_replay(model, cfg, prompt, toks, cross):
+    """Prefill the prompt, then decode ``toks`` one by one (B = 1): the
+    logits of every step (the prefill's last row first) and the routing
+    of every ``moe_apply``."""
+    import torch
+    from repro_torch.models import lm
+
+    def run():
+        x = torch.tensor([list(prompt)], device="cuda")
+        logits, cache = lm.prefill(model, cfg, x,
+                                   max_seq=len(prompt) + len(toks), **cross)
+        rows = [logits[0]]
+        for t in toks:
+            logits, cache = lm.decode_step(
+                model, cfg, torch.tensor([[t]], device="cuda"), cache)
+            rows.append(logits[0])
+        return torch.stack(rows)
+
+    return _moe_routing(run)
+
+
+def _family_full(model, cfg, seq, cross):
+    """``train_logits`` over ``seq`` (B = 1) and its routing."""
+    import torch
+    from repro_torch.models import lm
+    logits, rec = _moe_routing(lm.train_logits, model, cfg,
+                               torch.tensor([list(seq)], device="cuda"),
+                               **cross)
+    return logits[0], rec
+
+
+def _served_routing(routing, prompts, n_moe):
+    """Each request's expert choices by layer and position on the served
+    path, from the calls recorded over the run: the admissions first (the
+    8 requests, admitted at submission into slots 0-7 in order), then the
+    decode iterations over all 8 rows (row = slot)."""
+    import torch
+    rids = sorted(prompts)
+    adm = routing[:len(rids) * n_moe]
+    dec = routing[len(rids) * n_moe:]
+    out = {}
+    for s, rid in enumerate(rids):
+        pre = adm[s * n_moe:(s + 1) * n_moe]
+        assert all(len(e) == len(prompts[rid]) for e, _ in pre)
+        out[rid] = [torch.cat([pre[i][0]] + [e[s:s + 1] for e, _ in
+                                             dec[i::n_moe]])
+                    for i in range(n_moe)]
+    return out
+
+
+def _family_check(model, cfg, prompts, results, extras, n_moe, served,
+                  strict=True):
+    """Each request replayed alone (B = 1: the prompt prefilled, then its
+    served tokens decoded one by one) and run as a full forward
+    (``train_logits`` over the prompt and the tokens before the last).
+
+    * Every served token is a near-tie maximum of the replay's logits: the
+      engine (batching, slot splices, state carried) serves what the model
+      computes for the request alone.
+    * Every served token is a near-tie maximum of the full forward, except
+      in a MoE request whose full forward or admission prefill drops an
+      assignment (capacity depends on the token count, so the passes
+      compute different functions: reported). Decode at 8 rows drops
+      nothing (capacity >= 8), so the replay drops what the admission
+      dropped.
+    * For MoE, a token off either near tie is accepted only at or after
+      the first position that the two passes compared route to other
+      experts (``served``: the choices recorded over the run, against the
+      replay's, and the replay's against the full forward's): bf16
+      activations rounded at other places by GEMMs of other shapes tip a
+      near-tie of router probabilities, and the token that takes another
+      expert moves by O(1). Each such parting is reported.
+    * The replay's first 4 rows (the prefill's last, 3 decode steps)
+      against the full forward's, within 5e-2 of the row's max|logit|, for
+      the first two requests without drops, the MoE rows before the first
+      routing parting: bf16 activations (8 mantissa bits) are rounded at
+      other places by the two passes (the decode kernel against flash, the
+      recurrent step against the chunked scan, GEMMs of other shapes) over
+      up to 48 layers. Without such a request the same on a 5-token prompt
+      of the first request with 3 greedy steps: 8 tokens, which no
+      capacity can drop.
+
+    ``strict=False`` asserts nothing and reports what would not hold: for
+    xLSTM in bf16, whose random-weight recurrences turn bf16 rounding into
+    diverging tokens (``phase_families`` holds it in f32 instead)."""
+    out = {"tokens": 0, "held_replay": 0, "held_full_forward": 0,
+           "not_held": [], "routing_partings": [],
+           "worst_gap_over_max_logit": {"replay": 0.0, "full_forward": 0.0},
+           "drops": {}, "logits_vs_full": []}
+
+    def parting(a, b):
+        return (_first_routing_parting(_per_layer(a, n_moe),
+                                       _per_layer(b, n_moe))
+                if n_moe else None)
+
+    def window(label, prompt, rows, full, rrec, rec):
+        p = parting(rrec, rec)
+        n = 4 if p is None else min(4, p - (len(prompt) - 1))
+        err = _row_errors(rows[:max(n, 0)], full[:max(n, 0)])
+        assert not strict or all(e <= 5e-2 for e in err), (cfg.name, label,
+                                                           err)
+        if n > 0:
+            out["logits_vs_full"].append({
+                "request": label, "prompt_tokens": len(prompt),
+                "rows_held": n, "first_routing_parting": p,
+                "max_err_over_max_logit": max(err)})
+
+    def hold(rid, j, against, row, t, first_parting, pos):
+        ok, rel = _near_tie_ok(row, t)
+        if ok:
+            out["held_" + against] += 1
+            worst = out["worst_gap_over_max_logit"]
+            worst[against] = max(worst[against], rel)
+            return
+        entry = {"request": rid, "token": j, "against": against,
+                 "gap": rel, "first_routing_parting": first_parting}
+        if first_parting is not None and first_parting <= pos:
+            out["routing_partings"].append(entry)
+            return
+        assert not strict, (cfg.name, entry)
+        out["not_held"].append(entry)
+
+    for rid, r in sorted(results.items()):
+        toks, prompt, cross = r["tokens"], prompts[rid], extras[rid]
+        L = len(prompt)
+        rows, rrec = _family_replay(model, cfg, prompt, toks[:-1], cross)
+        full, rec = _family_full(model, cfg, list(prompt) + toks[:-1], cross)
+        full = full[L - 1:]
+        drops = 0
+        p_served = p_full = None
+        if n_moe:
+            d = {"full_forward": sum(x for _, x in rec),
+                 "admission_prefill": sum(x for _, x in rrec[:n_moe])}
+            out["drops"][rid] = d
+            drops = sum(d.values())
+            p_served = _first_routing_parting(served[rid],
+                                              _per_layer(rrec, n_moe))
+            p_full = parting(rrec, rec)
+        for j, t in enumerate(toks):
+            out["tokens"] += 1
+            hold(rid, j, "replay", rows[j], t, p_served, L - 1 + j)
+            if not drops:
+                both = [p for p in (p_served, p_full) if p is not None]
+                hold(rid, j, "full_forward", full[j], t,
+                     min(both) if both else None, L - 1 + j)
+        if not drops and len(out["logits_vs_full"]) < 2:
+            window(rid, prompt, rows, full, rrec, rec)
+    if not out["logits_vs_full"]:
+        rid = min(prompts)
+        prompt, toks = prompts[rid][:5], []
+        for _ in range(3):
+            rows, _ = _family_replay(model, cfg, prompt, toks, extras[rid])
+            toks.append(int(rows[-1].argmax()))
+        rows, rrec = _family_replay(model, cfg, prompt, toks[:3],
+                                    extras[rid])
+        full, rec = _family_full(model, cfg, list(prompt) + toks[:3],
+                                 extras[rid])
+        window(f"{rid}, first 5 tokens", prompt, rows, full[4:], rrec, rec)
+    assert out["logits_vs_full"] or not strict, cfg.name
+    return out
+
+
+def _row_errors(rows, full):
+    """Per row: max |rows - full| over the row's max |full|."""
+    return ((rows - full).abs().amax(-1) / full.abs().amax(-1)).tolist()
+
+
+def _slstm_share(model, cfg, prompt):
+    """Seconds of one admission-sized prefill, and of its sLSTM layers (the
+    card synchronized around each, so the share is of host-bound time)."""
+    import torch
+    from repro_torch.models import lm
+    orig = lm._FULL["slstm"]
+    spent = []
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    x = torch.tensor([list(prompt)], device="cuda")
+    lm._FULL["slstm"] = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm.prefill(model, cfg, x, max_seq=len(prompt))
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        lm._FULL["slstm"] = orig
+    return {"prompt_tokens": len(prompt), "prefill_s": total,
+            "slstm_s": sum(spent), "slstm_layers": len(spent),
+            "slstm_share": sum(spent) / total}
+
+
+def _family_model(name, n_layers, trace, seed, dtype="bfloat16",
+                  strict=True, measure=True):
+    """One family at its published widths, ``n_layers`` deep: built from
+    random weights in ``dtype``, its parameters held against the
+    reference's arithmetic, 8 requests served through ``LLMEngine`` with
+    seeded frames or patches, launches held to the counts, tokens checked
+    (``_family_check``, ``strict``); with ``measure``, one decode iteration
+    profiled and the sLSTM layers' share of an admission."""
+    import gc
+    import torch
+    from repro_torch import serve
+    from repro_torch.configs import get
+    from repro_torch.models import lm
+    from repro_torch.serving import EngineConfig, LLMEngine
+    full_cfg = get(name).config()
+    cfg = dataclasses.replace(full_cfg, n_layers=n_layers, dtype=dtype)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = serve.build_model(cfg, "cuda", seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    built = sum(p.numel() for p in model.parameters())
+    counted = cfg.param_counts()["total"]
+    assert built == counted + uncounted_params(cfg), (name, built, counted)
+    ecfg = EngineConfig(**FAMILY_ENGINE)
+    prompts = {rid: serve.tokenize(req, cfg.vocab)
+               for rid, req in enumerate(trace.requests[:FAMILY_REQUESTS])}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    key = {"audio": "frames", "vlm": "patches"}.get(cfg.family)
+    extras = {rid: ({key: torch.randn(
+        (1, cfg.cross_kv_tokens, cfg.d_model), generator=gen,
+        device="cuda").to(torch.bfloat16)} if key else {})
+        for rid in prompts}
+    n_self = lm.n_attn(cfg)
+    n_enc = cfg.encoder.n_layers if cfg.encoder is not None else 0
+    n_moe = sum(f == "moe" for _, f in (cfg.block_at(i)
+                                        for i in range(cfg.n_layers)))
+    # warm-up: one short request (first calls of cuBLAS and allocations)
+    warm = LLMEngine(cfg, model, ecfg, device="cuda")
+    warm.submit(0, prompts[0][:8], max_new_tokens=2, extra=extras[0])
+    warm.run_to_completion(chunk=FAMILY_CHUNK)
+    del warm
+
+    eng = LLMEngine(cfg, model, ecfg, device="cuda")
+    zero_launches()
+    (results, wall), routing = _moe_routing(_family_serve, eng, prompts,
+                                            extras)
+    launches = launch_counts(
+        flash_attention=(n_self + n_enc) * eng.admissions,
+        gqa_decode_attention=n_self * eng.decode_iterations)
+    assert sorted(results) == sorted(prompts)
+    for r in results.values():
+        assert len(r["tokens"]) == FAMILY_BUDGET
+        assert all(0 <= t < cfg.vocab for t in r["tokens"])
+    tokens = sum(len(r["tokens"]) for r in results.values())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    served = _served_routing(routing, prompts, n_moe) if n_moe else None
+    check = _family_check(model, cfg, prompts, results, extras, n_moe,
+                          served, strict)
+    if n_moe:   # decode at 8 rows keeps every assignment (C >= 8)
+        served = sum(d for _, d in routing)
+        assert served == sum(v["admission_prefill"]
+                             for v in check["drops"].values()), served
+        check["drops_served"] = served
+    row = {"model": name, "family": cfg.family, "dtype": dtype,
+           "layers_built": n_layers, "layers_published": full_cfg.n_layers,
+           "reduced": ({"n_layers": [full_cfg.n_layers, n_layers]}
+                       if n_layers != full_cfg.n_layers else {}),
+           "params_built": built, "params_counted": counted,
+           "params_uncounted": uncounted_params(cfg),
+           "params_published": full_cfg.param_counts()["total"],
+           "self_attention_layers": n_self, "encoder_layers": n_enc,
+           "moe_layers": n_moe, "init_s": init_s,
+           "requests": len(results), "tokens": tokens, "wall_s": wall,
+           "tokens_per_s": tokens / wall, "admissions": eng.admissions,
+           "decode_iterations": eng.decode_iterations,
+           "prefill_ms_mean": 1e3 * eng.prefill_seconds / eng.admissions,
+           "decode_iteration_ms_mean":
+               1e3 * eng.decode_seconds / eng.decode_iterations,
+           "launches": launches, "check": check, "peak_memory_gb": peak}
+    if measure:
+        # one decode iteration with every slot busy, profiled
+        prof_eng = LLMEngine(cfg, model, ecfg, device="cuda")
+        for rid, p in prompts.items():
+            prof_eng.submit(rid, p, max_new_tokens=64, extra=extras[rid])
+        row["decode_iteration_profile"] = _profile_step(prof_eng)
+        del prof_eng
+        if any(cfg.block_at(i)[0] == "slstm" for i in range(cfg.n_layers)):
+            row["slstm"] = _slstm_share(model, cfg, prompts[0])
+    del model, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _family_serve(eng, prompts, extras):
+    """Submit every request, drain in chunks; (results, wall seconds)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for rid, p in prompts.items():
+        eng.submit(rid, p, max_new_tokens=FAMILY_BUDGET, extra=extras[rid])
+    results = eng.run_to_completion(chunk=FAMILY_CHUNK)
+    torch.cuda.synchronize()
+    return results, time.perf_counter() - t0
+
+
+def check_family_shapes():
+    """The flash and decode kernels against their plain versions at the
+    shapes the families bring: group sizes 5 (llama4's 40 / 8 heads) and
+    6 (dbrx's 48 / 8) at head dim 128, and whisper's 6 heads of 64,
+    non-causal over its encoder's 1,504 frames (tiles ragged at the end)
+    and causal in its decoder; f32 and bf16, decode also with the cache
+    past kv_len filled with NaN (output bit for bit unchanged)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator().manual_seed(16)
+    errs = {"flash": {k: 0.0 for k in TOL}, "decode": {k: 0.0 for k in TOL}}
+    n = 0
+    for dname, dt in _dtypes().items():
+        for Hq, Hkv, D, S, causal in FAMILY_FLASH:
+            q, k, v = (torch.randn((1, S, h, D), generator=gen).to(dt)
+                       .cuda().transpose(1, 2) for h in (Hq, Hkv, Hkv))
+            got = ops.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            case = (dname, Hq, Hkv, D, S, causal)
+            errs["flash"][dname] = max(errs["flash"][dname], _check_close(
+                "flash", got, ref.mha_prefill(q, k, v, causal=causal),
+                dname, case))
+            n += 1
+        for Hq, Hkv, D in FAMILY_DECODE_HEADS:
+            Smax = FAMILY_ENGINE["max_seq"]
+            lens = [1, 63, 64, 65, 0, Smax, Smax + 25, 141]
+            q, k, v, kl = _dec_case(8, Hq, Hkv, D, Smax, lens, dt, gen, True)
+            got = ops.gqa_decode_attention(q, k, v, kl)
+            torch.cuda.synchronize()
+            case = (dname, Hq, Hkv, D, Smax, lens)
+            errs["decode"][dname] = max(errs["decode"][dname], _check_close(
+                "decode", got, ref.gqa_decode(q, k, v, kl), dname, case))
+            assert not got[4].any(), ("kv_len 0", case)
+            k2, v2 = k.clone(), v.clone()
+            for b, x in enumerate(lens):
+                k2[b, :, x:] = float("nan")
+                v2[b, :, x:] = float("nan")
+            assert torch.equal(ops.gqa_decode_attention(q, k2, v2, kl), got)
+            n += 2
+    return n, errs
+
+
+def family_kernel_shapes():
+    """``check_family_shapes`` and the two kernels timed at those shapes
+    beside their plain versions, SDPA and their bounds (run in a fresh
+    process by ``phase_families``, whose profiler is then reliable)."""
+    n, errs = check_family_shapes()
+    lens = [64, 100, 131, 77, 90, 120, 55, 141]
+    Smax = FAMILY_ENGINE["max_seq"]
+    return {"cases": n, "max_abs_err": errs,
+            "flash_g5_s128": flash_timing(128, True, 1, 40, 8, 128),
+            "flash_g6_s128": flash_timing(128, True, 1, 48, 8, 128),
+            "flash_hd64_s1504_noncausal": flash_timing(1504, False, 1, 6, 6,
+                                                       64),
+            "decode_g5": decode_timing(lens, Smax, 40, 8, 128),
+            "decode_g6": decode_timing(lens, Smax, 48, 8, 128),
+            "decode_hd64": decode_timing(lens, Smax, 6, 6, 64)}
+
+
+def phase_families():
+    """Phase 16: every non-dense family through ``LLMEngine`` at its
+    published widths, then the attention kernels at the shapes they
+    bring."""
+    from repro_torch import serve
+    trace = serve.build_trace(500, seed=0)
+    models = []
+    for i, (name, n_layers) in enumerate(FAMILIES):
+        t0 = time.perf_counter()
+        f32 = name in FAMILY_F32_CHECK
+        row = _family_model(name, n_layers, trace, seed=i, strict=not f32)
+        if f32:
+            row["f32_check"] = _family_model(name, n_layers, trace, seed=i,
+                                             dtype="float32", measure=False)
+        row["seconds"] = time.perf_counter() - t0
+        print(json.dumps({k: row[k] for k in (
+            "model", "layers_built", "params_built", "tokens_per_s",
+            "launches", "seconds")}), flush=True)
+        models.append(row)
+    row = {"phase": "families", "engine": FAMILY_ENGINE,
+           "budget": FAMILY_BUDGET, "chunk": FAMILY_CHUNK,
+           "models": models,
+           "kernel_shapes": in_fresh_process(
+               "chip_smoke.family_kernel_shapes()"),
+           "launches": {k: sum(m["launches"][k] for m in models)
+                        for k in ("flash_attention", "gqa_decode_attention")}}
+    emit(row)
+    return row
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2414,6 +2975,7 @@ def main():
                            run.cfg)
     pools = timed("paged_on_pools", phase_paged_on_pools, sess_run, run.cfg)
     clu = timed("cluster", phase_cluster)
+    fam = timed("families", phase_families)
     emit({"phase": "times", "card": smi, "seconds": phase_s,
           "total_s": sum(phase_s.values())})
 
@@ -2464,7 +3026,8 @@ def main():
         "launches": served["launches"]["gqa_decode_attention"],
         "launches_serve_sessions": sess_launches["gqa_decode_attention"],
         "launches_cluster": clu["launches"]["gqa_decode_attention"],
-        "cases": dec["cases"],
+        "launches_families": fam["launches"]["gqa_decode_attention"],
+        "cases": dec["cases"] + fam["kernel_shapes"]["cases"],
         "max_abs_err": max(dec["max_abs_err"].values()),
         "max_abs_err_by_dtype": dec["max_abs_err"],
         **{k: dec["serving"].get(k) for k in timing_keys},
@@ -2472,6 +3035,8 @@ def main():
         "session": sess["decode_at_profiled_iteration"],
         "cluster_cohort": clu["decode_at_cohort_rows"],
         "cluster_cloud": clu["decode_at_cloud_rows"],
+        "families": {k: fam["kernel_shapes"][k] for k in (
+            "decode_g5", "decode_g6", "decode_hd64")},
         "splits": attn["routes"]["decode_split"]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2479,6 +3044,7 @@ def main():
         "launches": served["launches"]["flash_attention"],
         "launches_serve_sessions": sess_launches["flash_attention"],
         "launches_cluster": clu["launches"]["flash_attention"],
+        "launches_families": fam["launches"]["flash_attention"],
         "cases": fa["cases"] + attn["flash_extend"]["cases"],
         "max_abs_err": max(list(fa["max_abs_err"].values())
                            + list(attn["flash_extend"]["max_abs_err"]
@@ -2486,6 +3052,9 @@ def main():
         "max_abs_err_by_dtype": fa["max_abs_err"],
         **{k: fa["serving"].get(k) for k in timing_keys},
         "s64": fa["s64"], "s512": fa["s512"], "groups": fa["groups"],
+        "families": {k: fam["kernel_shapes"][k] for k in (
+            "flash_g5_s128", "flash_g6_s128",
+            "flash_hd64_s1504_noncausal")},
         "kernels_by_dtype": attn["routes"]["flash_kernels"],
         "extend": {"cases": attn["flash_extend"]["cases"],
                    "max_abs_err_by_dtype":

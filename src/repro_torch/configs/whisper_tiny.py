@@ -1,0 +1,32 @@
+"""whisper-tiny [audio]: enc-dec, 4L d=384 6H ff=1536 V=51865.
+
+[arXiv:2212.04356; unverified] Conv frontend is a STUB per the assignment:
+input_specs provide precomputed frame embeddings (B, 1504, 384) — 1500 mel
+frames rounded to a 32 multiple. Decoder blocks carry self- AND cross-attn
+(attn_cross); LayerNorm + GELU MLPs per the original. The 32k/500k shape
+cells exceed Whisper's real 448-token decoder context; they exercise the
+backbone mechanically and are marked synthetic in EXPERIMENTS.md.
+"""
+from ..models.config import EncoderCfg, ModelConfig
+
+NAME = "whisper-tiny"
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name=NAME, family="audio", n_layers=4, d_model=384, n_heads=6,
+        n_kv_heads=6, d_ff=1536, vocab=51865,
+        pattern=(("attn_cross", "dense"),),
+        encoder=EncoderCfg(n_layers=4, n_frames=1504),
+        cross_kv_tokens=1504, norm="layernorm", activation="gelu",
+        tie_embeddings=True)
+
+
+def smoke() -> ModelConfig:
+    return ModelConfig(
+        name=NAME + "-smoke", family="audio", n_layers=2, d_model=64,
+        n_heads=2, n_kv_heads=2, d_ff=128, vocab=256,
+        pattern=(("attn_cross", "dense"),),
+        encoder=EncoderCfg(n_layers=2, n_frames=64),
+        cross_kv_tokens=64, norm="layernorm", activation="gelu",
+        tie_embeddings=True)

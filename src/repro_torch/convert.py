@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict
-from typing import Any, Mapping, Sequence, Tuple
+from typing import Any, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -65,9 +65,13 @@ def tensor_from_numpy(a: np.ndarray, device: Device = None) -> torch.Tensor:
 def lm_params_from_numpy(params_np: Mapping[str, Any], cfg: ModelConfig,
                          device: Device = None) -> lm.LM:
     """The port's ``LM`` from the reference's ``lm.init`` pytree: ``embed``,
-    ``final_norm``, ``head`` and ``blocks[0]``, whose leaves are stacked over
-    the layers (one pattern position: the dense pattern), dense weights
-    (d_in, d_out). Values and dtypes are kept exactly."""
+    ``final_norm``, ``head``, ``blocks`` (one dict per pattern position,
+    its leaves stacked over the periods: layer ``li`` is entry ``li //
+    len(pattern)`` of position ``li % len(pattern)``) and ``encoder``
+    (``pos``, ``blocks`` stacked over its layers, ``final_norm``). Each
+    module's ``REF`` names its leaves; every mixer, the MoE router and
+    experts, tied heads and LayerNorm biases come across. Values and dtypes
+    are kept exactly."""
     model = lm.LM(cfg, device)
     dev = model.device
 
@@ -78,39 +82,72 @@ def lm_params_from_numpy(params_np: Mapping[str, Any], cfg: ModelConfig,
                              f"want {tuple(dst.shape)} {dst.dtype}")
         dst.copy_(src)
 
-    def put_norm(norm: lm.Norm, src, i=None) -> None:
-        put(norm.g, src["g"] if i is None else src["g"][i])
-        if norm.b is not None:
-            put(norm.b, src["b"] if i is None else src["b"][i])
+    def put_module(mod, tree, i=None) -> None:
+        for attr, path in mod.REF.items():
+            dst = getattr(mod, attr)
+            if dst is None:
+                continue
+            src = tree
+            for key in path:
+                src = src[key]
+            put(dst, src if i is None else src[i])
+
+    def put_block(blk: lm.Block, tree, i: int) -> None:
+        for name in ("norm1", "mixer", "mixer2", "norm1b", "norm2", "ffn"):
+            mod = getattr(blk, name)
+            if mod is not None:
+                put_module(mod, tree[name], i)
 
     put(model.embed, params_np["embed"]["table"])
     if model.head is not None:
         put(model.head, params_np["head"]["table"])
-    put_norm(model.final_norm, params_np["final_norm"])
-    (stacked,) = params_np["blocks"]
-    for i, blk in enumerate(model.blocks):
-        a, f = stacked["mixer"], stacked["ffn"]
-        put_norm(blk.norm1, stacked["norm1"], i)
-        put_norm(blk.norm2, stacked["norm2"], i)
-        for name in ("wq", "wk", "wv", "wo"):
-            put(getattr(blk.mixer, name), a[name]["w"][i])
-        if cfg.qk_norm:
-            put(blk.mixer.qnorm, a["qnorm"]["g"][i])
-            put(blk.mixer.knorm, a["knorm"]["g"][i])
-        for name in ("wi", "wg", "wo"):
-            put(getattr(blk.ffn, name), f[name]["w"][i])
+    put_module(model.final_norm, params_np["final_norm"])
+    P = len(cfg.pattern)
+    for li, blk in enumerate(model.blocks):
+        put_block(blk, params_np["blocks"][li % P], li // P)
+    if model.encoder is not None:
+        enc = params_np["encoder"]
+        put(model.encoder.pos, enc["pos"])
+        for i, blk in enumerate(model.encoder.blocks):
+            put_block(blk, enc["blocks"], i)
+        put_module(model.encoder.final_norm, enc["final_norm"])
     return model
 
 
-def cache_from_numpy(cache_np, device: Device = None) -> lm.Cache:
-    """The port's ``Cache`` from the reference's dense decode ``Cache``:
-    ``layer`` = ((k, v),), each (n_layers, B, Smax, Hkv, D), and ``kv_len``
-    (B,)."""
-    (k, v), = cache_np.layer
-    return lm.Cache(k=tensor_from_numpy(k, device),
-                    v=tensor_from_numpy(v, device),
-                    kv_len=tensor_from_numpy(cache_np.kv_len, device)
-                    .to(torch.int32))
+def cache_from_numpy(cache_np, device: Device = None,
+                     cfg: Optional[ModelConfig] = None) -> lm.Cache:
+    """The port's ``Cache`` from the reference's decode ``Cache`` (numpy
+    leaves): ``layer`` and ``cross`` per pattern position, each leaf stacked
+    over the periods, and ``kv_len`` (B,). Without ``cfg`` the cache is a
+    dense model's (``layer`` = ((k, v),)); with it, every pattern: the
+    self-attention K/V restacked in layer order, the recurrent states and
+    cross K/V into ``state``."""
+    kv_len = tensor_from_numpy(cache_np.kv_len, device).to(torch.int32)
+    if cfg is None:
+        (k, v), = cache_np.layer
+        return lm.Cache(k=tensor_from_numpy(k, device),
+                        v=tensor_from_numpy(v, device), kv_len=kv_len)
+    P = len(cfg.pattern)
+    ks, vs = [], []
+    state = {}
+    for li, layer in enumerate(lm.layout(cfg)):
+        pos, period = li % P, li // P
+        if layer.attn >= 0:
+            ks.append(np.asarray(cache_np.layer[pos][0])[period])
+            vs.append(np.asarray(cache_np.layer[pos][1])[period])
+        if layer.group:
+            src = (cache_np.cross if layer.group == "cross"
+                   else cache_np.layer)[pos]
+            for key, leaf in zip(lm.STATE_KEYS[layer.group], src):
+                state.setdefault(key, []).append(np.asarray(leaf)[period])
+    if ks:
+        k = tensor_from_numpy(np.stack(ks), device)
+        v = tensor_from_numpy(np.stack(vs), device)
+    else:   # no self-attention: the empty stack (its Smax is moot)
+        k = v = lm.make_cache(cfg, int(kv_len.shape[0]), 1, device).k
+    return lm.Cache(k=k, v=v, kv_len=kv_len, state={
+        key: tensor_from_numpy(np.stack(leaves), device)
+        for key, leaves in state.items()})
 
 
 def paged_cache_from(ref_cache) -> PagedKVCache:

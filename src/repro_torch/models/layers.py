@@ -1,13 +1,14 @@
-"""Core layer math of the dense LM: the counterpart of the dense subset of
-``repro.models.layers``.
+"""Core layer math: the counterpart of ``repro.models.layers``.
 
 Parameters live in the ``nn.Module``s of ``models/lm.py``; these are plain
 functions on tensors. Dense weights keep the reference's (d_in, d_out)
 layout, so ``x @ w`` is its ``einsum("bsd,de->bse")``. As in the reference,
 norms, rope, softmax and the unembedding run in f32 and the projections in
-the model's dtype. Attention goes through ``kernels.ops``: the plain
+the model's dtype. Self-attention goes through ``kernels.ops``: the plain
 version for CPU tensors, the hand-written kernel for CUDA tensors.
-Sharding constraints and cross-attention are not ported yet.
+Cross-attention over cached encoder / patch K/V is plain torch on both, as
+the reference computes it outside its kernels (``_xla_attention`` with
+``causal=False``), casts included. Sharding constraints are not ported.
 """
 from __future__ import annotations
 
@@ -190,11 +191,70 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# cross-attention (whisper decoder, llama-3.2-vision)
+# ---------------------------------------------------------------------------
+
+def _plain_attention(q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+    """Non-causal GQA over (B, S, H, D) inputs, (B, Sq, Hq, D) out: the
+    reference's ``_xla_attention(causal=False)``, casts included (q scaled
+    in its own dtype, f32 scores and softmax, the weights rounded to v's
+    dtype before P·V, the result in q's dtype)."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qh = (q.transpose(1, 2) * D ** -0.5).reshape(B, Hkv, Hq // Hkv, Sq, D)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qh.to(torch.float32),
+                     k.transpose(1, 2).to(torch.float32))
+    w = torch.softmax(s, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", w.to(torch.float32),
+                       v.transpose(1, 2).to(torch.float32))
+    return out.reshape(B, Hq, Sq, D).transpose(1, 2).to(q.dtype)
+
+
+def cross_kv(p, cfg: ModelConfig, kv_x: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V, each (B, T, Hkv, D), from encoder output or
+    patch embeddings (B, T, d). bf16 patches into an f32 model are widened
+    first (exact), as JAX promotes them."""
+    B, T = kv_x.shape[:2]
+    kv_x = kv_x.to(p.wk.dtype)
+    k = (kv_x @ p.wk).reshape(B, T, cfg.n_kv_heads, cfg.hd)
+    v = (kv_x @ p.wv).reshape(B, T, cfg.n_kv_heads, cfg.hd)
+    if cfg.qk_norm:
+        k = rms_norm(p.knorm, k, cfg.norm_eps)
+    return k, v
+
+
+def cross_attention_cached(p, cfg: ModelConfig, x: torch.Tensor,
+                           kv: Tuple[torch.Tensor, torch.Tensor]
+                           ) -> torch.Tensor:
+    """x (B, S, d) attends all of the cached (k, v), each (B, T, Hkv, D);
+    no rope. Returns (B, S, d)."""
+    B, S = x.shape[:2]
+    q = (x @ p.wq).reshape(B, S, cfg.n_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = rms_norm(p.qnorm, q, cfg.norm_eps)
+    out = _plain_attention(q, *kv)
+    return out.reshape(B, S, cfg.q_dim) @ p.wo
+
+
+# ---------------------------------------------------------------------------
 # FFN
 # ---------------------------------------------------------------------------
 
-def ffn_apply(p, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU of the ``models.lm.FFN`` ``p``, SiLU computed in f32. (The
-    reference's GELU MLP serves whisper only, which is not ported.)"""
-    g = F.silu((x @ p.wg).to(torch.float32)).to(x.dtype)
-    return (g * (x @ p.wi)) @ p.wo
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation (torch's default
+    is the exact erf form)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def ffn_apply(p, x: torch.Tensor, activation: str = "swiglu"
+              ) -> torch.Tensor:
+    """The ``models.lm.FFN`` ``p``: SwiGLU, or the GELU MLP (whisper), the
+    activation computed in f32."""
+    h = x @ p.wi
+    if activation == "swiglu":
+        h = F.silu((x @ p.wg).to(torch.float32)).to(x.dtype) * h
+    else:
+        h = gelu(h.to(torch.float32)).to(x.dtype)
+    return h @ p.wo

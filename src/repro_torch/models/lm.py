@@ -1,59 +1,111 @@
-"""The dense language model: the counterpart of ``repro.models.lm`` for the
-``(("attn", "dense"),)`` pattern.
+"""The language-model zoo: the counterpart of ``repro.models.lm``, one LM
+for every block pattern of the config (dense / MoE / SSM / xLSTM / hybrid /
+encoder-decoder / VLM).
 
 The reference keeps parameters in a pytree stacked over periods and scans
 over them; here each layer is an ``nn.Module`` in a ``ModuleList`` and the
-forward passes are Python loops over layers. Shapes, initial scales and
-dtypes are the reference's (f32 norm gains, weights in the config's dtype),
-and ``convert.lm_params_from_numpy`` carries a reference ``lm.init`` pytree
-over exactly.
+passes are Python loops over layers. Shapes, initial scales and dtypes are
+the reference's, and ``convert.lm_params_from_numpy`` carries a reference
+``lm.init`` pytree over exactly (each module's ``REF`` names its leaves).
 
 Public entry points:
     init(cfg, generator, device)                     -> LM
-    train_logits(model, cfg, tokens)                 -> (B, S, vocab) f32
-    prefill(model, cfg, tokens, max_seq, length)     -> (last logits, Cache)
+    train_logits(model, cfg, tokens, frames, patches)
+                                                     -> (B, S, vocab) f32
+    prefill(model, cfg, tokens, max_seq, length, frames, patches)
+                                                     -> (last logits, Cache)
     prefill_extend(model, cfg, tokens, prefix, max_seq, prefix_len, length)
                                                      -> (last logits, Cache)
     make_cache(cfg, batch, max_seq, device)          -> empty Cache
     decode_step(model, cfg, token, cache)            -> (logits, Cache)
 
-Any other block pattern raises ``NotImplementedError``: MoE, SSM, xLSTM and
-the cross-attention families are ROADMAP Queue 1 item 12.
+``frames`` (audio: (B, T, d) stub-frontend embeddings through the encoder)
+and ``patches`` (vlm: (B, T, d) patch embeddings) feed cross-attention; they
+are bf16 or the model's dtype. An unknown mixer raises ``ValueError``, as
+in the reference.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import NamedTuple, Optional, Tuple
+from types import MappingProxyType
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from .._device import Device, resolve
 from . import layers as L
+from . import moe as M
+from . import ssm as S
+from . import xlstm as X
 from .config import ModelConfig
 
-DENSE = (("attn", "dense"),)
+SELF_ATTN = ("attn", "attn_bidir", "attn_cross")
+#: the Cache.state leaves of each state group, in the order the mixers
+#: return them; each leaf is stacked over the group's layers: (n, B, ...)
+STATE_KEYS = {"mamba": ("mamba.h", "mamba.conv"),
+              "mlstm": ("mlstm.C", "mlstm.n", "mlstm.m"),
+              "slstm": ("slstm.c", "slstm.n", "slstm.h", "slstm.m"),
+              "cross": ("cross.k", "cross.v")}
+_EMPTY: Mapping[str, torch.Tensor] = MappingProxyType({})
 
 
 class Cache(NamedTuple):
-    """Decode state. ``k`` and ``v`` are stacked over layers,
-    (n_layers, B, Smax, Hkv, D), as the reference stacks them over periods;
-    ``kv_len`` (B,) int32 is each row's fill. ``decode_step`` writes into
-    ``k`` and ``v`` in place. (The reference's shared ``pos`` cursor is not
-    kept: no dense path reads it.)"""
+    """Decode state. ``k`` and ``v`` are stacked over the self-attention
+    layers, (n_attn, B, Smax, Hkv, D): for a dense model every layer, as the
+    reference stacks them over periods; ``kv_len`` (B,) int32 is each row's
+    fill. ``state`` holds the rest, each leaf stacked over its group's
+    layers with the batch on dim 1 like ``k``: the Mamba state (h (n, B,
+    di, ds) f32, conv window (n, B, d_conv - 1, di)), the mLSTM state (C
+    (n, B, H, Dh, Dh), n, m, f32), the sLSTM state (c, n, h, m, each (n, B,
+    H, dh) f32) and the cross-attention K/V ((n, B, T, Hkv, D)), under the
+    keys of ``STATE_KEYS``. ``decode_step`` writes into ``k``, ``v`` and the
+    recurrent state in place. (The reference's shared ``pos`` cursor is not
+    kept: no path reads it.)"""
     k: torch.Tensor
     v: torch.Tensor
     kv_len: torch.Tensor
+    state: Mapping[str, torch.Tensor] = _EMPTY
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    if (tuple(cfg.pattern) != DENSE or cfg.family in ("audio", "vlm")
-            or cfg.activation != "swiglu"):
-        raise NotImplementedError(
-            f"{cfg.name}: pattern {cfg.pattern} ({cfg.family}, "
-            f"{cfg.activation}) is not ported; the port runs dense SwiGLU "
-            f"{DENSE} models (the others are ROADMAP Queue 1 item 12)")
+class Layer(NamedTuple):
+    mixer: str
+    ffn: str
+    attn: int     # index into Cache.k / v, or -1
+    group: str    # STATE_KEYS group of the layer's state ("" for none)
+    slot: int     # index within that group's stack, or -1
 
+
+@functools.lru_cache(maxsize=None)
+def layout(cfg: ModelConfig) -> Tuple[Layer, ...]:
+    """Each layer's mixer, ffn and places in the Cache."""
+    counts: Dict[str, int] = {"attn": 0}
+    out = []
+    for li in range(cfg.n_layers):
+        mixer, ffn = cfg.block_at(li)
+        ai = -1
+        if mixer in SELF_ATTN:
+            ai = counts["attn"]
+            counts["attn"] += 1
+        group = ("cross" if mixer in ("cross", "attn_cross") else
+                 mixer if mixer in ("mamba", "mlstm", "slstm") else "")
+        slot = -1
+        if group:
+            slot = counts.get(group, 0)
+            counts[group] = slot + 1
+        out.append(Layer(mixer, ffn, ai, group, slot))
+    return tuple(out)
+
+
+def n_attn(cfg: ModelConfig) -> int:
+    """Self-attention layers of the decoder (the K/V cache's depth)."""
+    return sum(layer.attn >= 0 for layer in layout(cfg))
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
 
 def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
@@ -61,14 +113,31 @@ def _param(shape, dtype, device) -> nn.Parameter:
 
 
 class Norm(nn.Module):
-    def __init__(self, cfg: ModelConfig, d: int, device):
+    REF = {"g": ("g",), "b": ("b",)}
+
+    def __init__(self, d: int, layernorm: bool, device):
         super().__init__()
         self.g = _param((d,), torch.float32, device)
-        self.b = (_param((d,), torch.float32, device)
-                  if cfg.norm == "layernorm" else None)
+        self.b = _param((d,), torch.float32, device) if layernorm else None
+
+    def reset_constants(self) -> None:
+        self.g.fill_(1.0)
+        if self.b is not None:
+            self.b.zero_()
+
+
+def _norm(cfg: ModelConfig, device) -> Norm:
+    return Norm(cfg.d_model, cfg.norm == "layernorm", device)
 
 
 class Attention(nn.Module):
+    """Self- or cross-attention projections (the reference's
+    ``attn_init``, the same for both)."""
+    RANDOM = ("wq", "wk", "wv", "wo")
+    REF = {"wq": ("wq", "w"), "wk": ("wk", "w"), "wv": ("wv", "w"),
+           "wo": ("wo", "w"), "qnorm": ("qnorm", "g"),
+           "knorm": ("knorm", "g")}
+
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         dt, d = L.dtype_of(cfg), cfg.d_model
@@ -81,40 +150,182 @@ class Attention(nn.Module):
         self.knorm = (_param((cfg.hd,), torch.float32, device)
                       if cfg.qk_norm else None)
 
+    def reset_constants(self) -> None:
+        for g in (self.qnorm, self.knorm):
+            if g is not None:
+                g.fill_(1.0)
+
 
 class FFN(nn.Module):
+    """SwiGLU (``wg`` the gate), or the GELU MLP (no ``wg``)."""
+    RANDOM = ("wi", "wg", "wo")
+    REF = {"wi": ("wi", "w"), "wg": ("wg", "w"), "wo": ("wo", "w")}
+
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         dt, d, ff = L.dtype_of(cfg), cfg.d_model, cfg.d_ff
         self.wi = _param((d, ff), dt, device)
-        self.wg = _param((d, ff), dt, device)
+        self.wg = (_param((d, ff), dt, device)
+                   if cfg.activation == "swiglu" else None)
         self.wo = _param((ff, d), dt, device)
 
 
-class Block(nn.Module):
+class MoE(nn.Module):
+    """The router (d, E) in f32 and the experts' stacked SwiGLU weights."""
+    RANDOM = ("router", "wi", "wg", "wo")
+    REF = {"router": ("router", "w"), "wi": ("wi", "w"), "wg": ("wg", "w"),
+           "wo": ("wo", "w")}
+
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
-        self.norm1 = Norm(cfg, cfg.d_model, device)
-        self.mixer = Attention(cfg, device)
-        self.norm2 = Norm(cfg, cfg.d_model, device)
-        self.ffn = FFN(cfg, device)
+        m = cfg.moe
+        dt, d, ff, E = L.dtype_of(cfg), cfg.d_model, m.d_ff, m.n_experts
+        self.router = _param((d, E), torch.float32, device)
+        self.wi = _param((E, d, ff), dt, device)
+        self.wg = _param((E, d, ff), dt, device)
+        self.wo = _param((E, ff, d), dt, device)
+
+
+class Mamba(nn.Module):
+    RANDOM = ("in_proj", "conv_w", "x_proj", "dt_proj_w", "out_proj")
+    REF = {"in_proj": ("in_proj", "w"), "conv_w": ("conv", "w"),
+           "conv_b": ("conv", "b"), "x_proj": ("x_proj", "w"),
+           "dt_proj_w": ("dt_proj", "w"), "dt_proj_b": ("dt_proj", "b"),
+           "A_log": ("A_log",), "D": ("D",), "out_proj": ("out_proj", "w")}
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        s, dt, d = cfg.ssm, L.dtype_of(cfg), cfg.d_model
+        di, dr = S.d_inner(cfg), S.dt_rank(cfg)
+        f32 = torch.float32
+        self.in_proj = _param((d, 2 * di), dt, device)
+        self.conv_w = _param((s.d_conv, di), dt, device)
+        self.conv_b = _param((di,), f32, device)
+        self.x_proj = _param((di, dr + 2 * s.d_state), dt, device)
+        self.dt_proj_w = _param((dr, di), dt, device)
+        self.dt_proj_b = _param((di,), f32, device)
+        self.A_log = _param((di, s.d_state), f32, device)
+        self.D = _param((di,), f32, device)
+        self.out_proj = _param((di, d), dt, device)
+
+    def reset_constants(self) -> None:
+        """S4D-real A, Δt bias softplus⁻¹(0.01), D = 1, as the reference."""
+        self.conv_b.zero_()
+        self.dt_proj_b.fill_(-4.6)
+        ds = self.A_log.shape[1]
+        a = torch.arange(1, ds + 1, dtype=torch.float32,
+                         device=self.A_log.device)
+        self.A_log.copy_(torch.log(a)[None, :].expand_as(self.A_log))
+        self.D.fill_(1.0)
+
+
+class MLSTM(nn.Module):
+    RANDOM = ("up", "wq", "wk", "wv", "wi", "wf", "down")
+    REF = {"up": ("up", "w"), "wq": ("wq", "w"), "wk": ("wk", "w"),
+           "wv": ("wv", "w"), "wi": ("wi", "w"), "wf": ("wf", "w"),
+           "norm": ("norm", "g"), "down": ("down", "w")}
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        dt, d, H = L.dtype_of(cfg), cfg.d_model, cfg.n_heads
+        di, dh = X.m_dims(cfg)
+        self.up = _param((d, 2 * di), dt, device)
+        self.wq = _param((H, dh, dh), dt, device)    # block-diagonal
+        self.wk = _param((H, dh, dh), dt, device)
+        self.wv = _param((H, dh, dh), dt, device)
+        self.wi = _param((di, H), torch.float32, device)
+        self.wf = _param((di, H), torch.float32, device)
+        self.norm = _param((di,), torch.float32, device)
+        self.down = _param((di, d), dt, device)
+
+    def reset_constants(self) -> None:
+        self.norm.fill_(1.0)
+
+
+class SLSTM(nn.Module):
+    RANDOM = ("wx", "rz", "ri", "rf", "ro", "ff_up", "ff_down")
+    REF = {"wx": ("wx", "w"), "rz": ("rz",), "ri": ("ri",), "rf": ("rf",),
+           "ro": ("ro",), "norm": ("norm", "g"), "ff_up": ("ff_up", "w"),
+           "ff_down": ("ff_down", "w")}
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        dt = L.dtype_of(cfg)
+        d, dh = X.s_dims(cfg)
+        H = cfg.n_kv_heads
+        dff = int(cfg.xlstm.proj_factor_s * d)
+        self.wx = _param((d, 4 * d), dt, device)     # z, i, f, o pre-acts
+        for name in ("rz", "ri", "rf", "ro"):
+            setattr(self, name, _param((H, dh, dh), torch.float32, device))
+        self.norm = _param((d,), torch.float32, device)
+        self.ff_up = _param((d, dff), dt, device)
+        self.ff_down = _param((dff, d), dt, device)
+
+    def reset_constants(self) -> None:
+        self.norm.fill_(1.0)
+
+
+_MIXER_MODULES = {"attn": Attention, "attn_bidir": Attention,
+                  "attn_cross": Attention, "cross": Attention,
+                  "mamba": Mamba, "mlstm": MLSTM, "slstm": SLSTM}
+
+
+class Block(nn.Module):
+    """One (mixer, ffn) layer: ``norm1`` + ``mixer``; for ``attn_cross``
+    also ``mixer2`` (cross-attention) after ``norm1b``; ``norm2`` + ``ffn``
+    unless the ffn is "none"."""
+
+    def __init__(self, cfg: ModelConfig, mixer: str, ffn: str, device):
+        super().__init__()
+        if mixer not in _MIXER_MODULES:
+            raise ValueError(mixer)
+        self.norm1 = _norm(cfg, device)
+        self.mixer = _MIXER_MODULES[mixer](cfg, device)
+        self.mixer2 = (Attention(cfg, device) if mixer == "attn_cross"
+                       else None)
+        self.norm1b = _norm(cfg, device) if mixer == "attn_cross" else None
+        if ffn == "none":
+            self.norm2 = self.ffn = None
+        else:
+            self.norm2 = _norm(cfg, device)
+            self.ffn = (MoE if ffn == "moe" else FFN)(cfg, device)
+
+
+class Encoder(nn.Module):
+    """The whisper encoder over stub-frontend frames: positions, a stack of
+    (attn_bidir, dense) blocks and a final LayerNorm."""
+    RANDOM = ("pos",)
+    SCALES = {"pos": 0.02}
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        enc = cfg.encoder
+        self.pos = _param((enc.n_frames, cfg.d_model), L.dtype_of(cfg),
+                          device)
+        self.blocks = nn.ModuleList(
+            Block(cfg, "attn_bidir", "dense", device)
+            for _ in range(enc.n_layers))
+        self.final_norm = Norm(cfg.d_model, True, device)
 
 
 class LM(nn.Module):
-    """Parameters of a dense LM, allocated uninitialized on ``device``
-    (fill them with ``init`` or ``convert.lm_params_from_numpy``)."""
+    """Parameters of an LM, allocated uninitialized on ``device`` (fill
+    them with ``init`` or ``convert.lm_params_from_numpy``)."""
+    RANDOM = ("embed", "head")
+    SCALES = {"embed": 0.02, "head": 0.02}
 
     def __init__(self, cfg: ModelConfig, device: Device = None):
         super().__init__()
-        check_dense(cfg)
         dev = resolve(device)
         dt = L.dtype_of(cfg)
         self.embed = _param((cfg.vocab, cfg.d_model), dt, dev)
         self.head = (None if cfg.tie_embeddings
                      else _param((cfg.vocab, cfg.d_model), dt, dev))
-        self.final_norm = Norm(cfg, cfg.d_model, dev)
-        self.blocks = nn.ModuleList(Block(cfg, dev)
-                                    for _ in range(cfg.n_layers))
+        self.final_norm = _norm(cfg, dev)
+        self.blocks = nn.ModuleList(Block(cfg, layer.mixer, layer.ffn, dev)
+                                    for layer in layout(cfg))
+        self.encoder = (Encoder(cfg, dev) if cfg.encoder is not None
+                        else None)
 
     @property
     def device(self) -> torch.device:
@@ -130,103 +341,234 @@ class LM(nn.Module):
 
 def init(cfg: ModelConfig, generator: torch.Generator,
          device: Device = None) -> LM:
-    """Random weights with the reference's scales: normal · 1/sqrt(d_in)
-    for dense weights, normal · 0.02 for the embedding and the head, ones
-    (and zeros) for norms. Draws are made in f32 on the generator's device,
-    then cast and moved; the same generator state gives the same model."""
+    """Random weights with the reference's scales: normal / sqrt(d_in) for
+    weights (d_in the next-to-last dim: (d_in, d_out) matrices, (E, d_in,
+    d_out) experts, (H, dh, dh) head blocks), normal · 0.02 for the
+    embedding, the head and the encoder's positions; norms ones (and
+    zeros), and the Mamba constants. Draws are made in f32 on the
+    generator's device, one leading index at a time for stacked weights,
+    then cast; the same generator state gives the same model."""
     model = LM(cfg, device)
 
-    def fill(p: Optional[torch.Tensor], scale: float) -> None:
-        if p is None:
-            return
-        x = torch.randn(p.shape, generator=generator, dtype=torch.float32,
-                        device=generator.device)
-        p.copy_((x * scale).to(p.dtype))
+    def fill(p: torch.Tensor, scale: float) -> None:
+        for part in (p if p.dim() >= 3 else (p,)):
+            x = torch.randn(part.shape, generator=generator,
+                            dtype=torch.float32, device=generator.device)
+            part.copy_((x * scale).to(part.dtype))
 
-    fill(model.embed, 0.02)
-    fill(model.head, 0.02)
-    for norm in model.modules():
-        if isinstance(norm, Norm):
-            norm.g.fill_(1.0)
-            if norm.b is not None:
-                norm.b.zero_()
-    for blk in model.blocks:
-        a, f = blk.mixer, blk.ffn
-        for w in (a.wq, a.wk, a.wv, a.wo, f.wi, f.wg, f.wo):
-            fill(w, 1.0 / math.sqrt(w.shape[0]))
-        for g in (a.qnorm, a.knorm):
-            if g is not None:
-                g.fill_(1.0)
+    for mod in model.modules():
+        scales = getattr(mod, "SCALES", {})
+        for name in getattr(mod, "RANDOM", ()):
+            p = getattr(mod, name)
+            if p is not None:
+                fill(p, scales.get(name, 1.0 / math.sqrt(p.shape[-2])))
+        if hasattr(mod, "reset_constants"):
+            mod.reset_constants()
     return model
 
 
 # ---------------------------------------------------------------------------
-# forward passes
+# layers
 # ---------------------------------------------------------------------------
+
+def _ffn(blk: Block, cfg: ModelConfig, ffn: str,
+         x: torch.Tensor) -> torch.Tensor:
+    if ffn == "dense":
+        return x + L.ffn_apply(blk.ffn, L.apply_norm(cfg, blk.norm2, x),
+                               cfg.activation)
+    if ffn == "moe":
+        return x + M.moe_apply(blk.ffn, cfg,
+                               L.apply_norm(cfg, blk.norm2, x))[0]
+    return x
+
+
+_FULL = {"mamba": S.mamba_forward, "mlstm": X.mlstm_forward,
+         "slstm": X.slstm_forward}
+_STEP = {"mamba": S.mamba_decode, "mlstm": X.mlstm_forward,
+         "slstm": X.slstm_forward}
+
+
+def _state(cache: Cache, layer: Layer) -> Tuple[torch.Tensor, ...]:
+    """Views of one layer's state in ``cache``."""
+    return tuple(cache.state[k][layer.slot]
+                 for k in STATE_KEYS[layer.group])
+
+
+def _put_state(cache: Cache, layer: Layer, values) -> None:
+    for dst, src in zip(_state(cache, layer), values):
+        dst.copy_(src)
+
+
+def _forward(cfg: ModelConfig, blocks, layers, x: torch.Tensor,
+             positions: torch.Tensor, cross_x: Optional[torch.Tensor],
+             cache: Optional[Cache] = None) -> torch.Tensor:
+    """The full-sequence pass of ``blocks`` (``layers`` their layout) over
+    x (B, S, d). With ``cache``, each layer's K/V (at positions 0..S-1),
+    cross K/V and final recurrent state are written into it."""
+    for blk, layer in zip(blocks, layers):
+        mixer = layer.mixer
+        h = L.apply_norm(cfg, blk.norm1, x)
+        if mixer in SELF_ATTN:
+            if cache is not None:
+                y, (k, v) = L.attention_prefill_cache(blk.mixer, cfg, h,
+                                                      positions)
+                cache.k[layer.attn, :, :k.shape[1]] = k
+                cache.v[layer.attn, :, :v.shape[1]] = v
+            else:
+                y = L.attention(blk.mixer, cfg, h, positions=positions,
+                                causal=mixer != "attn_bidir")
+            x = x + y
+            if mixer == "attn_cross":
+                kv = L.cross_kv(blk.mixer2, cfg, cross_x)
+                x = x + L.cross_attention_cached(
+                    blk.mixer2, cfg, L.apply_norm(cfg, blk.norm1b, x), kv)
+                if cache is not None:
+                    _put_state(cache, layer, kv)
+        elif mixer == "cross":
+            kv = L.cross_kv(blk.mixer, cfg, cross_x)
+            x = x + L.cross_attention_cached(blk.mixer, cfg, h, kv)
+            if cache is not None:
+                _put_state(cache, layer, kv)
+        else:
+            y, st = _FULL[mixer](blk.mixer, cfg, h)
+            x = x + y
+            if cache is not None:
+                _put_state(cache, layer, st)
+        x = _ffn(blk, cfg, layer.ffn, x)
+    return x
+
+
+def _encode(model: LM, cfg: ModelConfig, frames: torch.Tensor):
+    """The whisper encoder over stub-frontend frames (B, T, d)."""
+    enc = model.encoder
+    T = frames.shape[1]
+    x = frames + enc.pos[None, :T]
+    positions = torch.arange(T, device=frames.device)[None]
+    layers = (Layer("attn_bidir", "dense", -1, "", -1),) * len(enc.blocks)
+    x = _forward(cfg, enc.blocks, layers, x, positions, None)
+    return L.layer_norm(enc.final_norm.g, enc.final_norm.b, x, cfg.norm_eps)
+
+
+def _cross_input(model: LM, cfg: ModelConfig,
+                 frames: Optional[torch.Tensor],
+                 patches: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """What cross-attention reads: the encoder's output over ``frames``
+    (audio), the ``patches`` (vlm), or None."""
+    if cfg.family not in ("audio", "vlm"):
+        return None
+    name, t = (("frames", frames) if cfg.family == "audio"
+               else ("patches", patches))
+    if t is None:
+        raise ValueError(f"{cfg.name} ({cfg.family}) needs {name}")
+    if t.dtype not in (torch.bfloat16, L.dtype_of(cfg)):
+        raise ValueError(f"{name} must be bfloat16 or {L.dtype_of(cfg)}, "
+                         f"got {t.dtype}")
+    return _encode(model, cfg, t) if cfg.family == "audio" else t
+
 
 def _final_logits(model: LM, cfg: ModelConfig, x: torch.Tensor):
     return L.unembed(model.head_table(), L.apply_norm(cfg, model.final_norm,
                                                       x))
 
 
-def _ffn(blk: Block, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    return x + L.ffn_apply(blk.ffn, L.apply_norm(cfg, blk.norm2, x))
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
 
-
-def train_logits(model: LM, cfg: ModelConfig,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    """(B, S) tokens -> (B, S, vocab) f32 logits, causal. Forward only."""
-    check_dense(cfg)
+def train_logits(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
+                 frames: Optional[torch.Tensor] = None,
+                 patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, S) tokens -> (B, S, vocab) f32 logits, causal. Forward only (the
+    MoE aux loss is not returned)."""
     x = L.embed(model.embed, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
-    for blk in model.blocks:
-        x = x + L.attention(blk.mixer, cfg, L.apply_norm(cfg, blk.norm1, x),
-                            positions=positions, causal=True)
-        x = _ffn(blk, cfg, x)
+    cross_x = _cross_input(model, cfg, frames, patches)
+    x = _forward(cfg, model.blocks, layout(cfg), x, positions,
+                 cross_x)
     return _final_logits(model, cfg, x)
 
 
 def make_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
                device: Device = None,
-               kv_len: Optional[torch.Tensor] = None) -> Cache:
-    """An empty decode cache (zeros), with ``kv_len`` marking the fill."""
-    check_dense(cfg)
+               kv_len: Optional[torch.Tensor] = None,
+               cross_tokens: Optional[int] = None) -> Cache:
+    """An empty decode cache (zeros; the stabilizers at the reference's
+    -1e30), with ``kv_len`` marking the fill; cross K/V hold
+    ``cross_tokens`` (default ``cfg.cross_kv_tokens``) positions."""
     dev = resolve(device)
-    shp = (cfg.n_layers, batch_size, max_seq, cfg.n_kv_heads, cfg.hd)
     dt = L.dtype_of(cfg)
+    B = batch_size
+    shp = (n_attn(cfg), B, max_seq, cfg.n_kv_heads, cfg.hd)
+    sizes = group_sizes(cfg)
+    init = {"mamba": lambda: S.init_state(cfg, B, dt, dev),
+            "mlstm": lambda: X.init_mlstm_state(cfg, B, dev),
+            "slstm": lambda: X.init_slstm_state(cfg, B, dev)}
+    state: Dict[str, torch.Tensor] = {}
+    for group, n in sizes.items():
+        if group == "cross":
+            T = cross_tokens or cfg.cross_kv_tokens
+            one = torch.zeros((B, T, cfg.n_kv_heads, cfg.hd), dtype=dt,
+                              device=dev)
+            leaves = (one, one)
+        else:
+            leaves = init[group]()
+        for key, t in zip(STATE_KEYS[group], leaves):
+            state[key] = t[None].repeat((n,) + (1,) * t.dim())
     if kv_len is None:
-        kv_len = torch.zeros((batch_size,), dtype=torch.int32, device=dev)
+        kv_len = torch.zeros((B,), dtype=torch.int32, device=dev)
     return Cache(k=torch.zeros(shp, dtype=dt, device=dev),
                  v=torch.zeros(shp, dtype=dt, device=dev),
-                 kv_len=kv_len.to(device=dev, dtype=torch.int32))
+                 kv_len=kv_len.to(device=dev, dtype=torch.int32),
+                 state=state)
+
+
+def group_sizes(cfg: ModelConfig) -> Dict[str, int]:
+    """Layers per state group (``STATE_KEYS``) of the decoder."""
+    out: Dict[str, int] = {}
+    for layer in layout(cfg):
+        if layer.group:
+            out[layer.group] = out.get(layer.group, 0) + 1
+    return out
+
+
+def bucketable(cfg: ModelConfig) -> bool:
+    """Whether padding a prompt past its length is exact: for
+    pure-attention patterns without MoE only (a recurrent mixer integrates
+    padding into its state, and MoE capacity lets padding tokens displace
+    real ones from expert slots)."""
+    return all(m == "attn" and f != "moe" for m, f in cfg.pattern)
 
 
 def prefill(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
             max_seq: Optional[int] = None,
-            length: Optional[int] = None):
+            length: Optional[int] = None,
+            frames: Optional[torch.Tensor] = None,
+            patches: Optional[torch.Tensor] = None):
     """Run the prompt (B, S); return (last-token logits (B, vocab) f32,
-    Cache allocated at ``max_seq`` (default S) holding the prompt's K/V).
+    Cache allocated at ``max_seq`` (default S) holding the prompt's K/V,
+    cross K/V and recurrent state).
 
     ``length`` is **bucketed prefill**: the tokens may be padded past the
     real prompt, logits are read at row ``length - 1`` and ``kv_len`` marks
-    only the real prompt, so the padded tail cannot reach any output (causal
-    masking keeps rows independent in a dense model)."""
-    check_dense(cfg)
-    B, S = tokens.shape
-    max_seq = max_seq or S
-    if S > max_seq:
-        raise ValueError(f"prompt of {S} tokens exceeds max_seq {max_seq}")
-    fill = S if length is None else int(length)
+    only the real prompt, so the padded tail cannot reach any output —
+    exact for :func:`bucketable` patterns only, which alone may pad."""
+    B, Sq = tokens.shape
+    max_seq = max_seq or Sq
+    if Sq > max_seq:
+        raise ValueError(f"prompt of {Sq} tokens exceeds max_seq {max_seq}")
+    fill = Sq if length is None else int(length)
+    if fill != Sq and not bucketable(cfg):
+        raise ValueError(f"{cfg.name}: pattern {cfg.pattern} cannot pad a "
+                         f"prompt ({fill} tokens padded to {Sq})")
+    cross_x = _cross_input(model, cfg, frames, patches)
     cache = make_cache(cfg, B, max_seq, tokens.device,
-                       kv_len=torch.full((B,), fill, dtype=torch.int32))
+                       kv_len=torch.full((B,), fill, dtype=torch.int32),
+                       cross_tokens=(None if cross_x is None
+                                     else cross_x.shape[1]))
     x = L.embed(model.embed, tokens)
-    positions = torch.arange(S, device=tokens.device)[None]
-    for li, blk in enumerate(model.blocks):
-        y, (k, v) = L.attention_prefill_cache(
-            blk.mixer, cfg, L.apply_norm(cfg, blk.norm1, x), positions)
-        cache.k[li, :, :S] = k
-        cache.v[li, :, :S] = v
-        x = _ffn(blk, cfg, x + y)
+    positions = torch.arange(Sq, device=tokens.device)[None]
+    x = _forward(cfg, model.blocks, layout(cfg), x, positions,
+                 cross_x, cache)
     logits = _final_logits(model, cfg, x[:, fill - 1:fill])[:, 0]
     return logits, cache
 
@@ -242,15 +584,21 @@ def prefill_extend(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
     (n_layers, B, S_pre, Hkv, D): the cached whole-block prefix gathered by
     ``serving.kvcache.PagedKVStore``. Returns (last-token logits (B, vocab)
     f32, Cache at ``max_seq`` covering prefix + suffix), as ``prefill`` on
-    the concatenated prompt would up to rounding.
+    the concatenated prompt would up to rounding (for MoE, capacity counts
+    the suffix's tokens, as in the reference).
 
     **Bucketed mode** (``prefix_len`` given): the prefix buffer is padded
     past its ``prefix_len`` real rows and the suffix may be padded past its
     true length ``length``. The suffix's K/V is written at offset
     ``prefix_len`` of the max_seq cache (clamped to ``max_seq - S_new`` as
     JAX's ``dynamic_update_slice`` clamps), logits are read at row
-    ``length - 1``, and ``kv_len`` is ``prefix_len + length``."""
-    check_dense(cfg)
+    ``length - 1``, and ``kv_len`` is ``prefix_len + length``.
+
+    Pure-attention patterns only (every mixer "attn"): recurrent mixers
+    carry no position-sliceable prefix state."""
+    if not all(m == "attn" for m, _ in cfg.pattern):
+        raise ValueError(f"{cfg.name}: prefill_extend supports "
+                         f"pure-attention block patterns")
     B, Sn = tokens.shape
     k_pre, v_pre = prefix
     S_pre = k_pre.shape[2]
@@ -276,13 +624,13 @@ def prefill_extend(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
     at = min(start, max_seq - Sn)
     x = L.embed(model.embed, tokens)
     positions = (start + torch.arange(Sn, device=tokens.device))[None]
-    for li, blk in enumerate(model.blocks):
+    for li, (blk, layer) in enumerate(zip(model.blocks, layout(cfg))):
         y, (k, v) = L.attention_prefill_extend(
             blk.mixer, cfg, L.apply_norm(cfg, blk.norm1, x), positions,
             (k_pre[li], v_pre[li]), prefix_len=start if bucketed else None)
         cache.k[li, :, at:at + Sn] = k[:, -Sn:]
         cache.v[li, :, at:at + Sn] = v[:, -Sn:]
-        x = _ffn(blk, cfg, x + y)
+        x = _ffn(blk, cfg, layer.ffn, x + y)
     logits = _final_logits(model, cfg, x[:, last - 1:last])[:, 0]
     return logits, cache
 
@@ -291,13 +639,27 @@ def decode_step(model: LM, cfg: ModelConfig, token: torch.Tensor,
                 cache: Cache):
     """token: (B, 1) -> (logits (B, vocab) f32, Cache). Every row decodes,
     live or not, and every row's kv_len grows by one, as in the reference;
-    the K/V buffers are updated in place and returned in the new Cache."""
+    K/V and recurrent state are updated in place and returned in the new
+    Cache."""
     x = L.embed(model.embed, token)
-    for li, blk in enumerate(model.blocks):
-        x = x + L.attention_decode(blk.mixer, cfg,
-                                   L.apply_norm(cfg, blk.norm1, x),
-                                   (cache.k[li], cache.v[li]), cache.kv_len)
-        x = _ffn(blk, cfg, x)
+    for blk, layer in zip(model.blocks, layout(cfg)):
+        mixer = layer.mixer
+        h = L.apply_norm(cfg, blk.norm1, x)
+        if mixer in SELF_ATTN:
+            x = x + L.attention_decode(blk.mixer, cfg, h,
+                                       (cache.k[layer.attn],
+                                        cache.v[layer.attn]), cache.kv_len)
+            if mixer == "attn_cross":
+                x = x + L.cross_attention_cached(
+                    blk.mixer2, cfg, L.apply_norm(cfg, blk.norm1b, x),
+                    _state(cache, layer))
+        elif mixer == "cross":
+            x = x + L.cross_attention_cached(blk.mixer, cfg, h,
+                                             _state(cache, layer))
+        else:
+            y, st = _STEP[mixer](blk.mixer, cfg, h, _state(cache, layer))
+            _put_state(cache, layer, st)
+            x = x + y
+        x = _ffn(blk, cfg, layer.ffn, x)
     logits = _final_logits(model, cfg, x)[:, 0]
     return logits, cache._replace(kv_len=cache.kv_len + 1)
-

@@ -1,0 +1,184 @@
+"""xLSTM blocks (arXiv:2405.04517): the counterpart of
+``repro.models.xlstm``. mLSTM (matrix memory, chunkwise-parallel) and sLSTM
+(scalar memory, sequential), composing xlstm-1.3b's [7:1] pattern.
+
+mLSTM is the reference's chunkwise linear-attention form: within a chunk a
+(Lc, Lc) masked score matrix, across chunks a (B, H, Dh, Dh) state C, the
+normalizer n and the log-scale stabilizer m, carried by a loop over chunks.
+The running max of the stabilizer is ``torch.cummax`` (a max is exact in any
+order); the gate math is f32. Padding to a chunk multiple uses the
+reference's state-neutral steps (log f = 0, log i = -1e30: finite, so no
+``-inf - (-inf)`` can make a NaN). sLSTM keeps the sequential recurrence:
+one step a token, on the host's loop. Plain torch on both devices: the
+reference has no kernel here.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .layers import dtype_of, gelu, rms_norm
+
+#: log input gate of padding steps and the stabilizer's initial value
+NEG = -1e30
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+def m_dims(cfg: ModelConfig) -> Tuple[int, int]:
+    di = int(cfg.xlstm.proj_factor_m * cfg.d_model)
+    assert di % cfg.n_heads == 0
+    return di, di // cfg.n_heads
+
+
+def _mlstm_chunk(q, k, v, li, lf, state):
+    """One chunk. q/k/v: (B, H, Lc, Dh) f32; li/lf: (B, H, Lc) log gates.
+    state: (C (B,H,Dh,Dh), n (B,H,Dh), m (B,H)). Returns (h, new_state)."""
+    Lc, Dh = q.shape[2], q.shape[3]
+    C_prev, n_prev, m_prev = state
+    Fc = torch.cumsum(lf, dim=-1)                       # inclusive
+    # stabilizer: m_i = max(F_i + m_prev, max_{j<=i} (F_i - F_j + li_j))
+    g_run = torch.cummax(li - Fc, dim=-1).values
+    m = torch.maximum(Fc + g_run, Fc + m_prev[..., None])
+
+    qs = q * Dh ** -0.5
+    s = torch.einsum("bhid,bhjd->bhij", qs, k)          # (B, H, Lc, Lc)
+    decay = (Fc[..., :, None] - Fc[..., None, :] + li[..., None, :]
+             - m[..., :, None])
+    mask = torch.ones((Lc, Lc), dtype=torch.bool, device=q.device).tril()
+    s = s * torch.where(mask, torch.exp(decay), 0.0)
+
+    cross_scale = torch.exp(Fc + m_prev[..., None] - m)  # (B, H, Lc)
+    num = (torch.einsum("bhij,bhjd->bhid", s, v)
+           + torch.einsum("bhid,bhde->bhie", qs, C_prev)
+           * cross_scale[..., None])
+    den = (torch.sum(s, dim=-1)
+           + torch.einsum("bhid,bhd->bhi", qs, n_prev) * cross_scale)
+    h = num / torch.maximum(torch.abs(den), torch.exp(-m))[..., None]
+
+    # state update to chunk end
+    FL = Fc[..., -1:]                                   # (B, H, 1)
+    m_new = torch.maximum(m_prev + FL[..., 0],
+                          torch.amax(FL - Fc + li, dim=-1))
+    w = torch.exp(FL - Fc + li - m_new[..., None])      # (B, H, Lc)
+    decay_prev = torch.exp(m_prev + FL[..., 0] - m_new)
+    C_new = (C_prev * decay_prev[..., None, None]
+             + torch.einsum("bhj,bhjd,bhje->bhde", w, k, v))
+    n_new = (n_prev * decay_prev[..., None]
+             + torch.einsum("bhj,bhjd->bhd", w, k))
+    return h, (C_new, n_new, m_new)
+
+
+def mlstm_forward(p, cfg: ModelConfig, x: torch.Tensor, state=None):
+    """The ``models.lm.MLSTM`` ``p`` over x: (B, L, d) -> (y, state),
+    chunkwise over ``cfg.xlstm.chunk``; ``state`` (C, n, m) to continue
+    from, or None."""
+    B, L0, d = x.shape
+    chunk0 = min(cfg.xlstm.chunk, L0)
+    pad = (-L0) % chunk0
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+    L = x.shape[1]
+    di, dh = m_dims(cfg)
+    H = cfg.n_heads
+    xi, z = torch.chunk(x @ p.up, 2, dim=-1)
+    xh = xi.reshape(B, L, H, dh).to(torch.float32)
+
+    def heads(w):   # block-diagonal projection, f32 (accum_dot's CPU path)
+        return torch.einsum("blhd,hde->blhe", xh,
+                            w.to(torch.float32)).transpose(1, 2)
+
+    q, k, v = heads(p.wq), heads(p.wk), heads(p.wv)      # (B, H, L, dh)
+    xf = xi.to(torch.float32)
+    li = (xf @ p.wi).transpose(1, 2)                      # log input gate
+    lf = F.logsigmoid(xf @ p.wf).transpose(1, 2)
+    if pad:
+        valid = (torch.arange(L, device=x.device) < L0)[None, None, :]
+        li = torch.where(valid, li, NEG)   # no writes on pad steps
+        lf = torch.where(valid, lf, 0.0)   # no decay on pad steps
+
+    if state is None:
+        state = init_mlstm_state(cfg, B, x.device)
+    Lc = min(cfg.xlstm.chunk, L)
+    hs = []
+    for c0 in range(0, L, Lc):
+        c = slice(c0, c0 + Lc)
+        h, state = _mlstm_chunk(q[:, :, c], k[:, :, c], v[:, :, c],
+                                li[:, :, c], lf[:, :, c], state)
+        hs.append(h)
+    h = torch.cat(hs, dim=2).transpose(1, 2).reshape(B, L, di)
+    h = rms_norm(p.norm, h.to(dtype_of(cfg)), cfg.norm_eps)
+    y = h * F.silu(z.to(torch.float32)).to(h.dtype)
+    out = y @ p.down
+    if pad:
+        out = out[:, :L0]
+    return out, state
+
+
+def init_mlstm_state(cfg: ModelConfig, batch: int, device):
+    di, dh = m_dims(cfg)
+    H = cfg.n_heads
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.zeros((batch, H, dh, dh), **f32),
+            torch.zeros((batch, H, dh), **f32),
+            torch.full((batch, H), NEG, **f32))
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+def s_dims(cfg: ModelConfig) -> Tuple[int, int]:
+    H = cfg.n_kv_heads
+    assert cfg.d_model % H == 0
+    return cfg.d_model, cfg.d_model // H
+
+
+def slstm_forward(p, cfg: ModelConfig, x: torch.Tensor, state=None):
+    """The ``models.lm.SLSTM`` ``p``: a sequential scan over time, one
+    step a token. x: (B, L, d) -> (y, state (c, n, h, m))."""
+    B, L, d = x.shape
+    H = cfg.n_kv_heads
+    dh = d // H
+    pre = (x @ p.wx).to(torch.float32).reshape(B, L, 4, H, dh)
+    if state is None:
+        state = init_slstm_state(cfg, B, x.device)
+    c, n, h, m = state
+
+    def rec(R):
+        return torch.einsum("bhd,hde->bhe", h, R)
+
+    hs = []
+    for t in range(L):
+        pre_t = pre[:, t]
+        z_t = torch.tanh(pre_t[:, 0] + rec(p.rz))
+        i_t = pre_t[:, 1] + rec(p.ri)                    # log-space
+        f_t = F.logsigmoid(pre_t[:, 2] + rec(p.rf))
+        o_t = torch.sigmoid(pre_t[:, 3] + rec(p.ro))
+        m_new = torch.maximum(f_t + m, i_t)
+        i_e = torch.exp(i_t - m_new)
+        f_e = torch.exp(f_t + m - m_new)
+        c = f_e * c + i_e * z_t
+        n = f_e * n + i_e
+        h = o_t * c / torch.clamp(n, min=1.0)
+        m = m_new
+        hs.append(h)
+    y = torch.stack(hs, dim=1).reshape(B, L, d).to(x.dtype)
+    y = rms_norm(p.norm, y, cfg.norm_eps)
+    ff = y @ p.ff_up
+    ff = gelu(ff.to(torch.float32)).to(ff.dtype)
+    return ff @ p.ff_down, (c, n, h, m)
+
+
+def init_slstm_state(cfg: ModelConfig, batch: int, device):
+    d, dh = s_dims(cfg)
+    H = cfg.n_kv_heads
+    z = torch.zeros((batch, H, dh), dtype=torch.float32, device=device)
+    return (z, z.clone(), z.clone(),
+            torch.full((batch, H, dh), NEG, dtype=torch.float32,
+                       device=device))

@@ -1,10 +1,13 @@
 """Continuous-batching inference engine for one LLM instance: the
-counterpart of ``repro.serving.engine`` for a dense model.
+counterpart of ``repro.serving.engine``, for every model family of the
+config (dense, MoE, the Mamba hybrid, xLSTM, cross-attention vision and the
+whisper encoder-decoder).
 
 Orca-style iteration-level scheduling on a fixed slot pool:
 
 * ``submit`` queues a request; admission runs its prefill (padded to a
-  bucket length) and splices the K/V into a free slot of the batched cache;
+  bucket length where that is exact) and splices its K/V, recurrent state
+  and cross-attention K/V into a free slot of the batched cache;
 * ``step`` advances all active slots by one decode token, retiring slots
   that hit their budget or emit EOS and admitting queued requests into the
   freed slots; ``step_n`` runs up to ``n`` iterations on the device with one
@@ -33,9 +36,17 @@ engine's own tensors, or, once a fleet cohort adopts the engine
 (``_attach_fleet``), views of its rows of the cohort's batch
 (``serving.fleet``). The control plane never knows the difference.
 
-Not ported yet: decode over pool-resident pages (the paged decode kernel is
-ported, ``kernels.paged_attention``, but the engine decodes over its
-contiguous cache as the reference engine does) — ROADMAP Queue 1 item 11.
+**Families.** Padding a prompt to its bucket is exact only for
+pure-attention patterns without MoE (``lm.bucketable``): a recurrent mixer
+integrates padding into its state and MoE capacity lets padding tokens
+displace real ones, so other patterns prefill at the prompt's length. The
+paged prefix cache takes pure-attention patterns only (MoE FFNs included),
+as the reference's does. Audio and vision requests carry their stub
+frontend's embeddings in ``submit(extra={"frames": ...})`` /
+``{"patches": ...}``, (1, T, d), rounded to bf16 as the reference engine
+rounds them; zeros when absent. The engine decodes its contiguous cache,
+as the reference engine does: the paged decode kernel reads no engine's
+pool.
 """
 from __future__ import annotations
 
@@ -96,7 +107,6 @@ class LLMEngine:
 
     def __init__(self, cfg: ModelConfig, model: lm.LM, ecfg: EngineConfig,
                  device: Device = None):
-        lm.check_dense(cfg)
         self.device = resolve(device)
         if model.device != self.device:
             raise ValueError(f"model on {model.device}, engine on "
@@ -124,8 +134,8 @@ class LLMEngine:
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
         self.admissions = 0
-        # padding prompts is exact for the dense pattern (rows independent)
-        self._bucket_ok = ecfg.prefill_bucket > 0
+        # padding prompts is exact for pure-attention, non-MoE patterns
+        self._bucket_ok = ecfg.prefill_bucket > 0 and lm.bucketable(cfg)
         self.kv: Optional[PagedKVStore] = (
             PagedKVStore(cfg, ecfg.cache_blocks, ecfg.block_size,
                          self.device) if ecfg.prefix_cache else None)
@@ -171,10 +181,15 @@ class LLMEngine:
 
     # -- public API -----------------------------------------------------------
     def submit(self, request_id: int, tokens: np.ndarray,
-               max_new_tokens: Optional[int] = None) -> None:
+               max_new_tokens: Optional[int] = None,
+               extra: Optional[dict] = None) -> None:
+        """Queue a request. ``extra`` carries an audio request's "frames"
+        or a vision request's "patches", (1, T, d) with T the model's
+        cross-attention length (zeros when absent); other keys are
+        ignored, as in the reference."""
         self.queue.append((request_id, np.asarray(tokens, np.int32),
                            max_new_tokens or self.ecfg.max_new_tokens,
-                           self._steps))
+                           self._cross_input(extra or {}), self._steps))
         self._admit()
         self._sync_fleet_counters()
 
@@ -467,8 +482,9 @@ class LLMEngine:
                     if s.request_id is None]
             if not free:
                 break
-            request_id, tokens, budget, submit_step = self.queue.popleft()
-            self._prefill_into(free[0], request_id, tokens, budget,
+            request_id, tokens, budget, cross, submit_step = \
+                self.queue.popleft()
+            self._prefill_into(free[0], request_id, tokens, budget, cross,
                                submit_step)
         self._sync_fleet_counters()
 
@@ -476,6 +492,23 @@ class LLMEngine:
         """Smallest prefill-bucket multiple >= n, capped at max_seq."""
         b = self.ecfg.prefill_bucket
         return min(-(-n // b) * b, self.ecfg.max_seq)
+
+    def _cross_input(self, extra: dict) -> dict:
+        """The ``lm.prefill`` keyword of an audio / vision request: its
+        frames or patches on the engine's device in bf16, zeros when
+        absent. Empty for the other families."""
+        cfg = self.cfg
+        if cfg.family not in ("audio", "vlm"):
+            return {}
+        name = "frames" if cfg.family == "audio" else "patches"
+        shape = (1, cfg.cross_kv_tokens, cfg.d_model)
+        x = extra.get(name)
+        x = (torch.zeros(shape, device=self.device) if x is None
+             else torch.as_tensor(x))
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{cfg.name}: {name} must be {shape}, got "
+                             f"{tuple(x.shape)}")
+        return {name: x.to(device=self.device, dtype=torch.bfloat16)}
 
     def _tokens(self, toks: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.asarray(toks, np.int32)).to(
@@ -506,7 +539,8 @@ class LLMEngine:
         return new_ids
 
     def _prefill_into(self, slot: int, request_id: int, tokens: np.ndarray,
-                      budget: int, submit_step: int = 0) -> None:
+                      budget: int, cross: dict, submit_step: int = 0
+                      ) -> None:
         e = self.ecfg
         L = len(tokens)
         if L + budget > e.max_seq:
@@ -535,12 +569,12 @@ class LLMEngine:
                     self.model, self.cfg, self._tokens(suffix),
                     self.kv.gather(matched), max_seq=e.max_seq)
         else:
-            # pad the prompt to the bucket; logits are read at the true last
-            # row and kv_len masks the tail
+            # pad the prompt to the bucket where that is exact; logits are
+            # read at the true last row and kv_len masks the tail
             toks = self._padded(tokens) if self._bucket_ok else tokens
             logits, one = lm.prefill(self.model, self.cfg,
                                      self._tokens(toks), max_seq=e.max_seq,
-                                     length=L)
+                                     length=L, **cross)
         block_ids = matched
         if self.kv is not None:
             st = self.kv.cache.stats
@@ -552,9 +586,12 @@ class LLMEngine:
             # allocated again only to be dropped by commit()
             block_ids = matched + self._cache_fresh_blocks(
                 tokens, self.kv.cache.index.match(tokens), one)
-        # splice the single-request cache into the batch cache at `slot`
+        # splice the single-request cache into the batch cache at `slot`:
+        # K/V, recurrent state and cross K/V, every leaf batched on dim 1
         self.cache.k[:, slot] = one.k[:, 0]
         self.cache.v[:, slot] = one.v[:, 0]
+        for key, leaf in self.cache.state.items():
+            leaf[:, slot] = one.state[key][:, 0]
         self.cache.kv_len[slot] = L
         first = int(torch.argmax(logits[0]))
         self.prefill_seconds += time.perf_counter() - t0

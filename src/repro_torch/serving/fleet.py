@@ -5,9 +5,11 @@ A **cohort** is a set of engines sharing one ``(ModelConfig, EngineConfig,
 model)`` identity (``build_cohorts`` keys by the model object's identity).
 The reference stacks the members' device state on a leading member axis and
 ``vmap``s the decode chunk over it. Here the member axis is flattened into
-the batch: the cohort keeps ONE ``lm.Cache`` whose ``k`` and ``v`` are
-``(n_layers, members × max_slots, Smax, Hkv, D)`` and one next-token tensor
-``(members × max_slots, 1)``; member ``m`` owns rows ``[m·B, (m+1)·B)``.
+the batch: the cohort keeps ONE ``lm.Cache`` whose every leaf has the
+member axis flattened into its batch dim (``k`` and ``v`` ``(n_attn,
+members × max_slots, Smax, Hkv, D)``, likewise each recurrent-state and
+cross-K/V leaf of ``state``) and one next-token tensor ``(members ×
+max_slots, 1)``; member ``m`` owns rows ``[m·B, (m+1)·B)``.
 A cohort decode iteration is then one ``lm.decode_step`` over all rows: one
 GEMM per projection and one decode-kernel launch per layer for the whole
 cohort, not one per member.
@@ -32,7 +34,9 @@ dead in the chunk (no budget, not alive), and after it their ``kv_len`` and
 next tokens are put back. So a skipped member's ``kv_len``, next tokens and
 cache rows below its fill are unchanged by a dispatch: the chunk writes K/V
 only at a row's ``kv_len`` and beyond, which a later decode overwrites before
-it reads and an admission rewrites whole. The reference instead gathers the
+it reads and an admission rewrites whole. A recurrent state is overwritten
+by every decode, so the live rows of skipped members have their state
+copied aside before the chunk and put back after it. The reference instead gathers the
 participants' rows (padded to a power of two for its jit cache) and
 scatters them back; in torch that gather would copy every participant's
 cache each dispatch, and nothing recompiles for a new batch size.
@@ -40,7 +44,8 @@ cache each dispatch, and nothing recompiles for a new batch size.
 Exactness: a dispatch runs ``n_f = max`` over the participants' clipped
 chunk lengths, but each member commits only its own ``n_eff`` iterations;
 past its ``n_eff`` a member's rows are all dead, and every op is row
-independent for the dense pattern, so fleet stepping gives per-engine
+independent for the patterns ``LLMEngine.fleet_ok`` admits (no MoE
+capacity couples the rows), so fleet stepping gives per-engine
 ``step()`` / ``step_n()`` results exactly (up to the rounding a batch size
 may change in a matrix product).
 """
@@ -60,7 +65,7 @@ from .kvcache import FleetKVPools
 class FleetState(NamedTuple):
     """A cohort's device state, the member axis flattened into the batch."""
 
-    # k, v (n_layers, M*B, Smax, Hkv, D); kv_len (M*B,)
+    # every leaf batched on dim 1 over M*B rows; kv_len (M*B,)
     cache: lm.Cache
     next_token: torch.Tensor   # (M*B, 1) int32
 
@@ -105,10 +110,11 @@ class FleetMemberStore:
     def __init__(self, cohort: "Cohort", member: int):
         B = cohort.ecfg.max_slots
         rows = slice(member * B, (member + 1) * B)
-        st = cohort.state
-        self._cache = lm.Cache(k=st.cache.k[:, rows], v=st.cache.v[:, rows],
-                               kv_len=st.cache.kv_len[rows])
-        self._next = st.next_token[rows]
+        c = cohort.state.cache
+        self._cache = lm.Cache(
+            k=c.k[:, rows], v=c.v[:, rows], kv_len=c.kv_len[rows],
+            state={key: leaf[:, rows] for key, leaf in c.state.items()})
+        self._next = cohort.state.next_token[rows]
 
     @property
     def cache(self) -> lm.Cache:
@@ -116,9 +122,12 @@ class FleetMemberStore:
 
     @cache.setter
     def cache(self, value: lm.Cache) -> None:
-        for mine, new in zip(self._cache, value):
-            if new is not mine:
-                mine.copy_(new)
+        mine, new = self._cache, value
+        pairs = [(mine.k, new.k), (mine.v, new.v), (mine.kv_len, new.kv_len)]
+        pairs += [(mine.state[key], new.state[key]) for key in mine.state]
+        for dst, src in pairs:
+            if src is not dst:
+                dst.copy_(src)
 
     @property
     def next_token(self) -> torch.Tensor:
@@ -202,9 +211,12 @@ class Cohort:
         M = len(self.members)
         caches = [e.cache for e in self.members]
         self.state = FleetState(
-            cache=lm.Cache(k=torch.cat([c.k for c in caches], dim=1),
-                           v=torch.cat([c.v for c in caches], dim=1),
-                           kv_len=torch.cat([c.kv_len for c in caches])),
+            cache=lm.Cache(
+                k=torch.cat([c.k for c in caches], dim=1),
+                v=torch.cat([c.v for c in caches], dim=1),
+                kv_len=torch.cat([c.kv_len for c in caches]),
+                state={key: torch.cat([c.state[key] for c in caches], dim=1)
+                       for key in caches[0].state}),
             next_token=torch.cat([e._next_token for e in self.members]))
         del caches
         self.kv_pools = None
@@ -258,13 +270,25 @@ class Cohort:
         dev = self.device
         st = self.state
         t0 = time.perf_counter()
+        # the recurrent state of skipped members' live rows, put back below
+        kept = [m * B + i for m in range(M) if m not in n_eff
+                for i, s in enumerate(self.members[m].slots)
+                if s.request_id is not None]
+        saved = {}
+        if kept:
+            idx = torch.tensor(kept, dtype=torch.int64, device=dev)
+            saved = {key: leaf.index_select(1, idx)
+                     for key, leaf in st.cache.state.items()
+                     if not key.startswith("cross.")}
         tok, cache, outs = decode_chunk_body(
             self.model, self.cfg, st.next_token, st.cache,
             torch.from_numpy(budgets.reshape(-1)).to(dev),
             torch.from_numpy(alive.reshape(-1)).to(dev), n_f,
             self.ecfg.eos_token)
-        # K/V were written in place; lengths and next tokens advance for the
-        # participants' rows only
+        for key, leaf in saved.items():
+            st.cache.state[key].index_copy_(1, idx, leaf)
+        # K/V and state were written in place; lengths and next tokens
+        # advance for the participants' rows only
         rows = torch.from_numpy(part_rows.reshape(-1)).to(dev)
         st.cache.kv_len.copy_(torch.where(rows, cache.kv_len,
                                           st.cache.kv_len))

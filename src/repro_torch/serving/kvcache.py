@@ -281,10 +281,17 @@ class PagedKVStore:
     head_dim)`` in the model's dtype on ``device``: one pool per layer
     stack, as the reference keeps one per pattern position of its dense
     pattern. Every transfer is one indexed read or write per pool, never one
-    per block."""
+    per block. Pure-attention patterns only (MoE FFNs included), as in the
+    reference: recurrent state and cross-attention K/V are per slot, not
+    per prefix position."""
 
     def __init__(self, cfg: ModelConfig, n_blocks: int, block_size: int,
                  device: Device = None):
+        if (not all(m == "attn" for m, _ in cfg.pattern)
+                or cfg.encoder is not None or cfg.family in ("audio", "vlm")):
+            raise ValueError(f"{cfg.name}: paged KV supports pure-attention "
+                             f"block patterns, not {cfg.pattern} "
+                             f"({cfg.family})")
         self.cfg = cfg
         self.device = resolve(device)
         self.cache = PagedKVCache(n_blocks, block_size)

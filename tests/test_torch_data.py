@@ -1,6 +1,7 @@
 """Parity of the port's host data with the JAX package's: the trace, the
-cluster arrays and the evaluator tables must be bit-equal, and the
-converters must carry them across unchanged."""
+cluster arrays and the evaluator tables must be bit-equal, the converters
+must carry them across unchanged, and the config copies must equal the
+reference's."""
 import dataclasses
 import functools
 
@@ -15,6 +16,7 @@ from repro.workload.trace import build_trace as ref_build_trace
 from repro_torch import convert
 from repro_torch.cluster.spec import ClusterArrays, paper_testbed
 from repro_torch.core import baselines
+from repro_torch.configs import ARCHS
 from repro_torch.core.fitness import EvalTables, build_tables
 from repro_torch.workload.trace import build_trace
 
@@ -131,3 +133,30 @@ def test_open_loop_trace_from_requests_bit_equal():
     assert closed.group_id is None and closed.arrival_time is None
     with pytest.raises(AssertionError):
         trace_from_requests(mine, arrival_time=times[::-1])
+
+
+@pytest.mark.parametrize("module", ARCHS)
+def test_config_copies_equal_the_reference(module):
+    """All ten config modules: ``config()`` and ``smoke()`` equal the
+    reference's field by field (sub-configs included), with the same
+    derived sizes, blocks, parameter accounting and FLOPs; the registry's
+    ids and aliases are the reference's."""
+    from repro.configs import ALIASES as REF_ALIASES
+    from repro.configs import ARCHS as REF_ARCHS
+    from repro.configs import all_ids as ref_all_ids
+    from repro.configs import get as ref_get
+    from repro_torch.configs import ALIASES, all_ids, get
+    assert ARCHS == REF_ARCHS and ALIASES == REF_ALIASES
+    assert all_ids() == ref_all_ids()
+    for fn in ("config", "smoke"):
+        a = getattr(get(module), fn)()
+        b = getattr(ref_get(module), fn)()
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+        assert a.param_counts() == b.param_counts()
+        assert (a.model_flops_per_token(False)
+                == b.model_flops_per_token(False))
+        assert (a.hd, a.q_dim, a.kv_dim, a.n_periods) == \
+            (b.hd, b.q_dim, b.kv_dim, b.n_periods)
+        assert [a.block_at(i) for i in range(a.n_layers)] == \
+            [b.block_at(i) for i in range(b.n_layers)]
+    assert get(module).NAME == ref_get(module).NAME

@@ -57,7 +57,10 @@ def test_port_modules_import_no_jax_at_runtime():
             "repro_torch.workload.sessions, repro_torch.models.lm, "
             "repro_torch.kernels.paged_attention, repro_torch.obs, "
             "repro_torch.serving.scheduler, repro_torch.serving.fleet, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.models.moe, "
+            "repro_torch.models.ssm, repro_torch.models.xlstm\n"
+            "from repro_torch.configs import ARCHS, get\n"
+            "[get(a) for a in ARCHS]\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -114,6 +117,24 @@ def test_entry_points_require_cuda_without_an_explicit_device(monkeypatch):
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+
+
+def test_family_entry_points_require_cuda(monkeypatch):
+    """Every family's model, cache and engine resolve the card unless the
+    CPU is asked for."""
+    from repro_torch.configs import all_ids
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in all_ids():
+        cfg = get(name).smoke()
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            lm.LM(cfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            lm.make_cache(cfg, 1, 8)
+        model = lm.LM(cfg, "cpu")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            LLMEngine(cfg, model, EngineConfig())
+        assert LLMEngine(cfg, model, EngineConfig(),
+                         device="cpu").device.type == "cpu"
 
 
 def _launches():

@@ -77,7 +77,7 @@ def test_configs_match_the_reference():
             assert a.hd == b.hd and a.q_dim == b.q_dim
     assert get("qwen3_1p7b") is get("qwen3-1.7b")
     with pytest.raises(KeyError):
-        get("dbrx-132b")
+        get("no-such-arch")
 
 
 def test_init_shapes_dtypes_and_scales_match_lm_init():
@@ -98,10 +98,22 @@ def test_init_shapes_dtypes_and_scales_match_lm_init():
 
 
 def test_non_dense_patterns_raise():
-    cfg = dataclasses.replace(get("qwen3-1.7b").smoke(),
-                              pattern=(("mamba", "none"),))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        lm.LM(cfg, "cpu")
+    """Every mixer of the reference builds (``tests/test_torch_families.py``
+    holds them); an unknown one raises ``ValueError``, as the reference's
+    ``_block_init`` does. The config's own check is stepped past, since it
+    asserts on an unknown mixer before either model sees it."""
+    for c in (get("qwen3-1.7b").smoke(), ref_get("qwen3-1.7b").smoke()):
+        object.__setattr__(c, "pattern", (("rnn", "dense"),))
+        if c.__module__.startswith("repro_torch"):
+            with pytest.raises(ValueError, match="rnn"):
+                lm.LM(c, "cpu")
+        else:
+            with pytest.raises(ValueError, match="rnn"):
+                rlm._block_init(jax.random.key(0), c, "rnn", "dense")
+    lm.LM(dataclasses.replace(get("qwen3-1.7b").smoke(),
+                              pattern=(("mamba", "none"),),
+                              family="ssm", ssm=get("jamba-v0.1-52b")
+                              .smoke().ssm), "cpu")
 
 
 @pytest.mark.parametrize("name,dtype", CASES)
