@@ -7,9 +7,9 @@ Builds the port's CUDA kernels from the sources in this checkout and runs
 the port's paths on the card, the routing loop, the serving engine and its
 prefix reuse on session traffic, the runtime router's rolling-horizon
 re-fit on open-loop SLO traffic, the whole policy registry on the policy
-matrix, the cluster server end to end, and every non-dense model family
-in the serving engine, in phases that each print one JSON line (run in the
-order 1-5, 9, 13, 14, 6, 10, 7, 8, 11, 12, 15, 16):
+matrix, the cluster server end to end, every non-dense model family in the
+serving engine, and training, in phases that each print one JSON line (run
+in the order 1-5, 9, 13, 14, 6, 10, 7, 8, 11, 12, 15, 16, 17):
 
 1. card: ``nvidia-smi`` name and power limit, torch/CUDA versions, build time;
 2. kernels: the dominance kernel against its plain PyTorch version on the
@@ -163,9 +163,40 @@ order 1-5, 9, 13, 14, 6, 10, 7, 8, 11, 12, 15, 16):
    5 and 6 (hd 128) and whisper's 6 heads of 64 (flash non-causal at S
    1,500 and 1,504), timed beside SDPA and their bounds.
 
+17. train: the flash backward kernels (``csrc/flash_attention_bwd.cu``)
+   against autograd of the plain version, f32 within 1e-4 and bf16 within
+   2e-2 of each gradient's max|g| (exactly 0 where that is 0), over the
+   training heads (B 4, 16 / 8 heads of 128), D 64 / 80 / 128, groups 1,
+   2, 4, 5, 6, S in {1, 17, 64, 127, 128, 129, 512}, causal and not, and
+   whisper's non-causal S 1,504 at D 64; the forward's lse against the
+   plain log-sum-exp and its output bits unchanged by writing it; inputs
+   past S of +-999 and NaN leaving every gradient bit for bit unchanged;
+   two calls bit-equal; unaligned bf16 views refused. Then qwen3-1.7b at
+   its published widths (2.03 B parameters, random bf16 weights from a
+   seed) trains through ``repro_torch.launch.train.run_train`` for 4 steps
+   at TrainConfig's defaults (seq 128, global batch 8) in 2 microbatches,
+   adamw, remat: finite loss, nll and gnorm each step, launches held exact
+   for each step (flash forward 28 layers x 2 microbatches x 2, the
+   forward and the remat recompute; backward 28 x 2 x its 2 kernels),
+   decode, paged and dominance never; step wall time, tokens/s, peak
+   memory and step 2 profiled (idle share, top device ops). Then one
+   trainer step at the full width and 2 layers in f32 on 2 x 64 tokens on
+   the card and on the CPU from the same parameters (loss within 1e-5
+   relative; the gradients, through each leaf's moments m = 0.1 g and v =
+   0.05 g^2, within 1e-4 of the leaf's max; the card's parameters equal
+   to adamw's step from the card's m and v recomputed on the CPU, within
+   1e-4 x max|delta p| plus f32's spacing; the card's parameters against
+   the CPU's reported: adamw's sign-like first step g / (|g| + eps)
+   amplifies last-bit differences of g near eps); crash and resume at 2 layers in bf16 (4 steps straight; 2 steps
+   and a checkpoint under build/, restored bit for bit; a fresh trainer
+   resumes to step 4 within 1e-3 relative of the straight run's losses;
+   bytes, save and restore seconds); last, in a fresh process, the
+   backward and forward + backward timed at the training shape beside the
+   plain version, SDPA's forward + backward and the bound.
+
 Phase 6 also holds the flash kernel's prefix-extend variant against its
 plain version (bucketed and exact-length, garbage and NaN past prefix_len).
-Then the ``{"kernels": [...]}`` line (all five kernels) and, last, the
+Then the ``{"kernels": [...]}`` line (all six kernels) and, last, the
 ``{"ok": true, ...}`` line. Any failure raises and exits non-zero. Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero before
 printing anything.
@@ -233,6 +264,19 @@ FAMILY_FLASH = ((40, 8, 128, 64, True), (40, 8, 128, 131, True),
                 (6, 6, 64, 1504, False), (6, 6, 64, 1500, False),
                 (6, 6, 64, 97, True))
 FAMILY_DECODE_HEADS = ((40, 8, 128), (48, 8, 128), (6, 6, 64))
+# phase 17: qwen3-1.7b trained at TrainConfig's defaults (seq 128, global
+# batch 8) in 2 microbatches, adamw, remat, 4 steps; step 2 profiled
+TRAIN_MODEL = "qwen3-1.7b"
+TRAIN_RUN = dict(seq_len=128, global_batch=8, microbatches=2, steps=4)
+TRAIN_PROFILED_STEP = 2
+# the backward kernel against its plain version: gradients within this
+# times max|g| of each of dq, dk, dv
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+BWD_S = (1, 17, 64, 127, 128, 129, 512)
+# (B, Hq, Hkv, D): the training heads; D 64 / 80 / 128 at group 2; groups
+# 1, 2, 4, 5, 6 at D 128
+BWD_HEADS = ((4, 16, 8, 128),) + tuple((1, 4, 2, d) for d in (64, 80)) + \
+    tuple((1, 2 * g, 2, 128) for g in (1, 2, 4, 5, 6))
 
 
 def emit(obj):
@@ -554,7 +598,7 @@ def zero_launches():
                                      flash_attention, paged_attention)
     dominance.LAUNCHES = dominance.COUNTS_LAUNCHES = 0
     flash_attention.LAUNCHES = decode_attention.LAUNCHES = 0
-    paged_attention.LAUNCHES = 0
+    flash_attention.BWD_LAUNCHES = paged_attention.LAUNCHES = 0
 
 
 def launch_counts(**expected):
@@ -565,6 +609,7 @@ def launch_counts(**expected):
     got = {"dominance_matrix": dominance.LAUNCHES,
            "dominance_counts": dominance.COUNTS_LAUNCHES,
            "flash_attention": flash_attention.LAUNCHES,
+           "flash_attention_backward": flash_attention.BWD_LAUNCHES,
            "gqa_decode_attention": decode_attention.LAUNCHES,
            "paged_gqa_decode_attention": paged_attention.LAUNCHES}
     want = {k: expected.get(k, 0) for k in got}
@@ -1741,7 +1786,7 @@ def phase_serve_check(run, model):
         diverged += 1
         j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
         seq = list(cpu.prompts[rid]) + b[:j]
-        row = lm.train_logits(cpu_model, cfg2, torch.tensor([seq]))[0, -1]
+        row = lm.train_logits(cpu_model, cfg2, torch.tensor([seq]))[0][0, -1]
         top2 = row.topk(2).values
         gap = float(top2[0] - top2[1]) / float(row.abs().max())
         ties.append({"request": rid, "position": j, "cpu_top2_gap": gap})
@@ -1877,7 +1922,7 @@ def _teacher_forced(model, cfg, run):
         L = len(run.prompts[rid])
         seq = list(run.prompts[rid]) + toks[:-1]
         logits = lm.train_logits(model, cfg, torch.tensor(
-            [seq], device="cuda"))[0, L - 1:]
+            [seq], device="cuda"))[0][0, L - 1:]
         for j, t in enumerate(toks):
             ok, rel = _near_tie_ok(logits[j], t)
             assert ok, (rid, j, rel)
@@ -1971,7 +2016,7 @@ def phase_serve_sessions(model, cfg):
         j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
         seq = list(plain.prompts[rid]) + b[:j]
         row = lm.train_logits(model, cfg, torch.tensor(
-            [seq], device="cuda"))[0, -1]
+            [seq], device="cuda"))[0][0, -1]
         top2 = row.topk(2).values
         gap = float(top2[0] - top2[1]) / float(row.abs().max())
         parts.append({"request": rid, "position": j, "top2_gap": gap})
@@ -2129,7 +2174,7 @@ def _cluster_teacher_forced(run):
         prompt = srv._tokenize(run.trace.requests[rid], e.cfg.vocab)
         seq = list(prompt) + r["tokens"][:-1]
         logits = lm.train_logits(e.model, e.cfg, torch.tensor(
-            [seq], device="cuda"))[0, len(prompt) - 1:]
+            [seq], device="cuda"))[0][0, len(prompt) - 1:]
         for j, t in enumerate(r["tokens"]):
             ok, rel = _near_tie_ok(logits[j], t)
             assert ok, (rid, j, rel)
@@ -2206,7 +2251,7 @@ def _parting(e, prompt, ta, tb, **key):
     from repro_torch.models import lm
     j = next(i for i, (x, y) in enumerate(zip(ta, tb)) if x != y)
     row = lm.train_logits(e.model, e.cfg, torch.tensor(
-        [list(prompt) + list(ta[:j])], device="cuda"))[0, -1]
+        [list(prompt) + list(ta[:j])], device="cuda"))[0][0, -1]
     for t in (ta[j], tb[j]):
         ok, rel = _near_tie_ok(row, t)
         assert ok, ("token streams part away from a near-tie", key, j, t,
@@ -2571,9 +2616,9 @@ def _family_full(model, cfg, seq, cross):
     """``train_logits`` over ``seq`` (B = 1) and its routing."""
     import torch
     from repro_torch.models import lm
-    logits, rec = _moe_routing(lm.train_logits, model, cfg,
-                               torch.tensor([list(seq)], device="cuda"),
-                               **cross)
+    (logits, _), rec = _moe_routing(lm.train_logits, model, cfg,
+                                    torch.tensor([list(seq)], device="cuda"),
+                                    **cross)
     return logits[0], rec
 
 
@@ -2940,6 +2985,497 @@ def phase_families():
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 17: training
+# ---------------------------------------------------------------------------
+
+def _bwd_inputs(B, Hq, Hkv, D, S, dt, gen, pad=0, junk=0.0):
+    """q, k, v and dO in the model's layout ((B, S, H, D) buffers viewed as
+    (B, H, S, D)); with ``pad``, each the first S rows of a buffer of S +
+    pad rows whose rows past S hold ``junk`` (sign alternating)."""
+    import torch
+    out = []
+    for i, h in enumerate((Hq, Hkv, Hkv, Hq)):
+        x = torch.randn((B, S, h, D), generator=gen).to(dt)
+        buf = torch.full((B, S + pad, h, D), junk if i % 2 else -junk,
+                         dtype=dt)
+        buf[:, :S] = x
+        out.append(buf.cuda()[:, :S].transpose(1, 2))
+    return out
+
+
+def _bwd_errors(got, want, dname, case):
+    """Each gradient within BWD_TOL x max|g| of the plain version's (exactly
+    0 where the plain gradient is 0); returns (max abs err, max err over
+    max|g|)."""
+    import torch
+    worst_abs = worst_rel = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, (name, case)
+        assert torch.isfinite(g).all(), (name, case)
+        err = _err(g, w)
+        scale = float(w.float().abs().max())
+        if scale == 0:
+            assert err == 0, (name, case, err)
+            continue
+        assert err <= BWD_TOL[dname] * scale, (name, case, err, scale)
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel,
+                                                         err / scale)
+    return worst_abs, worst_rel
+
+
+def check_flash_backward():
+    """The backward kernels against autograd of the plain version
+    (``ref.flash_attention_backward_ref``) over BWD_HEADS x BWD_S, causal
+    and not, f32 and bf16, and whisper's non-causal S 1,504 at D 64; the
+    forward's lse against the plain log-sum-exp and its output bits equal
+    to the call without lse; inputs past S filled with +-999 and NaN leave
+    every gradient bit for bit unchanged; two calls give the same bits;
+    unaligned bf16 views raise."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator().manual_seed(17)
+    shapes = [(B, Hq, Hkv, D, S, c) for B, Hq, Hkv, D in BWD_HEADS
+              for S in BWD_S for c in (True, False)]
+    shapes.append((1, 6, 6, 64, 1504, False))
+    n, errs, rel, lse_err = 0, {k: 0.0 for k in TOL}, {k: 0.0 for k in TOL}, 0.0
+    for dname, dt in _dtypes().items():
+        for B, Hq, Hkv, D, S, causal in shapes:
+            case = (dname, B, Hq, Hkv, D, S, causal)
+            q, k, v, do = _bwd_inputs(B, Hq, Hkv, D, S, dt, gen)
+            out, lse = fa.flash_attention_lse_cuda(q, k, v, causal)
+            got = fa.flash_attention_backward_cuda(q, k, v, out, lse, do,
+                                                   causal)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_backward_ref(q, k, v, out, do, causal)
+            a, r = _bwd_errors(got, want, dname, case)
+            errs[dname], rel[dname] = max(errs[dname], a), max(rel[dname], r)
+            assert torch.equal(out, fa.flash_attention_cuda(q, k, v, causal))
+            G = Hq // Hkv
+            sc = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()
+                              .repeat_interleave(G, 1)) * D ** -0.5
+            if causal:
+                sc = sc.masked_fill(~torch.ones(
+                    S, S, dtype=torch.bool, device="cuda").tril(),
+                    float("-inf"))
+            lse_err = max(lse_err, _err(lse, torch.logsumexp(sc, -1)))
+            n += 1
+    assert lse_err < 1e-4, lse_err
+    # junk past S, and the same bits twice
+    for dname, dt in _dtypes().items():
+        for S, causal in ((127, True), (129, False)):
+            clean = _bwd_inputs(2, 8, 2, 128, S, dt,
+                                torch.Generator().manual_seed(S))
+            base = None
+            for junk in (0.0, 999.0, float("nan")):
+                q, k, v, do = _bwd_inputs(2, 8, 2, 128, S, dt,
+                                          torch.Generator().manual_seed(S),
+                                          pad=31, junk=junk)
+                assert all(torch.equal(a, b) for a, b in zip(
+                    (q, k, v, do), clean))
+                out, lse = fa.flash_attention_lse_cuda(q, k, v, causal)
+                g = fa.flash_attention_backward_cuda(q, k, v, out, lse, do,
+                                                     causal)
+                g2 = fa.flash_attention_backward_cuda(q, k, v, out, lse, do,
+                                                      causal)
+                assert all(torch.equal(a, b) for a, b in zip(g, g2)), \
+                    ("two calls", dname, S)
+                if base is None:
+                    base = g
+                assert all(torch.equal(a, b) for a, b in zip(g, base)), \
+                    ("junk past S", junk, dname, S)
+                n += 1
+    # unaligned bf16 views: through the autograd path and the wrapper
+    x = torch.randn((1, 2 * 16 * 64 + 1), device="cuda").to(torch.bfloat16)
+    bad = x[:, 1:].view(1, 16, 2, 64).transpose(1, 2).requires_grad_(True)
+    ok = torch.randn((1, 16, 2, 64), device="cuda").to(
+        torch.bfloat16).transpose(1, 2)
+    for call in (lambda: ops.flash_attention(bad, ok, ok),
+                 lambda: fa.flash_attention_backward_cuda(
+                     bad, ok, ok, ok, torch.zeros((1, 2, 16), device="cuda"),
+                     ok, True)):
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError("an unaligned bf16 view was accepted")
+    return {"cases": n, "max_abs_err": errs, "max_err_over_max_g": rel,
+            "lse_max_abs_err": lse_err}
+
+
+def flash_backward_timing(B=4, Hq=16, Hkv=8, D=128, S=128):
+    """At the training shape (bf16, causal, the projections' layout): the
+    forward + backward through ``ops.flash_attention``'s autograd path and
+    the backward alone, each as device time (profiler), wrapper time (CUDA
+    events), the plain version's time, the bound and SDPA's forward +
+    backward."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator().manual_seed(5)
+    q, k, v, do = _bwd_inputs(B, Hq, Hkv, D, S, torch.bfloat16, gen)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out, lse = fa.flash_attention_lse_cuda(q, k, v, True)
+
+    def fwd_bwd():
+        o = ops.flash_attention(*leaves, causal=True)
+        return torch.autograd.grad(o, leaves, do)
+
+    def bwd():
+        return fa.flash_attention_backward_cuda(q, k, v, out, lse, do, True)
+
+    def plain_fwd_bwd():
+        o = ref.mha_prefill(*leaves, causal=True)
+        return torch.autograd.grad(o, leaves, do)
+
+    def plain_bwd():
+        return ref.flash_attention_backward_ref(q, k, v, out, do, True)
+
+    def library():
+        o = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                           enable_gqa=True)
+        return torch.autograd.grad(o, leaves, do)
+
+    pairs = S * (S + 1) // 2
+    e = 2  # bytes of bf16
+    qb, kb = B * Hq * S * D * e, B * Hkv * S * D * e
+    lse_b = B * Hq * S * 4
+    fwd_ops = 4 * B * Hq * pairs * D
+    # the backward alone: q, k, v, o, dO, lse in; dq, dk, dv out
+    bwd_bytes = 3 * qb + 2 * kb + lse_b + qb + 2 * kb
+    bwd_ops = 10 * B * Hq * pairs * D
+    # forward + backward: q, k, v, dO in; o, dq, dk, dv out
+    fb_bytes = 2 * qb + 2 * kb + qb + qb + 2 * kb
+    fb_ops = fwd_ops + bwd_ops
+
+    def bound(nbytes, n_ops):
+        tb, to = nbytes / HBM_BYTES_PER_S, n_ops / BF16_OPS_PER_S
+        return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+
+    # the autograd path (forward with lse, then the backward kernels)
+    # against the plain version before anything is timed
+    err, rel = _bwd_errors(fwd_bwd(), ref.flash_attention_backward_ref(
+        q, k, v, out, do, True), "bfloat16", "training shape, autograd")
+    out_row = {"shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "D": D, "S": S,
+                         "causal": True, "dtype": "bfloat16"},
+               "autograd_max_abs_err": err, "autograd_err_over_max_g": rel}
+    for name, fn, plain, nbytes, n_ops in (
+            ("backward", bwd, plain_bwd, bwd_bytes, bwd_ops),
+            ("forward_backward", fwd_bwd, plain_fwd_bwd, fb_bytes, fb_ops)):
+        b_ms, b_by = bound(nbytes, n_ops)
+        out_row[name] = {"ms": time_ms(fn), "device_ms": device_total_ms(fn),
+                         "plain_ms": time_ms(plain), "bound_ms": b_ms,
+                         "bound_by": b_by, "bytes": nbytes, "ops": n_ops}
+    got = fwd_bwd()
+    try:
+        want = library()
+    except (TypeError, RuntimeError) as err:   # SDPA without enable_gqa
+        out_row["library_ms"], out_row["library_error"] = None, repr(err)[:200]
+        return out_row
+    for a, b in zip(want, got):
+        torch.testing.assert_close(a, b, atol=2e-2, rtol=2e-2)
+    out_row["library_ms"] = time_ms(library)
+    out_row["library_device_ms"] = device_total_ms(library)
+    return out_row
+
+
+class _TrainProbe:
+    """``Trainer.run``'s callback (every step logged): the host time between
+    steps, the kernel launches of each step, the metrics, and a profiler
+    window over step ``profiled`` (started when step ``profiled - 1``
+    reports, stopped when ``profiled`` does: the window holds that step)."""
+
+    def __init__(self, profiled=None):
+        self.t = time.perf_counter()
+        self.walls, self.launches, self.metrics = [], [], []
+        self.profiled, self.prof, self.prof_wall = profiled, None, None
+        self._counts = self._now()
+
+    @staticmethod
+    def _now():
+        from repro_torch.kernels import (decode_attention, dominance,
+                                         flash_attention, paged_attention)
+        return {"flash_attention": flash_attention.LAUNCHES,
+                "flash_attention_backward": flash_attention.BWD_LAUNCHES,
+                "gqa_decode_attention": decode_attention.LAUNCHES,
+                "paged_gqa_decode_attention": paged_attention.LAUNCHES,
+                "dominance_matrix": dominance.LAUNCHES,
+                "dominance_counts": dominance.COUNTS_LAUNCHES}
+
+    def __call__(self, step, m):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.walls.append(now - self.t)
+        counts = self._now()
+        self.launches.append({k: counts[k] - self._counts[k]
+                              for k in counts})
+        self._counts = counts
+        self.metrics.append(m)
+        if self.prof is not None and step == self.profiled:
+            self.prof.stop()
+            self.prof_wall = now - self.t
+        if self.profiled is not None and step == self.profiled - 1:
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.start()
+        self.t = time.perf_counter()
+
+    def profile_row(self):
+        if self.prof is None or self.prof_wall is None:
+            return None
+        by_name, n = Counter(), 0
+        for ev in self.prof.events():
+            if ev.device_type.name == "CUDA":
+                by_name[ev.name[:60]] += ev.time_range.elapsed_us()
+                n += 1
+        busy = sum(by_name.values()) / 1e6 if n else None
+        return {"step": self.profiled, "wall_s": self.prof_wall,
+                "device_busy_s": busy,
+                "idle_share": _idle(busy, self.prof_wall),
+                "device_events": n, "top_device_us": by_name.most_common(8)}
+
+
+def _train_cfg(n_layers=None, dtype=None):
+    from repro_torch.configs import get
+    cfg = get(TRAIN_MODEL).config()
+    kw = {k: v for k, v in (("n_layers", n_layers), ("dtype", dtype))
+          if v is not None}
+    return dataclasses.replace(cfg, **kw) if kw else cfg
+
+
+def _free_cuda():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_main_path():
+    """qwen3-1.7b at its published widths through ``run_train``: 4 steps of
+    TRAIN_RUN, launches held exact for each step, step 2 profiled."""
+    import torch
+    from repro_torch.launch.train import run_train
+    cfg = _train_cfg()
+    from repro_torch.kernels import flash_attention as fa
+    per_step = {"flash_attention": cfg.n_layers * TRAIN_RUN["microbatches"]
+                * 2,
+                "flash_attention_backward": cfg.n_layers
+                * TRAIN_RUN["microbatches"] * fa.BWD_KERNELS}
+    _free_cuda()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    probe = _TrainProbe(profiled=TRAIN_PROFILED_STEP)
+    t0 = time.perf_counter()
+    hist = run_train(TRAIN_MODEL, cfg=cfg, device="cuda", resume=False,
+                     log_every=1, callback=probe, **TRAIN_RUN)
+    wall = time.perf_counter() - t0
+    launches = launch_counts(**{k: v * TRAIN_RUN["steps"]
+                                for k, v in per_step.items()})
+    for i, got in enumerate(probe.launches):
+        want = {k: per_step.get(k, 0) for k in got}
+        assert got == want, (i, got, want)
+    for m in hist:
+        for key in ("loss", "nll", "gnorm"):
+            assert math.isfinite(m[key]), (m["step"], key, m[key])
+    steady = [w for i, w in enumerate(probe.walls)
+              if i not in (0, TRAIN_PROFILED_STEP)]
+    step_s = statistics.median(steady)
+    tokens = TRAIN_RUN["seq_len"] * TRAIN_RUN["global_batch"]
+    return {"model": cfg.name, "layers": cfg.n_layers,
+            "params": cfg.param_counts()["total"], "train": TRAIN_RUN,
+            "optimizer": "adamw (optimizer_for_arch)", "remat": "full",
+            "launches": launches, "launches_per_step": per_step,
+            "losses": [m["loss"] for m in hist],
+            "nll": [m["nll"] for m in hist],
+            "gnorm": [m["gnorm"] for m in hist],
+            "step_walls_s": probe.walls, "step_wall_s": step_s,
+            "tokens_per_s": tokens / step_s, "wall_s": wall,
+            "profiled_step": probe.profile_row(),
+            "memory_before_gb": before_gb,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def train_card_vs_cpu():
+    """One trainer step at the full width and 2 layers in f32 on a batch of
+    2 x 64 tokens, on the card and on the CPU from the same parameters.
+    Held: the loss within 1e-5 relative; the gradients, through each
+    leaf's moments after the step (m = 0.1 g and v = 0.05 g^2 of the
+    clipped f32 gradient g), within 1e-4 of the leaf's max; and each
+    parameter the card wrote equal to adamw's step from the initial one
+    with the card's own m and v, recomputed on the CPU, within 1e-4 x
+    max|delta p| of its leaf plus the spacing of f32 at the parameter.
+    Reported, not held: the card's parameters against the CPU run's, whose
+    worst ratio to max|delta p| is large where |g| is near adamw's eps
+    (its first step g / (|g| + eps) is sign-like, so a last-bit
+    difference of g there moves the parameter by a good part of lr)."""
+    import copy
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.training.trainer import TrainConfig, Trainer
+    cfg = _train_cfg(n_layers=2, dtype="float32")
+    tcfg = TrainConfig(seq_len=64, global_batch=2, steps=1, log_every=1,
+                       optimizer="adamw")
+    opt = tcfg.opt
+    cpu = lm.init(cfg, torch.Generator().manual_seed(3), "cpu")
+    p0 = {k: p.detach().clone() for k, p in cpu.named_parameters()}
+    card = copy.deepcopy(cpu).to("cuda")
+    out = {}
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        zero_launches()
+        _, state, hist = Trainer(cfg, tcfg, device=dev).run(model=model)
+        out[dev] = (hist[0], state, time.perf_counter() - t0)
+        if dev == "cuda":
+            launch_counts(flash_attention=2 * cfg.n_layers,
+                          flash_attention_backward=2 * cfg.n_layers)
+    loss_c, loss_h = out["cuda"][0]["loss"], out["cpu"][0]["loss"]
+    worst = {k: (0.0, None) for k in ("moments", "step", "vs_cpu")}
+
+    def note(key, r, leaf):
+        if r > worst[key][0]:
+            worst[key] = (r, leaf)
+
+    one = torch.ones((), dtype=torch.float32)
+    b1c, b2c = 1 - opt.b1 ** one, 1 - opt.b2 ** one
+    hp = dict(cpu.named_parameters())
+    for k, p in card.named_parameters():
+        pc = p.detach().cpu()
+        for mom in ("m", "v"):
+            got = out["cuda"][1][mom][k].cpu()
+            want = out["cpu"][1][mom][k]
+            note("moments", float((got - want).abs().max())
+                 / max(float(want.abs().max()), 1e-30), k)
+        m, v = out["cuda"][1]["m"][k].cpu(), out["cuda"][1]["v"][k].cpu()
+        step = p0[k] - opt.lr * ((m / b1c) / (torch.sqrt(v / b2c) + opt.eps)
+                                 + opt.weight_decay * p0[k])
+        delta = max(float((pc - p0[k]).abs().max()), 1e-30)
+        spacing = torch.nextafter(pc.abs(), torch.tensor(float("inf"))) \
+            - pc.abs()
+        excess = ((pc - step).abs() - spacing).clamp(min=0)
+        note("step", float(excess.max()) / delta, k)
+        note("vs_cpu", float((pc - hp[k].detach()).abs().max()) / delta, k)
+    row = {"model": cfg.name, "layers": 2, "dtype": "float32",
+           "batch": [tcfg.global_batch, tcfg.seq_len],
+           "loss_card": loss_c, "loss_cpu": loss_h,
+           "loss_rel_err": abs(loss_c - loss_h) / abs(loss_h),
+           "gnorm_card": out["cuda"][0]["gnorm"],
+           "gnorm_cpu": out["cpu"][0]["gnorm"],
+           "worst_moment_err_over_max": worst["moments"],
+           "worst_step_err_over_max_delta": worst["step"],
+           "worst_param_vs_cpu_over_max_delta": worst["vs_cpu"],
+           "card_s": out["cuda"][2], "cpu_s": out["cpu"][2]}
+    del card, cpu
+    _free_cuda()
+    return row
+
+
+def train_crash_resume():
+    """Full width, 2 layers, bf16: 4 steps straight through; 2 steps with a
+    checkpoint at step 2 (a temporary directory under build/, removed
+    afterwards), its restore equal to the in-memory state bit for bit;
+    then a fresh trainer resumes from it to step 4, its losses within 1e-3
+    relative of the uninterrupted run's."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.training.trainer import TrainConfig, Trainer
+    cfg = _train_cfg(n_layers=2)
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=root, prefix="chip_smoke_ckpt_"))
+    kw = dict(seq_len=128, global_batch=8, microbatches=2, log_every=1)
+    try:
+        _, _, full = Trainer(cfg, TrainConfig(steps=4, **kw),
+                             device="cuda").run(resume=False)
+        ck = dict(checkpoint_dir=str(tmp), checkpoint_every=100,
+                  keep_checkpoints=1)
+        probe = _TrainProbe()
+        trainer = Trainer(cfg, TrainConfig(steps=2, **ck, **kw),
+                          device="cuda")
+        model, state, first = trainer.run(resume=False, callback=probe)
+        save_s = time.perf_counter() - probe.t   # the final, blocking save
+        step_dir = tmp / "step_00000002"
+        nbytes = sum(f.stat().st_size for f in step_dir.rglob("*")
+                     if f.is_file())
+        params = dict(model.named_parameters())
+        t0 = time.perf_counter()
+        (saved_p, saved_s), manifest = trainer.ckpt.restore((params, state))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        assert manifest["step"] == 2
+        n_equal = 0
+        for (_, a), (_, b) in zip(_flatten((saved_p, saved_s)),
+                                  _flatten((params, state))):
+            b = b.detach()
+            assert a.dtype == b.dtype and a.shape == b.shape
+            if a.dim():   # bits, not values
+                a, b = a.view(torch.uint8), b.view(torch.uint8)
+            assert torch.equal(a, b), "restore != saved"
+            n_equal += 1
+        del model, state, saved_p, saved_s, params
+        _free_cuda()
+        resumed = Trainer(cfg, TrainConfig(steps=4, **ck, **kw),
+                          device="cuda")
+        assert resumed.ckpt.latest_step() == 2
+        _, _, rest = resumed.run(resume=True)
+        assert [m["step"] for m in rest] == [2, 3]
+        rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+               for a, b in zip(rest, full[2:])]
+        assert max(rel) <= 1e-3, rel
+        rel_first = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                     for a, b in zip(first, full)]
+        assert max(rel_first) <= 1e-3, rel_first
+        return {"model": cfg.name, "layers": 2, "dtype": "bfloat16",
+                "losses_uninterrupted": [m["loss"] for m in full],
+                "losses_resumed": [m["loss"] for m in rest],
+                "resumed_rel_err": rel, "leaves_restored_bit_equal": n_equal,
+                "bytes_written": nbytes, "save_s": save_s,
+                "restore_s": restore_s}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        _free_cuda()
+
+
+def phase_train():
+    """Phase 17: the backward kernels against their plain versions, the
+    training main path at the published widths, the card against the CPU,
+    crash and resume, and the backward timed at the training shape."""
+    t0 = time.perf_counter()
+    kernels = check_flash_backward()
+    kernels["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"train_kernel_checks": kernels}), flush=True)
+    main = train_main_path()
+    print(json.dumps({k: main[k] for k in (
+        "losses", "nll", "gnorm", "step_wall_s", "tokens_per_s",
+        "peak_memory_gb", "launches")}), flush=True)
+    vs_cpu = train_card_vs_cpu()
+    print(json.dumps({"train_card_vs_cpu": vs_cpu}), flush=True)
+    resume = train_crash_resume()
+    print(json.dumps({"train_crash_resume": resume}), flush=True)
+    timing = in_fresh_process("chip_smoke.flash_backward_timing()")
+    failures = []
+    if vs_cpu["loss_rel_err"] > 1e-5:
+        failures.append(("card vs CPU loss", vs_cpu["loss_rel_err"]))
+    if vs_cpu["worst_moment_err_over_max"][0] > 1e-4:
+        failures.append(("card vs CPU gradients (m, v)",
+                         vs_cpu["worst_moment_err_over_max"]))
+    if vs_cpu["worst_step_err_over_max_delta"][0] > 1e-4:
+        failures.append(("card's adamw step",
+                         vs_cpu["worst_step_err_over_max_delta"]))
+    row = {"phase": "train", "main_path": main, "card_vs_cpu": vs_cpu,
+           "crash_resume": resume, "backward_checks": kernels,
+           "timing": timing}
+    emit(row)
+    assert not failures, failures
+    return row
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2948,6 +3484,7 @@ def main():
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
+    from repro_torch.kernels.flash_attention import BWD_KERNELS
 
     phase_s = {}
 
@@ -2976,6 +3513,8 @@ def main():
     pools = timed("paged_on_pools", phase_paged_on_pools, sess_run, run.cfg)
     clu = timed("cluster", phase_cluster)
     fam = timed("families", phase_families)
+    del run, model, sess_run   # the serving models: training needs the room
+    trn = timed("train", phase_train)
     emit({"phase": "times", "card": smi, "seconds": phase_s,
           "total_s": sum(phase_s.values())})
 
@@ -3079,7 +3618,28 @@ def main():
             pools["timing"]["decode_kernel_on_gathered_device_ms"],
         "splits": pools["timing"]["splits"],
         "previous": "PERF.md section 6, column Previous",
-        "library": pools["library"]}]})
+        "library": pools["library"]}, {
+        "name": "flash_attention_backward", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:89",
+        "reference_gradient": "src/repro/models/layers.py _xla_attention "
+                              "(the TPU kernel has no backward)",
+        "launches": trn["main_path"]["launches"]["flash_attention_backward"],
+        "launches_per_step": trn["main_path"]["launches_per_step"],
+        "kernels_a_backward": BWD_KERNELS,
+        "cases": trn["backward_checks"]["cases"],
+        "max_abs_err": max(trn["backward_checks"]["max_abs_err"].values()),
+        "max_abs_err_by_dtype": trn["backward_checks"]["max_abs_err"],
+        "max_err_over_max_g": trn["backward_checks"]["max_err_over_max_g"],
+        "lse_max_abs_err": trn["backward_checks"]["lse_max_abs_err"],
+        **{k: trn["timing"]["backward"][k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": trn["timing"]["library_ms"],
+        "library": "scaled_dot_product_attention(is_causal=True, "
+                   "enable_gqa=True) forward + backward",
+        "library_device_ms": trn["timing"].get("library_device_ms"),
+        "forward_backward": trn["timing"]["forward_backward"],
+        "shape": trn["timing"]["shape"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

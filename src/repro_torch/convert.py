@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict
-from typing import Any, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,6 +62,52 @@ def tensor_from_numpy(a: np.ndarray, device: Device = None) -> torch.Tensor:
     return t.to(resolve(device))
 
 
+def _layer(leaf, i: int):
+    """Entry ``i`` of a leaf stacked over layers (of each array of a dict
+    leaf, such as an optimizer's ``{"q", "s"}``)."""
+    if isinstance(leaf, Mapping):
+        return {k: np.asarray(v)[i] for k, v in leaf.items()}
+    return leaf[i]
+
+
+def _lm_leaves(model: lm.LM, cfg: ModelConfig, tree: Mapping[str, Any],
+               whole: bool = False):
+    """(port parameter, reference leaf) pairs: the leaf of ``tree`` (laid
+    out as the reference's ``lm.init`` pytree) that holds each parameter of
+    ``model``, sliced to its layer (with ``whole``, the stacked leaf as it
+    is). ``tree`` may be any pytree of that layout, such as gradients or
+    an optimizer's moments."""
+    def module(mod, t, i=None):
+        for attr, path in mod.REF.items():
+            dst = getattr(mod, attr)
+            if dst is None:
+                continue
+            src = t
+            for key in path:
+                src = src[key]
+            yield dst, (src if i is None or whole else _layer(src, i))
+
+    def block(blk: lm.Block, t, i: int):
+        for name in ("norm1", "mixer", "mixer2", "norm1b", "norm2", "ffn"):
+            mod = getattr(blk, name)
+            if mod is not None:
+                yield from module(mod, t[name], i)
+
+    yield model.embed, tree["embed"]["table"]
+    if model.head is not None:
+        yield model.head, tree["head"]["table"]
+    yield from module(model.final_norm, tree["final_norm"])
+    P = len(cfg.pattern)
+    for li, blk in enumerate(model.blocks):
+        yield from block(blk, tree["blocks"][li % P], li // P)
+    if model.encoder is not None:
+        enc = tree["encoder"]
+        yield model.encoder.pos, enc["pos"]
+        for i, blk in enumerate(model.encoder.blocks):
+            yield from block(blk, enc["blocks"], i)
+        yield from module(model.encoder.final_norm, enc["final_norm"])
+
+
 def lm_params_from_numpy(params_np: Mapping[str, Any], cfg: ModelConfig,
                          device: Device = None) -> lm.LM:
     """The port's ``LM`` from the reference's ``lm.init`` pytree: ``embed``,
@@ -73,45 +119,83 @@ def lm_params_from_numpy(params_np: Mapping[str, Any], cfg: ModelConfig,
     experts, tied heads and LayerNorm biases come across. Values and dtypes
     are kept exactly."""
     model = lm.LM(cfg, device)
-    dev = model.device
-
-    def put(dst: torch.Tensor, src) -> None:
-        src = tensor_from_numpy(src, dev)
+    for dst, src in _lm_leaves(model, cfg, params_np):
+        src = tensor_from_numpy(src, model.device)
         if src.shape != dst.shape or src.dtype != dst.dtype:
             raise ValueError(f"shape/dtype {tuple(src.shape)} {src.dtype}, "
                              f"want {tuple(dst.shape)} {dst.dtype}")
         dst.copy_(src)
-
-    def put_module(mod, tree, i=None) -> None:
-        for attr, path in mod.REF.items():
-            dst = getattr(mod, attr)
-            if dst is None:
-                continue
-            src = tree
-            for key in path:
-                src = src[key]
-            put(dst, src if i is None else src[i])
-
-    def put_block(blk: lm.Block, tree, i: int) -> None:
-        for name in ("norm1", "mixer", "mixer2", "norm1b", "norm2", "ffn"):
-            mod = getattr(blk, name)
-            if mod is not None:
-                put_module(mod, tree[name], i)
-
-    put(model.embed, params_np["embed"]["table"])
-    if model.head is not None:
-        put(model.head, params_np["head"]["table"])
-    put_module(model.final_norm, params_np["final_norm"])
-    P = len(cfg.pattern)
-    for li, blk in enumerate(model.blocks):
-        put_block(blk, params_np["blocks"][li % P], li // P)
-    if model.encoder is not None:
-        enc = params_np["encoder"]
-        put(model.encoder.pos, enc["pos"])
-        for i, blk in enumerate(model.encoder.blocks):
-            put_block(blk, enc["blocks"], i)
-        put_module(model.encoder.final_norm, enc["final_norm"])
     return model
+
+
+def lm_named_from_numpy(tree_np: Mapping[str, Any], cfg: ModelConfig,
+                        model: lm.LM) -> Dict[str, np.ndarray]:
+    """A pytree laid out as the reference's ``lm.init`` parameters (its
+    gradients, say), as ``{name: array}`` over ``model.named_parameters()``,
+    each array sliced to its layer."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {names[id(dst)]: np.asarray(src)
+            for dst, src in _lm_leaves(model, cfg, tree_np)}
+
+
+def _to_tensors(tree, device: torch.device):
+    if isinstance(tree, Mapping):
+        return {k: _to_tensors(v, device) for k, v in tree.items()}
+    return tensor_from_numpy(tree, device)
+
+
+def opt_state_from_numpy(state_np: Mapping[str, Any], device: Device = None,
+                         cfg: Optional[ModelConfig] = None,
+                         model: Optional[lm.LM] = None) -> Dict[str, Any]:
+    """The port's optimizer state (``training.optim``) from the reference's,
+    numpy leaves, for each of the three optimizers: ``adamw`` (``m``,
+    ``v``), ``adamw8bit`` (``m``, ``v`` of ``{"q", "s"}``), ``adafactor``
+    (``f`` of ``{"vr", "vc"}`` or ``{"v"}``), with ``step`` and ``gnorm``.
+
+    Without ``cfg`` the parameters are a flat ``{name: array}`` dict on
+    both sides and the state carries across as it is. With ``cfg`` and
+    ``model`` the reference's state is over its ``lm.init`` pytree and is
+    re-keyed by the port's parameter names: ``m`` and ``v`` each leaf
+    sliced to its layer, adafactor's ``f`` each stacked leaf whole under
+    its stack's name (``lm.param_stacks``), as the port's adafactor keeps
+    it. A leaf shaped otherwise than the port keeps it raises
+    ``ValueError``."""
+    dev = resolve(device if model is None else model.device)
+    out: Dict[str, Any] = {
+        k: tensor_from_numpy(state_np[k], dev) for k in ("step", "gnorm")}
+    params = dict(model.named_parameters()) if cfg is not None else None
+    for key in ("m", "v", "f"):
+        if key not in state_np:
+            continue
+        if cfg is None:
+            out[key] = _to_tensors(state_np[key], dev)
+            continue
+        names = {id(p): n for n, p in params.items()}
+        stacks = lm.param_stacks(cfg, params) if key == "f" else {}
+        stack_of = {n: s for s, members in stacks.items() for n in members}
+        tree = {}
+        for dst, src in _lm_leaves(model, cfg, state_np[key],
+                                   whole=key == "f"):
+            name = names[id(dst)]
+            tree[stack_of.get(name, name)] = _to_tensors(src, dev)
+        for name, st in tree.items():
+            p = params[name]
+            if key != "f":
+                want = (p.shape if not isinstance(st, dict) else
+                        {"q": p.shape, "s": p.shape[:-1]
+                         + (-(-p.shape[-1] // min(256, p.shape[-1])),)})
+            else:
+                shape = ((len(stacks[name]),) if name in stacks
+                         else ()) + p.shape
+                want = ({"vr": shape[:-1], "vc": shape[:-2] + shape[-1:]}
+                        if len(shape) >= 2 else {"v": shape})
+            got = (st.shape if not isinstance(st, dict)
+                   else {k: t.shape for k, t in st.items()})
+            if got != want:
+                raise ValueError(f"optimizer state {key} of {name}: shapes "
+                                 f"{got}, the port keeps {want}")
+        out[key] = tree
+    return out
 
 
 def cache_from_numpy(cache_np, device: Device = None,

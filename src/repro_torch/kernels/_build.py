@@ -40,7 +40,11 @@ _INT = ctypes.c_int
 SYMBOLS = {
     "repro_dominance_counts": [_PTR, _PTR, _INT, _INT, _PTR],
     "repro_dominance_matrix": [_PTR, _PTR] + [_INT] * 5 + [_PTR],
-    "repro_flash_attention": [_PTR] * 6 + [_INT] * 9 + [_I64] * 18 + [_PTR],
+    "repro_flash_attention": [_PTR] * 7 + [_INT] * 9 + [_I64] * 18 + [_PTR],
+    "repro_flash_attention_bwd_dq": [_PTR] * 8 + [_INT] * 7 + [_I64] * 18
+    + [_PTR],
+    "repro_flash_attention_bwd_dkdv": [_PTR] * 8 + [_INT] * 7 + [_I64] * 18
+    + [_PTR],
     "repro_gqa_decode": [_PTR] * 7 + [_INT] * 8 + [_I64] * 10 + [_PTR],
     "repro_paged_gqa_decode": [_PTR] * 8 + [_INT] * 9 + [_I64] * 11 + [_PTR],
 }

@@ -34,6 +34,15 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+constexpr float kLn2 = 0.6931471805599453f;
+
+// A row's log-sum-exp m + log l of its scaled scores (natural units), or
+// +inf for a row that met no key (l = 0): exp(s - lse) is then 0 and the
+// backward's dS vanishes there instead of turning into NaN.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : INFINITY;
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)

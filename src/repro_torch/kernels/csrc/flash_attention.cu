@@ -151,10 +151,11 @@ template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ kp,
-                       const T* __restrict__ vp, T* __restrict__ o, int S,
-                       int prefix_len, int D, int group, int causal,
-                       float scale, Strides qst, Strides kst, Strides vst,
-                       Strides kpst, Strides vpst, Strides ost) {
+                       const T* __restrict__ vp, T* __restrict__ o,
+                       float* __restrict__ lse, int S, int prefix_len, int D,
+                       int group, int causal, float scale, Strides qst,
+                       Strides kst, Strides vst, Strides kpst, Strides vpst,
+                       Strides ost) {
   extern __shared__ float smem[];
   float* qs = smem;                       // kTileQ x D
   float* ks = qs + kTileQ * D;            // kTileK x (D + 1)
@@ -206,12 +207,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = lane + 32 * i;
       if (d < D) ob[row * ost.s + d] = from_f32<T>(st.out(r, i));
     }
+    if (lse != nullptr && lane == 0)
+      lse[((long long)b * gridDim.y + h) * S + row] =
+          row_lse(st.m[r], st.l[r]);
   }
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* kp,
-           const void* vp, void* o, int B, int Hq, int Hkv, int S,
+           const void* vp, void* o, float* lse, int B, int Hq, int Hkv, int S,
            int prefix_len, int D, int causal, Strides qst, Strides kst,
            Strides vst, Strides kpst, Strides vpst, Strides ost,
            cudaStream_t stream) {
@@ -224,7 +228,7 @@ int launch(const void* q, const void* k, const void* v, const void* kp,
   flash_attention_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), static_cast<T*>(o), S, prefix_len, D,
+      static_cast<const T*>(vp), static_cast<T*>(o), lse, S, prefix_len, D,
       Hq / Hkv, causal, (float)(1.0 / sqrt((double)D)), qst, kst, vst, kpst,
       vpst, ost);
   return (int)cudaGetLastError();
@@ -450,8 +454,9 @@ flash_attention_kernel_wgmma(const bf16* __restrict__ q,
                              const bf16* __restrict__ v,
                              const bf16* __restrict__ kp,
                              const bf16* __restrict__ vp,
-                             bf16* __restrict__ o, int S, int prefix_len,
-                             int D, int group, int causal, float scale_log2,
+                             bf16* __restrict__ o, float* __restrict__ lse,
+                             int S, int prefix_len, int D, int group,
+                             int causal, float scale_log2,
                              Strides qst, Strides kst, Strides vst,
                              Strides kpst, Strides vpst, Strides ost) {
   constexpr int kTile = DP / 64 * kSwBlock;  // bytes of one 64-row tile
@@ -689,6 +694,8 @@ flash_attention_kernel_wgmma(const bf16* __restrict__ q,
       acc[i] = acc[i] * (r0 ? ca0 : ca1) +
                xs[(4 + i) * kWgThreads] * (r0 ? cb0 : cb1);
     }
+    m0 = mn0;  // the merged maxima, which only the lse reads
+    m1 = mn1;
   }
 
 #pragma unroll
@@ -698,6 +705,11 @@ flash_attention_kernel_wgmma(const bf16* __restrict__ q,
   }
   // acc / max(l, 1e-30): zeros for a row that met no valid key
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (lse != nullptr && (lane & 3) == 0) {  // m and l are in base 2
+    float* lb = lse + ((long long)b * gridDim.y + h) * S;
+    if (row0 < S) lb[row0] = row_lse(m0 * kLn2, l0);
+    if (row1 < S) lb[row1] = row_lse(m1 * kLn2, l1);
+  }
   bf16* ob = o + b * ost.b + h * ost.h;
 #pragma unroll
   for (int j = 0; j < DP / 8; ++j) {
@@ -715,7 +727,8 @@ flash_attention_kernel_wgmma(const bf16* __restrict__ q,
 
 template <int DP, int G>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* kp,
-                 const void* vp, void* o, int B, int Hq, int Hkv, int S,
+                 const void* vp, void* o, float* lse, int B, int Hq, int Hkv,
+                 int S,
                  int prefix_len, int D, int causal, Strides qst, Strides kst,
                  Strides vst, Strides kpst, Strides vpst, Strides ost,
                  cudaStream_t stream) {
@@ -730,24 +743,25 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* kp,
   flash_attention_kernel_wgmma<DP, G><<<grid, G * kWgThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(kp),
-      static_cast<const bf16*>(vp), static_cast<bf16*>(o), S, prefix_len, D,
-      Hq / Hkv, causal, (float)(1.4426950408889634 / sqrt((double)D)), qst,
+      static_cast<const bf16*>(vp), static_cast<bf16*>(o), lse, S,
+      prefix_len, D, Hq / Hkv, causal, (float)(1.4426950408889634 / sqrt((double)D)), qst,
       kst, vst, kpst, vpst, ost);
   return (int)cudaGetLastError();
 }
 
 template <int DP>
 int launch_wgmma(int groups, const void* q, const void* k, const void* v,
-                 const void* kp, const void* vp, void* o, int B, int Hq,
-                 int Hkv, int S, int prefix_len, int D, int causal,
+                 const void* kp, const void* vp, void* o, float* lse, int B,
+                 int Hq, int Hkv, int S, int prefix_len, int D, int causal,
                  Strides qst, Strides kst, Strides vst, Strides kpst,
                  Strides vpst, Strides ost, cudaStream_t stream) {
   if (groups == 2)
-    return launch_wgmma<DP, 2>(q, k, v, kp, vp, o, B, Hq, Hkv, S, prefix_len,
-                               D, causal, qst, kst, vst, kpst, vpst, ost,
-                               stream);
-  return launch_wgmma<DP, 1>(q, k, v, kp, vp, o, B, Hq, Hkv, S, prefix_len, D,
-                             causal, qst, kst, vst, kpst, vpst, ost, stream);
+    return launch_wgmma<DP, 2>(q, k, v, kp, vp, o, lse, B, Hq, Hkv, S,
+                               prefix_len, D, causal, qst, kst, vst, kpst,
+                               vpst, ost, stream);
+  return launch_wgmma<DP, 1>(q, k, v, kp, vp, o, lse, B, Hq, Hkv, S,
+                             prefix_len, D, causal, qst, kst, vst, kpst, vpst,
+                             ost, stream);
 }
 
 }  // namespace
@@ -755,7 +769,11 @@ int launch_wgmma(int groups, const void* q, const void* k, const void* v,
 // q: (B, Hq, S, D), k/v: (B, Hkv, S, D), o: (B, Hq, S, D), and the prefix
 // kp/vp: (B, Hkv, >= prefix_len, D), each given by its data pointer and its
 // (batch, head, position) element strides; the last dimension is
-// contiguous. prefix_len = 0 is full-sequence attention (kp, vp unread);
+// contiguous. lse, when not null, is a contiguous f32 (B, Hq, S) that gets
+// each row's log-sum-exp of its scaled scores, m + log l (+inf for a row
+// that met no key): the training forward saves it for the backward
+// (flash_attention_bwd.cu); serving passes null and computes the same bits
+// as without it. prefix_len = 0 is full-sequence attention (kp, vp unread);
 // prefix_len > 0 needs causal. dtype: 0 = float32, on the CUDA cores;
 // 1 = bfloat16, on the tensor cores, which also needs D % 8 == 0 and
 // 16-byte aligned pointers and strides of q, k, v, kp, vp (the wrapper
@@ -764,8 +782,9 @@ int launch_wgmma(int groups, const void* q, const void* k, const void* v,
 // cudaGetLastError().
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, const void* kp,
-    const void* vp, void* o, int B, int Hq, int Hkv, int S, int prefix_len,
-    int D, int causal, int dtype, int groups, long long q_sb, long long q_sh,
+    const void* vp, void* o, void* lse, int B, int Hq, int Hkv, int S,
+    int prefix_len, int D, int causal, int dtype, int groups, long long q_sb,
+    long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long kp_sb,
     long long kp_sh, long long kp_ss, long long vp_sb, long long vp_sh,
@@ -779,16 +798,17 @@ extern "C" int repro_flash_attention(
       vst{v_sb, v_sh, v_ss}, kpst{kp_sb, kp_sh, kp_ss},
       vpst{vp_sb, vp_sh, vp_ss}, ost{o_sb, o_sh, o_ss};
   cudaStream_t s = (cudaStream_t)stream;
+  float* l = static_cast<float*>(lse);
   if (dtype == 0 && groups == 1)
-    return launch<float>(q, k, v, kp, vp, o, B, Hq, Hkv, S, prefix_len, D,
+    return launch<float>(q, k, v, kp, vp, o, l, B, Hq, Hkv, S, prefix_len, D,
                          causal, qst, kst, vst, kpst, vpst, ost, s);
   if (dtype != 1 || D % 8 != 0 || B > 65535 || groups < 1 || groups > 2)
     return (int)cudaErrorInvalidValue;
   if (D <= 64)
-    return launch_wgmma<64>(groups, q, k, v, kp, vp, o, B, Hq, Hkv, S,
+    return launch_wgmma<64>(groups, q, k, v, kp, vp, o, l, B, Hq, Hkv, S,
                             prefix_len, D, causal, qst, kst, vst, kpst, vpst,
                             ost, s);
-  return launch_wgmma<128>(groups, q, k, v, kp, vp, o, B, Hq, Hkv, S,
+  return launch_wgmma<128>(groups, q, k, v, kp, vp, o, l, B, Hq, Hkv, S,
                            prefix_len, D, causal, qst, kst, vst, kpst, vpst,
                            ost, s);
 }

@@ -11,10 +11,16 @@ over a cached prefix, then causally over the suffix) is the same kernels
 and the same launch counter. The wrappers check their inputs, allocate the
 output, launch on PyTorch's current stream and count the launch. They take
 CUDA tensors only: the dispatch by device lives in ``kernels.ops``.
+
+Training adds the gradient (``csrc/flash_attention_bwd.cu``, its own
+counter :data:`BWD_LAUNCHES`): the forward also writes each row's
+log-sum-exp (:func:`flash_attention_lse_cuda`), and
+:func:`flash_attention_backward_cuda` launches the two backward kernels,
+dq (which also writes D = rowsum(dO o O)) and then dk/dv.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,6 +32,12 @@ TILE = 64
 
 #: kernel launches since the last reset (a run sets it to 0, then reads it)
 LAUNCHES = 0
+#: backward kernel launches since the last reset, two a backward pass
+BWD_LAUNCHES = 0
+#: the backward's kernels a backward pass: dq (with D), then dk/dv
+BWD_KERNELS = 2
+#: query rows and keys of one tile of the backward kernels
+BWD_TILE = 32
 
 
 def route(dtype: torch.dtype) -> str:
@@ -48,11 +60,12 @@ def flash_groups(S: int, prefix_len: int) -> int:
     return 2 if -(-prefix_len // TILE) - (-S // TILE) >= 2 else 1
 
 
-def _launch(q, k, v, k_pre, v_pre, prefix_len: int,
-            causal: bool) -> torch.Tensor:
-    """One launch; prefix_len = 0 leaves k_pre, v_pre unread. The tensor
-    cores' kernel loads its tiles by 16-byte copies, so its inputs must be
-    aligned (:func:`check_alignment`)."""
+def _launch(q, k, v, k_pre, v_pre, prefix_len: int, causal: bool,
+            lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch; prefix_len = 0 leaves k_pre, v_pre unread; ``lse``, a
+    contiguous f32 (B, Hq, S), gets each row's log-sum-exp when given. The
+    tensor cores' kernel loads its tiles by 16-byte copies, so its inputs
+    must be aligned (:func:`check_alignment`)."""
     global LAUNCHES
     B, Hq, S, D = q.shape
     Hkv = k.shape[1]
@@ -68,6 +81,7 @@ def _launch(q, k, v, k_pre, v_pre, prefix_len: int,
         err = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_pre.data_ptr(),
             v_pre.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             B, Hq, Hkv, S, prefix_len, D, int(causal), DTYPES[q.dtype],
             groups,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
@@ -90,11 +104,116 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     model's (B, S, H, D) projections transposed are read in place). The
     result is a (B, Hq, S, D) view of a (B, S, Hq, D) buffer, so the model
     transposes it back for free."""
+    return _full(q, k, v, causal)
+
+
+def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, causal: bool = True
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_cuda` that also returns each row's
+    log-sum-exp of its scaled scores, f32 (B, Hq, S) (+inf for a row that
+    met no key): what the backward recomputes P from. The output's bits
+    are those of the call without it."""
+    B, Hq, S, _ = q.shape
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    return _full(q, k, v, causal, lse), lse
+
+
+def _full(q, k, v, causal: bool, lse: Optional[torch.Tensor] = None):
     check_attention_inputs("flash_attention_cuda", q, k, v, 4)
     if k.shape[2] != q.shape[2]:
         raise ValueError(f"q has {q.shape[2]} positions, k and v "
                          f"{k.shape[2]}")
-    return _launch(q, k, v, k, v, 0, causal)
+    return _launch(q, k, v, k, v, 0, causal, lse)
+
+
+def _grad_like(t: torch.Tensor) -> torch.Tensor:
+    """An uninitialized (B, H, S, D) view of a (B, S, H, D) buffer: the
+    layout of the model's projections, whose gradients these are."""
+    B, H, S, D = t.shape
+    return torch.empty((B, S, H, D), dtype=t.dtype,
+                       device=t.device).transpose(1, 2)
+
+
+def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, out: torch.Tensor,
+                                  lse: torch.Tensor, dout: torch.Tensor,
+                                  causal: bool = True
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_attention_cuda` at (q, k, v), given its
+    output ``out``, the forward's ``lse`` and the output's gradient
+    ``dout`` (q's shape). Math in f32 for both types; the gradients come
+    back in the input's type, as (B, H, S, D) views of (B, S, H, D)
+    buffers. Deterministic: two calls give the same bits. Two launches,
+    both counted in :data:`BWD_LAUNCHES`. bf16 inputs must be aligned as
+    the forward's (:func:`check_alignment`), which computed ``out``."""
+    global BWD_LAUNCHES
+    name = "flash_attention_backward_cuda"
+    check_attention_inputs(name, q, k, v, 4)
+    check_attention_inputs(name, out, k, v, 4)
+    check_attention_inputs(name, dout, k, v, 4)
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    if (k.shape[2] != S or out.shape != q.shape or dout.shape != q.shape
+            or lse.shape != (B, Hq, S) or lse.dtype != torch.float32
+            or not lse.is_contiguous()):
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"out {tuple(out.shape)}, dout "
+                         f"{tuple(dout.shape)}, lse {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    if q.dtype == torch.bfloat16:   # as the forward's tensor-core kernel
+        check_alignment(name, q, k, v, out, dout)
+    dq, dk, dv = _grad_like(q), _grad_like(k), _grad_like(v)
+    dsum = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    lib = _build.load()
+    st = _build.stream(q.device)
+    with _build.on_device(q.device):
+        err = lib.repro_flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+            B, Hq, Hkv, S, D, int(causal), DTYPES[q.dtype],
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], *dout.stride()[:3], *dq.stride()[:3], st)
+        if err != 0:
+            raise RuntimeError(f"flash attention backward (dq) launch "
+                               f"failed: cudaError {err}")
+        BWD_LAUNCHES += 1
+        err = lib.repro_flash_attention_bwd_dkdv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, Hq, Hkv, S, D, int(causal), DTYPES[q.dtype],
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *dout.stride()[:3], *dk.stride()[:3], *dv.stride()[:3], st)
+        if err != 0:
+            raise RuntimeError(f"flash attention backward (dk/dv) launch "
+                               f"failed: cudaError {err}")
+        BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The flash kernel with its gradient: the forward launches the kernel
+    with the lse and saves q, k, v, the output and the lse; the backward
+    launches the backward kernels. Under activation checkpointing the
+    recompute relaunches the forward, and the backward reads the lse of
+    that launch, saved with its output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out, lse = flash_attention_lse_cuda(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        dq, dk, dv = flash_attention_backward_cuda(q, k, v, out, lse, dout,
+                                                   ctx.causal)
+        return dq, dk, dv, None
 
 
 def flash_attention_extend_cuda(q: torch.Tensor, k_pre: torch.Tensor,

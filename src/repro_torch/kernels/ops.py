@@ -37,10 +37,18 @@ def dominance_counts(F: torch.Tensor) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
-    """(B, Hq, S, D) x (B, Hkv, S, D) -> (B, Hq, S, D) GQA attention."""
+    """(B, Hq, S, D) x (B, Hkv, S, D) -> (B, Hq, S, D) GQA attention.
+
+    Differentiable: on the CPU autograd runs through the plain version; on
+    the card an input that requires grad goes through
+    ``flash_attention.FlashAttention`` (the backward kernels), and without
+    grad the call is the forward kernel alone."""
     if q.device.type == "cpu":
         return ref.mha_prefill(q, k, v, causal=causal)
     if q.device.type == "cuda":
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return _fa.FlashAttention.apply(q, k, v, causal)
         return _fa.flash_attention_cuda(q, k, v, causal=causal)
     raise ValueError(f"no flash_attention for device {q.device}")
 

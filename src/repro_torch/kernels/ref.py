@@ -46,6 +46,19 @@ def mha_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", w, vf).to(q.dtype)
 
 
+def flash_attention_backward_ref(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, o: torch.Tensor,
+                                 do: torch.Tensor, causal: bool = True):
+    """(dq, dk, dv) of :func:`mha_prefill` at (q, k, v) for the output
+    gradient ``do``: autograd of the plain version, which recomputes the
+    forward (``o`` is taken for the kernel's signature and not read). The
+    gradients come back in the inputs' types."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = mha_prefill(*leaves, causal=causal)
+        return torch.autograd.grad(out, leaves, do)
+
+
 def mha_prefill_extend(q: torch.Tensor, k_pre: torch.Tensor,
                        v_pre: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        prefix_len: Optional[int] = None) -> torch.Tensor:

@@ -1,1 +1,2 @@
-"""Launchers: the paper's serving cluster (``launch.serve``)."""
+"""Launchers: the paper's serving cluster (``launch.serve``) and training
+(``launch.train``)."""

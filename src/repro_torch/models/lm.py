@@ -10,19 +10,29 @@ the reference's, and ``convert.lm_params_from_numpy`` carries a reference
 
 Public entry points:
     init(cfg, generator, device)                     -> LM
-    train_logits(model, cfg, tokens, frames, patches)
-                                                     -> (B, S, vocab) f32
+    train_logits(model, cfg, tokens, frames, patches, remat, remat_policy)
+                                                     -> ((B, S, vocab) f32,
+                                                         MoE aux loss)
+    loss_fn(model, cfg, batch, remat, aux_weight, remat_policy)
+                                                     -> (loss, {nll, aux})
     prefill(model, cfg, tokens, max_seq, length, frames, patches)
                                                      -> (last logits, Cache)
     prefill_extend(model, cfg, tokens, prefix, max_seq, prefix_len, length)
                                                      -> (last logits, Cache)
     make_cache(cfg, batch, max_seq, device)          -> empty Cache
     decode_step(model, cfg, token, cache)            -> (logits, Cache)
+    param_stacks(cfg, names)                         -> {stack: [names]}
 
 ``frames`` (audio: (B, T, d) stub-frontend embeddings through the encoder)
 and ``patches`` (vlm: (B, T, d) patch embeddings) feed cross-attention; they
 are bf16 or the model's dtype. An unknown mixer raises ``ValueError``, as
 in the reference.
+
+Parameters are built with ``requires_grad=False``, so no serving path
+records a graph; training asks for gradients with ``model.requires_grad_()``
+(``training.trainer``). ``train_logits`` then wraps each period of the block
+pattern in activation checkpointing (``torch.utils.checkpoint``), as the
+reference wraps its scan body in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -33,6 +43,7 @@ from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import Device, resolve
 from . import layers as L
@@ -335,6 +346,29 @@ class LM(nn.Module):
         return self.embed if self.head is None else self.head
 
 
+def param_stacks(cfg: ModelConfig, names) -> Dict[str, list]:
+    """The parameter ``names`` (of ``named_parameters()``) that the
+    reference stacks into one leaf over the periods of the block pattern:
+    {stack name: member names in period order}, each stack named by its
+    period-0 member. Layer ``li`` of the decoder stacks with the layers at
+    its pattern position ``li % P``, and every encoder block with the
+    others; the embedding, the head, the final norms and the encoder's
+    positions stand alone and are in no stack."""
+    P = len(cfg.pattern)
+    stacks: Dict[tuple, list] = {}
+    for name in names:
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            li, key = int(parts[1]), ("blocks", int(parts[1]) % P, *parts[2:])
+        elif parts[:2] == ["encoder", "blocks"]:
+            li, key = int(parts[2]), ("encoder", *parts[3:])
+        else:
+            continue
+        stacks.setdefault(key, []).append((li, name))
+    return {members[0][1]: [n for _, n in members]
+            for members in map(sorted, stacks.values())}
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -371,15 +405,16 @@ def init(cfg: ModelConfig, generator: torch.Generator,
 # layers
 # ---------------------------------------------------------------------------
 
-def _ffn(blk: Block, cfg: ModelConfig, ffn: str,
-         x: torch.Tensor) -> torch.Tensor:
+def _ffn(blk: Block, cfg: ModelConfig, ffn: str, x: torch.Tensor
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x after the layer's FFN, and the MoE aux loss (None without MoE)."""
     if ffn == "dense":
         return x + L.ffn_apply(blk.ffn, L.apply_norm(cfg, blk.norm2, x),
-                               cfg.activation)
+                               cfg.activation), None
     if ffn == "moe":
-        return x + M.moe_apply(blk.ffn, cfg,
-                               L.apply_norm(cfg, blk.norm2, x))[0]
-    return x
+        y, aux = M.moe_apply(blk.ffn, cfg, L.apply_norm(cfg, blk.norm2, x))
+        return x + y, aux
+    return x, None
 
 
 _FULL = {"mamba": S.mamba_forward, "mlstm": X.mlstm_forward,
@@ -401,10 +436,12 @@ def _put_state(cache: Cache, layer: Layer, values) -> None:
 
 def _forward(cfg: ModelConfig, blocks, layers, x: torch.Tensor,
              positions: torch.Tensor, cross_x: Optional[torch.Tensor],
-             cache: Optional[Cache] = None) -> torch.Tensor:
+             cache: Optional[Cache] = None):
     """The full-sequence pass of ``blocks`` (``layers`` their layout) over
-    x (B, S, d). With ``cache``, each layer's K/V (at positions 0..S-1),
-    cross K/V and final recurrent state are written into it."""
+    x (B, S, d); returns (x, the list of the MoE layers' aux losses). With
+    ``cache``, each layer's K/V (at positions 0..S-1), cross K/V and final
+    recurrent state are written into it."""
+    aux = []
     for blk, layer in zip(blocks, layers):
         mixer = layer.mixer
         h = L.apply_norm(cfg, blk.norm1, x)
@@ -434,8 +471,10 @@ def _forward(cfg: ModelConfig, blocks, layers, x: torch.Tensor,
             x = x + y
             if cache is not None:
                 _put_state(cache, layer, st)
-        x = _ffn(blk, cfg, layer.ffn, x)
-    return x
+        x, a = _ffn(blk, cfg, layer.ffn, x)
+        if a is not None:
+            aux.append(a)
+    return x, aux
 
 
 def _encode(model: LM, cfg: ModelConfig, frames: torch.Tensor):
@@ -445,7 +484,7 @@ def _encode(model: LM, cfg: ModelConfig, frames: torch.Tensor):
     x = frames + enc.pos[None, :T]
     positions = torch.arange(T, device=frames.device)[None]
     layers = (Layer("attn_bidir", "dense", -1, "", -1),) * len(enc.blocks)
-    x = _forward(cfg, enc.blocks, layers, x, positions, None)
+    x, _ = _forward(cfg, enc.blocks, layers, x, positions, None)
     return L.layer_norm(enc.final_norm.g, enc.final_norm.b, x, cfg.norm_eps)
 
 
@@ -475,17 +514,73 @@ def _final_logits(model: LM, cfg: ModelConfig, x: torch.Tensor):
 # forward passes
 # ---------------------------------------------------------------------------
 
+#: the reference's remat policies; "save_ffn_hidden" (keep each layer's
+#: FFN hidden activation through the recompute) is not ported
+REMAT_POLICIES = ("full", "save_ffn_hidden")
+
+
+def _periods(cfg: ModelConfig, model: LM):
+    """(blocks, layers) of each period of the block pattern."""
+    P, lay = len(cfg.pattern), layout(cfg)
+    return [(model.blocks[p:p + P], lay[p:p + P])
+            for p in range(0, cfg.n_layers, P)]
+
+
 def train_logits(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
                  frames: Optional[torch.Tensor] = None,
-                 patches: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(B, S) tokens -> (B, S, vocab) f32 logits, causal. Forward only (the
-    MoE aux loss is not returned)."""
+                 patches: Optional[torch.Tensor] = None,
+                 remat: bool = False, remat_policy: str = "full"):
+    """(B, S) tokens -> ((B, S, vocab) f32 logits, causal; the MoE aux
+    loss summed over the layers, a 0-d f32, 0 without MoE).
+
+    ``remat`` checkpoints each period of the pattern (non-reentrant
+    ``torch.utils.checkpoint``): only period boundaries are kept for the
+    backward, which runs each period's forward again (``remat_policy``
+    "full", the reference's default; "save_ffn_hidden" raises, not
+    ported). Without grad it changes nothing."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {remat_policy!r}: one of "
+                         f"{REMAT_POLICIES}")
+    if remat and remat_policy != "full":
+        raise NotImplementedError(
+            "remat_policy 'save_ffn_hidden' is not ported (ROADMAP)")
     x = L.embed(model.embed, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
     cross_x = _cross_input(model, cfg, frames, patches)
-    x = _forward(cfg, model.blocks, layout(cfg), x, positions,
-                 cross_x)
-    return _final_logits(model, cfg, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blocks, layers in _periods(cfg, model):
+        if remat and torch.is_grad_enabled():
+            x, a = checkpoint(_forward, cfg, blocks, layers, x, positions,
+                              cross_x, use_reentrant=False)
+        else:
+            x, a = _forward(cfg, blocks, layers, x, positions, cross_x)
+        for term in a:
+            aux = aux + term
+    return _final_logits(model, cfg, x), aux
+
+
+def loss_fn(model: LM, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
+            remat: bool = True, aux_weight: float = 0.01,
+            remat_policy: str = "full"):
+    """The reference's training loss: (mean next-token NLL over labels >=
+    0 + aux_weight * MoE aux, {"nll": that mean, "aux": the aux loss}).
+
+    ``batch`` holds ``tokens`` and ``labels`` (B, S) and, for the audio and
+    vision families, ``frames`` / ``patches`` as ``train_logits`` takes
+    them. The log-sum-exp subtracts the row max with its gradient detached
+    (the reference's ``stop_gradient``); the label logit is a gather, the
+    same sum as the reference's one-hot product."""
+    logits, aux = train_logits(model, cfg, batch["tokens"],
+                               batch.get("frames"), batch.get("patches"),
+                               remat=remat, remat_policy=remat_policy)
+    labels = batch["labels"].to(torch.int64)
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    lse = m[..., 0] + torch.log(torch.sum(torch.exp(logits - m), dim=-1))
+    label_logit = torch.gather(logits, -1, labels.clamp(min=0)[..., None])
+    nll = lse - label_logit[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return loss + aux_weight * aux, {"nll": loss, "aux": aux}
 
 
 def make_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
@@ -567,8 +662,8 @@ def prefill(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
                                      else cross_x.shape[1]))
     x = L.embed(model.embed, tokens)
     positions = torch.arange(Sq, device=tokens.device)[None]
-    x = _forward(cfg, model.blocks, layout(cfg), x, positions,
-                 cross_x, cache)
+    x, _ = _forward(cfg, model.blocks, layout(cfg), x, positions, cross_x,
+                    cache)
     logits = _final_logits(model, cfg, x[:, fill - 1:fill])[:, 0]
     return logits, cache
 
@@ -630,7 +725,7 @@ def prefill_extend(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
             (k_pre[li], v_pre[li]), prefix_len=start if bucketed else None)
         cache.k[li, :, at:at + Sn] = k[:, -Sn:]
         cache.v[li, :, at:at + Sn] = v[:, -Sn:]
-        x = _ffn(blk, cfg, layer.ffn, x + y)
+        x, _ = _ffn(blk, cfg, layer.ffn, x + y)
     logits = _final_logits(model, cfg, x[:, last - 1:last])[:, 0]
     return logits, cache
 
@@ -660,6 +755,6 @@ def decode_step(model: LM, cfg: ModelConfig, token: torch.Tensor,
             y, st = _STEP[mixer](blk.mixer, cfg, h, _state(cache, layer))
             _put_state(cache, layer, st)
             x = x + y
-        x = _ffn(blk, cfg, layer.ffn, x)
+        x, _ = _ffn(blk, cfg, layer.ffn, x)
     logits = _final_logits(model, cfg, x)[:, 0]
     return logits, cache._replace(kv_len=cache.kv_len + 1)

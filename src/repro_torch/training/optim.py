@@ -1,0 +1,286 @@
+"""Optimizers: the counterpart of ``repro.training.optim``.
+
+The same three memory tiers, selected by model size:
+
+* ``adamw``     — f32 m and v (8 bytes a parameter of state);
+* ``adamw8bit`` — m and v quantized to int8 in blocks of :data:`QBLOCK`
+  along the last axis, with f32 scales a block (2 bytes a parameter);
+* ``adafactor`` — a factored second moment (row and column means of a
+  matrix) and no first moment.
+
+Parameters, gradients and state are dicts keyed by parameter name (the
+model's ``named_parameters()``), where the reference takes pytrees.
+``update(grads, state, params)`` returns ``(params, state)`` as the
+reference's does, but updates in place under ``torch.no_grad()``: the
+parameters keep their own dtype and the moments are overwritten, so a step
+holds no second copy of either. Each leaf's arithmetic is the reference's
+expression for expression, in f32; the global-norm clip is applied leaf by
+leaf as the leaf is updated (the same values as the reference's clipped
+copy, without holding an f32 copy of every gradient at once).
+
+The reference stacks each layer's leaves over the periods of the block
+pattern; here every layer's parameter is its own tensor. ``adamw`` and
+``adamw8bit`` (whose blocks run along the last axis) give the same result
+either way. ``adafactor`` does not (its second moment is factored over a
+leaf's last two axes, and its update clip is one RMS over the leaf), so it
+takes the stacks (``lm.param_stacks``) and updates each as the reference's
+one leaf.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+QBLOCK = 256  # int8 quantization block
+
+Tensors = Dict[str, torch.Tensor]
+#: parameter names -> {stack name: member names} (``lm.param_stacks``)
+Stacks = Callable[[List[str]], Dict[str, List[str]]]
+
+
+class Optimizer(NamedTuple):
+    init: Callable     # params -> state
+    update: Callable   # (grads, state, params) -> (params, state), in place
+    name: str
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+
+
+def _tree_norm(grads: Tensors) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                          for g in grads.values()))
+
+
+def _clip_scale(grads: Tensors, clip: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scale, global norm): gradients times ``scale`` have norm <= clip."""
+    gnorm = _tree_norm(grads)
+    scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+    return scale, gnorm
+
+
+def _clipped(grads: Tensors, clip: float) -> Tuple[Tensors, torch.Tensor]:
+    """The reference's ``_clipped``: f32 gradients scaled to global norm <=
+    ``clip``, and the norm before clipping."""
+    scale, gnorm = _clip_scale(grads, clip)
+    return {k: g.to(torch.float32) * scale for k, g in grads.items()}, gnorm
+
+
+def _bias_corrections(cfg: OptConfig, step: torch.Tensor):
+    s = step.to(torch.float32)
+    return 1 - cfg.b1 ** s, 1 - cfg.b2 ** s
+
+
+def _scalars(params: Tensors) -> Tensors:
+    dev = next(iter(params.values())).device
+    return {"step": torch.zeros((), dtype=torch.int32, device=dev),
+            "gnorm": torch.zeros((), dtype=torch.float32, device=dev)}
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+def adamw(cfg: OptConfig = OptConfig()) -> Optimizer:
+    def init(params: Tensors):
+        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa
+                                      device=p.device)
+        return {"m": {k: zeros(p) for k, p in params.items()},
+                "v": {k: zeros(p) for k, p in params.items()},
+                **_scalars(params)}
+
+    @torch.no_grad()
+    def update(grads: Tensors, state, params: Tensors):
+        scale, gnorm = _clip_scale(grads, cfg.grad_clip)
+        step = state["step"] + 1
+        b1c, b2c = _bias_corrections(cfg, step)
+        for k, p in params.items():
+            g = grads[k].to(torch.float32) * scale
+            m = cfg.b1 * state["m"][k] + (1 - cfg.b1) * g
+            v = cfg.b2 * state["v"][k] + (1 - cfg.b2) * g * g
+            mh = m / b1c
+            vh = v / b2c
+            pf = p.to(torch.float32)
+            new_p = pf - cfg.lr * (mh / (torch.sqrt(vh) + cfg.eps)
+                                   + cfg.weight_decay * pf)
+            p.copy_(new_p)
+            state["m"][k].copy_(m)
+            state["v"][k].copy_(v)
+        return params, {"m": state["m"], "v": state["v"], "step": step,
+                        "gnorm": gnorm}
+
+    return Optimizer(init, update, "adamw")
+
+
+# ---------------------------------------------------------------------------
+# 8-bit AdamW (block-wise dynamic quantization)
+# ---------------------------------------------------------------------------
+
+def _q8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantize f32 in blocks along the LAST axis -> (int8 of x's shape,
+    f32 scales (..., n_blocks)); round half to even, as ``jnp.round``."""
+    last = x.shape[-1]
+    block = min(QBLOCK, last)
+    pad = (-last) % block
+    xp = F.pad(x, (0, pad))
+    nb = xp.shape[-1] // block
+    xb = xp.reshape(x.shape[:-1] + (nb, block))
+    s = torch.amax(torch.abs(xb), dim=-1) / 127.0
+    s = torch.where(s == 0, 1.0, s)
+    q = torch.clamp(torch.round(xb / s[..., None]), -127, 127).to(torch.int8)
+    q = q.reshape(xp.shape)[..., :last]
+    return q, s
+
+
+def _dq8(q: torch.Tensor, s: torch.Tensor, shape) -> torch.Tensor:
+    last = shape[-1]
+    block = min(QBLOCK, last)
+    pad = (-last) % block
+    qp = F.pad(q, (0, pad))
+    nb = qp.shape[-1] // block
+    xb = qp.reshape(tuple(shape[:-1]) + (nb, block)).to(torch.float32)
+    xf = xb * s[..., None]
+    return xf.reshape(qp.shape)[..., :last]
+
+
+def adamw8bit(cfg: OptConfig = OptConfig()) -> Optimizer:
+    def init(params: Tensors):
+        def zq(p):
+            q, s = _q8(torch.zeros(p.shape, dtype=torch.float32,
+                                   device=p.device))
+            return {"q": q, "s": s}
+        return {"m": {k: zq(p) for k, p in params.items()},
+                "v": {k: zq(p) for k, p in params.items()},
+                **_scalars(params)}
+
+    @torch.no_grad()
+    def update(grads: Tensors, state, params: Tensors):
+        scale, gnorm = _clip_scale(grads, cfg.grad_clip)
+        step = state["step"] + 1
+        b1c, b2c = _bias_corrections(cfg, step)
+        for k, p in params.items():
+            g = grads[k].to(torch.float32) * scale
+            mq, vq = state["m"][k], state["v"][k]
+            m = cfg.b1 * _dq8(mq["q"], mq["s"], p.shape) + (1 - cfg.b1) * g
+            v = (cfg.b2 * _dq8(vq["q"], vq["s"], p.shape)
+                 + (1 - cfg.b2) * g * g)
+            v = torch.clamp(v, min=0.0)
+            pf = p.to(torch.float32)
+            new_p = pf - cfg.lr * ((m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+                                   + cfg.weight_decay * pf)
+            p.copy_(new_p)
+            mq["q"], mq["s"] = _q8(m)
+            vq["q"], vq["s"] = _q8(v)
+        return params, {"m": state["m"], "v": state["v"], "step": step,
+                        "gnorm": gnorm}
+
+    return Optimizer(init, update, "adamw8bit")
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (factored second moment; Shazeer & Stern 2018)
+# ---------------------------------------------------------------------------
+
+def adafactor(cfg: OptConfig = OptConfig(),
+              stacks: Optional[Stacks] = None) -> Optimizer:
+    """``stacks`` (``lm.param_stacks`` bound to a config) names the
+    parameters that the reference stacks into one leaf over the periods of
+    the block pattern. Each stack is then updated as that one leaf: its
+    members' gradients and parameters stacked, the second moment factored
+    over the stacked shape (so a layer's 1-D gain is a row of a matrix)
+    and the relative-update clip taken over the whole stack; its state
+    ``f[stack name]`` has the reference's stacked shapes. Without
+    ``stacks`` every parameter is a leaf of its own."""
+    def leaves(params: Tensors):
+        """(state key, member names, stacked) of every leaf."""
+        groups = stacks(list(params)) if stacks is not None else {}
+        grouped = {n for members in groups.values() for n in members}
+        return ([(k, [k], False) for k in params if k not in grouped]
+                + [(k, members, True) for k, members in groups.items()])
+
+    def init(params: Tensors):
+        def fac(shape, device):
+            z = lambda shape: torch.zeros(shape, dtype=torch.float32,  # noqa
+                                          device=device)
+            if len(shape) >= 2:
+                return {"vr": z(shape[:-1]),
+                        "vc": z(shape[:-2] + shape[-1:])}
+            return {"v": z(shape)}
+        f = {}
+        for key, members, stacked in leaves(params):
+            p = params[members[0]]
+            f[key] = fac(((len(members),) if stacked else ()) + p.shape,
+                         p.device)
+        return {"f": f, **_scalars(params)}
+
+    @torch.no_grad()
+    def update(grads: Tensors, state, params: Tensors):
+        scale, gnorm = _clip_scale(grads, cfg.grad_clip)
+        step = state["step"] + 1
+        decay = 1.0 - step.to(torch.float32) ** -0.8
+        for key, members, stacked in leaves(params):
+            if stacked:
+                g = torch.stack([grads[n].to(torch.float32)
+                                 for n in members]) * scale
+                pf = torch.stack([params[n].to(torch.float32)
+                                  for n in members])
+            else:
+                g = grads[key].to(torch.float32) * scale
+                pf = params[key].to(torch.float32)
+            f = state["f"][key]
+            g2 = g * g + 1e-30
+            if g.dim() >= 2:
+                vr = decay * f["vr"] + (1 - decay) * torch.mean(g2, dim=-1)
+                vc = decay * f["vc"] + (1 - decay) * torch.mean(g2, dim=-2)
+                denom = (vr[..., None] * vc[..., None, :]
+                         / torch.clamp(torch.mean(vr, dim=-1, keepdim=True)
+                                       [..., None], min=1e-30))
+                upd_ = g * torch.rsqrt(denom + 1e-30)
+                f["vr"], f["vc"] = vr, vc
+            else:
+                v = decay * f["v"] + (1 - decay) * g2
+                upd_ = g * torch.rsqrt(v + 1e-30)
+                f["v"] = v
+            # relative update clipping (Adafactor's d = 1.0)
+            rms = torch.sqrt(torch.mean(upd_ * upd_) + 1e-30)
+            upd_ = upd_ / torch.clamp(rms, min=1.0)
+            new_p = (pf - cfg.lr * upd_
+                     - cfg.lr * cfg.weight_decay * pf)
+            if stacked:
+                for n, row in zip(members, new_p):
+                    params[n].copy_(row)
+            else:
+                params[key].copy_(new_p)
+        return params, {"f": state["f"], "step": step, "gnorm": gnorm}
+
+    return Optimizer(init, update, "adafactor")
+
+
+def make_optimizer(name: str, cfg: OptConfig = OptConfig(),
+                   stacks: Optional[Stacks] = None) -> Optimizer:
+    """The optimizer ``name``; ``stacks`` as ``adafactor`` takes it (the
+    other two update element by element, or in blocks along the last axis,
+    and give the same result whether a layer is a leaf or a row of one)."""
+    if name == "adafactor":
+        return adafactor(cfg, stacks)
+    return {"adamw": adamw, "adamw8bit": adamw8bit}[name](cfg)
+
+
+def optimizer_for_arch(total_params: float) -> str:
+    """Memory-tier policy (see module docstring)."""
+    if total_params > 200e9:
+        return "adafactor"
+    if total_params > 60e9:
+        return "adamw8bit"
+    return "adamw"

@@ -160,3 +160,55 @@ def test_config_copies_equal_the_reference(module):
         assert [a.block_at(i) for i in range(a.n_layers)] == \
             [b.block_at(i) for i in range(b.n_layers)]
     assert get(module).NAME == ref_get(module).NAME
+
+
+@pytest.mark.parametrize("vocab,seq_len,batch,seed,chains,branch", [
+    (128, 16, 4, 0, 8, 32), (151936, 128, 8, 0, 8, 32),
+    (64, 33, 6, 7, 2, 4), (512, 32, 4, 3, 1, 4)])
+def test_data_pipeline_copy_bit_equal(vocab, seq_len, batch, seed, chains,
+                                      branch):
+    """``data/pipeline.py`` is a copy: the same successor tables, rows,
+    batches, host shards and prefetching iterator as the original's."""
+    from repro.data import DataConfig as RefDataConfig
+    from repro.data import SyntheticLMData as RefData
+    from repro_torch.data import DataConfig, SyntheticLMData
+    kw = dict(vocab=vocab, seq_len=seq_len, global_batch=batch, seed=seed,
+              n_chains=chains, branch=branch)
+    got, want = SyntheticLMData(DataConfig(**kw)), RefData(RefDataConfig(**kw))
+    _bit_equal(got._succ, want._succ)
+    for step in (0, 1, 17):
+        for k in ("tokens", "labels"):
+            _bit_equal(got.batch(step)[k], want.batch(step)[k])
+    h = [SyntheticLMData(DataConfig(**kw), host_index=i, n_hosts=2)
+         for i in (0, 1)]
+    hr = [RefData(RefDataConfig(**kw), host_index=i, n_hosts=2)
+          for i in (0, 1)]
+    for a, b in zip(h, hr):
+        _bit_equal(a.batch(5)["tokens"], b.batch(5)["tokens"])
+    it, rit = got.iterator(start_step=3), want.iterator(start_step=3)
+    for _ in range(3):
+        a, b = next(it), next(rit)
+        _bit_equal(a["tokens"], b["tokens"])
+        _bit_equal(a["labels"], b["labels"])
+
+
+@pytest.mark.parametrize("concurrency", [1, 4])
+def test_simulator_copy_bit_equal(concurrency):
+    """``cluster/simulator.py`` is a copy: on the quickstart trace every
+    field of both oracles' ``SimResult`` equals the original's bit for bit
+    (its other modes: ``tests/test_torch_simulator.py``)."""
+    from repro.cluster.simulator import ClusterSimulator as RefSim
+    from repro_torch.cluster.simulator import ClusterSimulator
+    tr, ref_tr = _traces(500, 0)
+    assign = baselines.round_robin(tr, paper_testbed())
+    sim, ref = ClusterSimulator(tr, paper_testbed()), RefSim(ref_tr,
+                                                             ref_testbed())
+    for fn in ("run", "run_event_heap"):
+        got = getattr(sim, fn)(assign, concurrency=concurrency)
+        want = getattr(ref, fn)(assign, concurrency=concurrency)
+        for f in dataclasses.fields(got):
+            a, b = getattr(got, f.name), getattr(want, f.name)
+            if b is None:
+                assert a is None, f.name
+            else:
+                _bit_equal(a, b)

@@ -45,7 +45,8 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_repro(path):
     for name in _imports(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), (path, name)
+        assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), (path,
+                                                                   name)
 
 
 def test_port_modules_import_no_jax_at_runtime():
@@ -58,11 +59,16 @@ def test_port_modules_import_no_jax_at_runtime():
             "repro_torch.kernels.paged_attention, repro_torch.obs, "
             "repro_torch.serving.scheduler, repro_torch.serving.fleet, "
             "repro_torch.launch.serve, repro_torch.models.moe, "
-            "repro_torch.models.ssm, repro_torch.models.xlstm\n"
+            "repro_torch.models.ssm, repro_torch.models.xlstm, "
+            "repro_torch.training.trainer, repro_torch.training.optim, "
+            "repro_torch.training.grad_compress, repro_torch.checkpoint, "
+            "repro_torch.data, repro_torch.launch.train, "
+            "repro_torch.train_small, repro_torch.cluster.simulator, "
+            "repro_torch.online_learning\n"
             "from repro_torch.configs import ARCHS, get\n"
             "[get(a) for a in ARCHS]\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro'))\n"
+            "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
@@ -180,6 +186,7 @@ def test_kernel_build_targets_hopper_and_reports_failures(tmp_path,
     srcs = _build.sources()
     assert [s.name for s in srcs] == ["decode_attention.cu", "dominance.cu",
                                       "flash_attention.cu",
+                                      "flash_attention_bwd.cu",
                                       "paged_attention.cu"]
     assert [h.name for h in _build.headers()] == ["attention_tile.cuh",
                                                   "cp_async.cuh",
@@ -192,6 +199,8 @@ def test_kernel_build_targets_hopper_and_reports_failures(tmp_path,
     assert set(_build.SYMBOLS) == {"repro_dominance_matrix",
                                    "repro_dominance_counts",
                                    "repro_flash_attention",
+                                   "repro_flash_attention_bwd_dq",
+                                   "repro_flash_attention_bwd_dkdv",
                                    "repro_gqa_decode",
                                    "repro_paged_gqa_decode"}
     for name in _build.SYMBOLS:   # every C symbol is defined in a source
@@ -220,3 +229,29 @@ def test_c_entry_points_match_their_ctypes_signatures():
                   .replace("const", "").replace(" ", "")
                   for p in m.group(1).split(",")]
         assert [kinds[p] for p in params] == list(argtypes), name
+
+
+def test_training_entry_points_require_cuda(monkeypatch, tmp_path):
+    """The trainer, the launcher and the crash-and-resume example resolve
+    the card unless the CPU is asked for; the mesh tail raises."""
+    from repro_torch import train_small
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training.trainer import TrainConfig, Trainer
+    cfg = get("qwen3-1.7b").smoke()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, TrainConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.run_train("qwen3-1.7b", smoke=True, steps=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--arch", "qwen3-1.7b", "--smoke", "--steps",
+                           "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_small.main(["--steps", "2"])
+    with pytest.raises(NotImplementedError, match="mesh"):
+        Trainer(cfg, TrainConfig(), device="cpu", mesh=object())
+    hist = launch_train.run_train("qwen3-1.7b", smoke=True, device="cpu",
+                                  steps=2, seq_len=16, global_batch=2,
+                                  log_every=1,
+                                  checkpoint_dir=str(tmp_path / "ck"))
+    assert [h["step"] for h in hist] == [0, 1]

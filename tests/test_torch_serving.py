@@ -158,7 +158,7 @@ def _served_and_forced(name, dtype):
     for i, p in prompts.items():
         toks = results[i]["tokens"]
         seq = torch.tensor([list(p) + toks[:-1]])
-        logits = lm.train_logits(model, cfg, seq)[0, len(p) - 1:]
+        logits = lm.train_logits(model, cfg, seq)[0][0, len(p) - 1:]
         out.append((p, toks, logits))
     return cfg, model, out
 
@@ -172,7 +172,7 @@ def test_engine_matches_teacher_forced_greedy(name):
     for p, toks, _ in runs:
         seq = list(p)
         for _ in range(len(toks)):
-            logits = lm.train_logits(model, cfg, torch.tensor([seq]))
+            logits, _ = lm.train_logits(model, cfg, torch.tensor([seq]))
             seq.append(int(torch.argmax(logits[0, -1])))
         assert toks == seq[len(p):]
 
