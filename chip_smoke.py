@@ -171,7 +171,11 @@ in the order 1-5, 9, 13, 14, 6, 10, 7, 8, 11, 12, 15, 16, 17):
    whisper's non-causal S 1,504 at D 64; the forward's lse against the
    plain log-sum-exp and its output bits unchanged by writing it; inputs
    past S of +-999 and NaN leaving every gradient bit for bit unchanged;
-   two calls bit-equal; unaligned bf16 views refused. Then qwen3-1.7b at
+   two calls bit-equal; bf16 on the tensor-core kernels
+   (``flash_bwd_dq_wgmma<128>``, ``flash_bwd_dkdv_wgmma<128>``) and f32
+   on the CUDA-core ones, by their profiled names
+   (``flash_attention.backward_route``); unaligned bf16 views refused.
+   Then qwen3-1.7b at
    its published widths (2.03 B parameters, random bf16 weights from a
    seed) trains through ``repro_torch.launch.train.run_train`` for 4 steps
    at TrainConfig's defaults (seq 128, global batch 8) in 2 microbatches,
@@ -191,8 +195,9 @@ in the order 1-5, 9, 13, 14, 6, 10, 7, 8, 11, 12, 15, 16, 17):
    and a checkpoint under build/, restored bit for bit; a fresh trainer
    resumes to step 4 within 1e-3 relative of the straight run's losses;
    bytes, save and restore seconds); last, in a fresh process, the
-   backward and forward + backward timed at the training shape beside the
-   plain version, SDPA's forward + backward and the bound.
+   backward (with the dq and dk/dv kernels' device times apart) and
+   forward + backward timed at the training shape and at B 1, S 1,024
+   beside the plain version, SDPA's forward + backward and the bound.
 
 Phase 6 also holds the flash kernel's prefix-extend variant against its
 plain version (bucketed and exact-length, garbage and NaN past prefix_len).
@@ -273,6 +278,10 @@ TRAIN_PROFILED_STEP = 2
 # times max|g| of each of dq, dk, dv
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 BWD_S = (1, 17, 64, 127, 128, 129, 512)
+# the backward's kernels by route (flash_attention.backward_route)
+BWD_KERNEL_NAMES = {"wgmma": ("flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma"),
+                    "cuda_cores": ("flash_bwd_dq_kernel",
+                                   "flash_bwd_dkdv_kernel")}
 # (B, Hq, Hkv, D): the training heads; D 64 / 80 / 128 at group 2; groups
 # 1, 2, 4, 5, 6 at D 128
 BWD_HEADS = ((4, 16, 8, 128),) + tuple((1, 4, 2, d) for d in (64, 80)) + \
@@ -1565,10 +1574,11 @@ def extend_timing(S_pre, Sq, plen, B=1, Hq=16, Hkv=8, D=128):
     return out
 
 
-def _kernel_name(signature):
-    """A profiled kernel's name without its namespace and arguments."""
+def _kernel_name(signature, stem=r"\w+_kernel\w*"):
+    """A profiled kernel's name (``stem``, a regex, and its template
+    arguments) without its namespace and arguments."""
     import re
-    return re.search(r"\w+_kernel\w*(<[^>]*>)?", signature).group(0)
+    return re.search(stem + r"(<[^>]*>)?", signature).group(0)
 
 
 def check_kernel_routes():
@@ -3031,7 +3041,8 @@ def check_flash_backward():
     forward's lse against the plain log-sum-exp and its output bits equal
     to the call without lse; inputs past S filled with +-999 and NaN leave
     every gradient bit for bit unchanged; two calls give the same bits;
-    unaligned bf16 views raise."""
+    bf16 runs the tensor-core kernels and f32 the CUDA-core ones, by their
+    profiled names; unaligned bf16 views raise."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
@@ -3086,6 +3097,20 @@ def check_flash_backward():
                 assert all(torch.equal(a, b) for a, b in zip(g, base)), \
                     ("junk past S", junk, dname, S)
                 n += 1
+    # the route each type takes, by the kernels' profiled names
+    routes = {}
+    for dname, dt in _dtypes().items():
+        q, k, v, do = _bwd_inputs(1, 4, 2, 128, 128, dt, gen)
+        out, lse = fa.flash_attention_lse_cuda(q, k, v, True)
+        every = device_kernel_names(fa.flash_attention_backward_cuda, q, k,
+                                    v, out, lse, do, True)
+        names = sorted({_kernel_name(n, r"flash_bwd_\w+") for n in every
+                        if "flash_bwd_" in n})
+        dq_name, dkdv_name = BWD_KERNEL_NAMES[fa.backward_route(dt)]
+        if fa.backward_route(dt) == "wgmma":   # D 128
+            dq_name, dkdv_name = dq_name + "<128>", dkdv_name + "<128>"
+        assert names == sorted([dq_name, dkdv_name]), (dname, names)
+        routes[dname] = {"route": fa.backward_route(dt), "kernels": names}
     # unaligned bf16 views: through the autograd path and the wrapper
     x = torch.randn((1, 2 * 16 * 64 + 1), device="cuda").to(torch.bfloat16)
     bad = x[:, 1:].view(1, 16, 2, 64).transpose(1, 2).requires_grad_(True)
@@ -3101,15 +3126,24 @@ def check_flash_backward():
             continue
         raise AssertionError("an unaligned bf16 view was accepted")
     return {"cases": n, "max_abs_err": errs, "max_err_over_max_g": rel,
-            "lse_max_abs_err": lse_err}
+            "lse_max_abs_err": lse_err, "routes": routes}
+
+
+def flash_backward_timings():
+    """The backward timed at the training shape and at one longer sequence
+    (B 1, S 1,024), where the products rather than the launches carry the
+    time."""
+    return {"training": flash_backward_timing(),
+            "s1024": flash_backward_timing(B=1, S=1024)}
 
 
 def flash_backward_timing(B=4, Hq=16, Hkv=8, D=128, S=128):
-    """At the training shape (bf16, causal, the projections' layout): the
-    forward + backward through ``ops.flash_attention``'s autograd path and
-    the backward alone, each as device time (profiler), wrapper time (CUDA
-    events), the plain version's time, the bound and SDPA's forward +
-    backward."""
+    """At a training shape (bf16, causal, the projections' layout; by
+    default the training run's): the forward + backward through
+    ``ops.flash_attention``'s autograd path and the backward alone, each as
+    device time (profiler), wrapper time (CUDA events), the plain version's
+    time, the bound and SDPA's forward + backward; the dq and dk/dv
+    kernels' device times apart."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -3168,6 +3202,10 @@ def flash_backward_timing(B=4, Hq=16, Hkv=8, D=128, S=128):
         out_row[name] = {"ms": time_ms(fn), "device_ms": device_total_ms(fn),
                          "plain_ms": time_ms(plain), "bound_ms": b_ms,
                          "bound_by": b_by, "bytes": nbytes, "ops": n_ops}
+    # each backward kernel's own device time, by its profiled name
+    for kname in BWD_KERNEL_NAMES[fa.backward_route(q.dtype)]:
+        out_row["backward"][f"{kname}_device_ms"] = device_kernel_ms(
+            bwd, name=kname)
     got = fwd_bwd()
     try:
         want = library()
@@ -3458,7 +3496,8 @@ def phase_train():
     print(json.dumps({"train_card_vs_cpu": vs_cpu}), flush=True)
     resume = train_crash_resume()
     print(json.dumps({"train_crash_resume": resume}), flush=True)
-    timing = in_fresh_process("chip_smoke.flash_backward_timing()")
+    timings = in_fresh_process("chip_smoke.flash_backward_timings()")
+    timing = timings["training"]
     failures = []
     if vs_cpu["loss_rel_err"] > 1e-5:
         failures.append(("card vs CPU loss", vs_cpu["loss_rel_err"]))
@@ -3470,7 +3509,7 @@ def phase_train():
                          vs_cpu["worst_step_err_over_max_delta"]))
     row = {"phase": "train", "main_path": main, "card_vs_cpu": vs_cpu,
            "crash_resume": resume, "backward_checks": kernels,
-           "timing": timing}
+           "timing": timing, "timing_s1024": timings["s1024"]}
     emit(row)
     assert not failures, failures
     return row
@@ -3634,12 +3673,17 @@ def main():
         "lse_max_abs_err": trn["backward_checks"]["lse_max_abs_err"],
         **{k: trn["timing"]["backward"][k] for k in (
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+        "kernel_device_ms": {
+            k: v for k, v in trn["timing"]["backward"].items()
+            if k.startswith("flash_bwd_")},
+        "routes": trn["backward_checks"]["routes"],
         "library_ms": trn["timing"]["library_ms"],
         "library": "scaled_dot_product_attention(is_causal=True, "
                    "enable_gqa=True) forward + backward",
         "library_device_ms": trn["timing"].get("library_device_ms"),
         "forward_backward": trn["timing"]["forward_backward"],
-        "shape": trn["timing"]["shape"]}]})
+        "shape": trn["timing"]["shape"],
+        "s1024": trn["timing_s1024"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -16,7 +16,10 @@ Training adds the gradient (``csrc/flash_attention_bwd.cu``, its own
 counter :data:`BWD_LAUNCHES`): the forward also writes each row's
 log-sum-exp (:func:`flash_attention_lse_cuda`), and
 :func:`flash_attention_backward_cuda` launches the two backward kernels,
-dq (which also writes D = rowsum(dO o O)) and then dk/dv.
+dq (which also writes D = rowsum(dO o O)) and then dk/dv. They too are
+chosen by type (:func:`backward_route`): bf16 on the tensor cores in tiles
+of :data:`BWD_WGMMA_TILE`, f32 on the CUDA cores in tiles of
+:data:`BWD_TILE`.
 """
 from __future__ import annotations
 
@@ -36,8 +39,10 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 #: the backward's kernels a backward pass: dq (with D), then dk/dv
 BWD_KERNELS = 2
-#: query rows and keys of one tile of the backward kernels
+#: query rows and keys of one tile of the f32 backward kernels (CUDA cores)
 BWD_TILE = 32
+#: query rows and keys of one tile of the bf16 backward kernels (``wgmma``)
+BWD_WGMMA_TILE = 64
 
 
 def route(dtype: torch.dtype) -> str:
@@ -48,6 +53,20 @@ def route(dtype: torch.dtype) -> str:
     if dtype == torch.float32:
         return "cuda_cores"
     raise ValueError(f"flash attention takes float32 or bfloat16, got "
+                     f"{dtype}")
+
+
+def backward_route(dtype: torch.dtype) -> str:
+    """Which backward kernels the C entry points run for ``dtype``:
+    "wgmma" (bf16: ``flash_bwd_dq_wgmma`` and ``flash_bwd_dkdv_wgmma``, the
+    tensor cores, P and dS rounded to bf16) or "cuda_cores" (f32:
+    ``flash_bwd_dq_kernel`` and ``flash_bwd_dkdv_kernel``, f32 math, which
+    alone meets the f32 tolerance)."""
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "cuda_cores"
+    raise ValueError(f"the flash backward takes float32 or bfloat16, got "
                      f"{dtype}")
 
 
@@ -143,11 +162,14 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
                                              torch.Tensor]:
     """(dq, dk, dv) of :func:`flash_attention_cuda` at (q, k, v), given its
     output ``out``, the forward's ``lse`` and the output's gradient
-    ``dout`` (q's shape). Math in f32 for both types; the gradients come
-    back in the input's type, as (B, H, S, D) views of (B, S, H, D)
-    buffers. Deterministic: two calls give the same bits. Two launches,
-    both counted in :data:`BWD_LAUNCHES`. bf16 inputs must be aligned as
-    the forward's (:func:`check_alignment`), which computed ``out``."""
+    ``dout`` (q's shape). The kernels follow :func:`backward_route`: bf16
+    products on the tensor cores with f32 sums (P and dS rounded to bf16),
+    f32 math on the CUDA cores for f32. The gradients come back in the
+    input's type, as (B, H, S, D) views of (B, S, H, D) buffers.
+    Deterministic: two calls give the same bits. Two launches, both counted
+    in :data:`BWD_LAUNCHES`. bf16 inputs must be aligned as the forward's
+    (:func:`check_alignment`: the tensor cores' kernels load 16-byte
+    chunks)."""
     global BWD_LAUNCHES
     name = "flash_attention_backward_cuda"
     check_attention_inputs(name, q, k, v, 4)
@@ -162,7 +184,7 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
                          f"out {tuple(out.shape)}, dout "
                          f"{tuple(dout.shape)}, lse {tuple(lse.shape)} "
                          f"{lse.dtype}")
-    if q.dtype == torch.bfloat16:   # as the forward's tensor-core kernel
+    if backward_route(q.dtype) == "wgmma":
         check_alignment(name, q, k, v, out, dout)
     dq, dk, dv = _grad_like(q), _grad_like(k), _grad_like(v)
     dsum = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)

@@ -27,7 +27,7 @@ from repro_torch.workload.trace import build_trace
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "flash_ab.py"]
 
 
 def _imports(path):
@@ -190,7 +190,8 @@ def test_kernel_build_targets_hopper_and_reports_failures(tmp_path,
                                       "paged_attention.cu"]
     assert [h.name for h in _build.headers()] == ["attention_tile.cuh",
                                                   "cp_async.cuh",
-                                                  "split_decode.cuh"]
+                                                  "split_decode.cuh",
+                                                  "wgmma_tile.cuh"]
     for s in srcs:
         cmd = _build.compile_command("nvcc", s, tmp_path / "k.o")
         assert "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd
