@@ -8,8 +8,9 @@ the port's paths on the card, the routing loop, the serving engine and its
 prefix reuse on session traffic, the runtime router's rolling-horizon
 re-fit on open-loop SLO traffic, the whole policy registry on the policy
 matrix, the cluster server end to end, every non-dense model family in the
-serving engine, and training, in phases that each print one JSON line (run
-in the order 1-5, 9, 13, 14, 6, 10, 7, 8, 11, 12, 15, 16, 17):
+serving engine, training, and the mesh tail on a world of one, in phases
+that each print one JSON line (run in the order 1-5, 9, 13, 14, 6, 10, 7,
+8, 11, 12, 15, 16, 17, 18):
 
 1. card: ``nvidia-smi`` name and power limit, torch/CUDA versions, build time;
 2. kernels: the dominance kernel against its plain PyTorch version on the
@@ -198,6 +199,19 @@ in the order 1-5, 9, 13, 14, 6, 10, 7, 8, 11, 12, 15, 16, 17):
    backward (with the dq and dk/dv kernels' device times apart) and
    forward + backward timed at the training shape and at B 1, S 1,024
    beside the plain version, SDPA's forward + backward and the bound.
+18. mesh: a world of one on NCCL (a ``file://`` rendezvous under build/,
+   ``make_host_mesh(model=1)``; no fallback: a failure to init NCCL or
+   build the mesh fails the phase). ``Trainer(mesh=)`` at qwen3-1.7b's
+   published widths cut to 4 of 28 layers (``reduced``: depth, to keep the
+   comparison short), 2 adamw steps of TRAIN_RUN's batch, held bit for bit
+   against ``Trainer()`` on the same seed, run one after the other: loss,
+   nll and gnorm, every parameter and moment, and the flash forward and
+   backward launches (32 + 32); its checkpoint, saved with the specs,
+   restored onto the mesh bit for bit; then one mesh step at full depth
+   (112 + 112 launches, peak memory). ``psum_compressed`` for its three
+   methods equal to the local formula; the quickstart evaluator's fitness
+   on ``population_mesh()`` bit for bit equal to the unsharded one on 101
+   genomes, then a 5-generation NSGA-II run on it (6 dominance launches).
 
 Phase 6 also holds the flash kernel's prefix-extend variant against its
 plain version (bucketed and exact-length, garbage and NaN past prefix_len).
@@ -274,6 +288,12 @@ FAMILY_DECODE_HEADS = ((40, 8, 128), (48, 8, 128), (6, 6, 64))
 TRAIN_MODEL = "qwen3-1.7b"
 TRAIN_RUN = dict(seq_len=128, global_batch=8, microbatches=2, steps=4)
 TRAIN_PROFILED_STEP = 2
+# phase 18: the sharded trainer on a world of one, qwen3-1.7b cut to 4 of 28
+# layers for the bit-for-bit comparison (then one step at full depth)
+MESH_LAYERS = 4
+MESH_TRAIN = dict(seq_len=128, global_batch=8, microbatches=2, steps=2,
+                  optimizer="adamw", log_every=1)
+MESH_FITNESS = dict(pop_size=100, n_generations=5)
 # the backward kernel against its plain version: gradients within this
 # times max|g| of each of dq, dk, dv
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -3515,6 +3535,253 @@ def phase_train():
     return row
 
 
+def _mesh_step_launches(n_layers, steps):
+    from repro_torch.kernels import flash_attention as fa
+    per = n_layers * MESH_TRAIN["microbatches"]
+    return {"flash_attention": 2 * per * steps,
+            "flash_attention_backward": fa.BWD_KERNELS * per * steps}
+
+
+def _bits_equal(a, b):
+    import torch
+    a, b = a.detach(), b.detach()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dim():
+        a, b = a.contiguous().view(torch.uint8), b.contiguous().view(
+            torch.uint8)
+    return bool(torch.equal(a, b))
+
+
+def mesh_trainer_vs_plain(mesh, tmp):
+    """Trainer(mesh=) against Trainer() on the same seed at MESH_LAYERS
+    layers, one after the other: metrics, parameters, moments and launches
+    bit for bit / equal; the mesh run's checkpoint (with specs) restored
+    onto the mesh bit for bit. Then one mesh step at full depth."""
+    import torch
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.training.trainer import TrainConfig, Trainer
+    cfg = _train_cfg(n_layers=MESH_LAYERS)
+    steps = MESH_TRAIN["steps"]
+    runs = {}
+    for name in ("plain", "mesh"):
+        _free_cuda()
+        kw = ({"checkpoint_dir": str(tmp), "checkpoint_every": 100}
+              if name == "mesh" else {})
+        trainer = Trainer(cfg, TrainConfig(**MESH_TRAIN, **kw),
+                          device="cuda",
+                          mesh=mesh if name == "mesh" else None)
+        zero_launches()
+        probe = _TrainProbe()
+        t0 = time.perf_counter()
+        model, state, hist = trainer.run(resume=False, callback=probe)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts(**_mesh_step_launches(cfg.n_layers, steps))
+        if name == "mesh":
+            params = {k: p.full_tensor() for k, p in trainer.params.items()}
+            moments = {m: {k: t.full_tensor() for k, t in state[m].items()}
+                       for m in ("m", "v")}
+        else:
+            params = {k: p.detach() for k, p in model.named_parameters()}
+            moments = {m: dict(state[m]) for m in ("m", "v")}
+        runs[name] = dict(trainer=trainer, state=state, hist=hist,
+                          params=params, moments=moments, wall=wall,
+                          step_walls=probe.walls, launches=launches)
+    a, b = runs["plain"], runs["mesh"]
+    metrics_equal = [(h["loss"], h["nll"], h["gnorm"]) for h in a["hist"]] \
+        == [(h["loss"], h["nll"], h["gnorm"]) for h in b["hist"]]
+    params_equal = sum(_bits_equal(a["params"][k], b["params"][k])
+                       for k in a["params"])
+    moments_equal = sum(_bits_equal(a["moments"][m][k], b["moments"][m][k])
+                        for m in ("m", "v") for k in a["params"])
+    tr = b["trainer"]
+    t0 = time.perf_counter()
+    (rp, rs), manifest = tr.ckpt.restore((tr.params, b["state"]), mesh=mesh,
+                                         specs=(tr.pspecs, tr.sspecs))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restored_equal, n_leaves = 0, 0
+    for (_, x), (_, y) in zip(_flatten((rp, rs)),
+                              _flatten((tr.params, b["state"]))):
+        n_leaves += 1
+        restored_equal += (x.placements == y.placements
+                           and _bits_equal(x.full_tensor(), y.full_tensor()))
+    row = {"model": cfg.name, "layers": cfg.n_layers, "train": MESH_TRAIN,
+           "losses": [h["loss"] for h in b["hist"]],
+           "gnorm": [h["gnorm"] for h in b["hist"]],
+           "metrics_bit_equal": metrics_equal,
+           "params_bit_equal": [params_equal, len(a["params"])],
+           "moments_bit_equal": [moments_equal, 2 * len(a["params"])],
+           "launches_plain": a["launches"], "launches_mesh": b["launches"],
+           "wall_s_plain": a["wall"], "wall_s_mesh": b["wall"],
+           # host time between steps: the first holds the init (and on
+           # the mesh the first sharding), the last run's wall the save
+           "step_walls_s_plain": a["step_walls"],
+           "step_walls_s_mesh": b["step_walls"],
+           "checkpoint_specs_recorded": manifest["specs"] is not None,
+           "restored_bit_equal": [restored_equal, n_leaves],
+           "restore_s": restore_s}
+    del runs, a, b, tr, rp, rs
+    _free_cuda()
+    # one step at full depth under the mesh (112 + 112 flash launches),
+    # and its peak memory against the plain trainer's on the same step
+    full = _train_cfg()
+    peak = {}
+    for name in ("plain", "mesh"):
+        trainer = Trainer(full, TrainConfig(**{**MESH_TRAIN, "steps": 1}),
+                          device="cuda",
+                          mesh=mesh if name == "mesh" else None)
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.perf_counter()
+        model, state, hist = trainer.run(resume=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak[name] = torch.cuda.max_memory_allocated() / 1e9
+        assert math.isfinite(hist[0]["loss"]), hist
+        del model, state
+        if name == "plain":
+            del trainer
+            _free_cuda()
+    row["full_depth"] = {
+        "layers": full.n_layers, "loss": hist[0]["loss"],
+        "gnorm": hist[0]["gnorm"], "wall_s": wall,
+        "launches": launch_counts(**_mesh_step_launches(full.n_layers, 1)),
+        "peak_memory_gb": peak["mesh"], "peak_memory_gb_plain": peak["plain"],
+        # the trainer's own accounting: whole parameters filled at once,
+        # what an update group gathers whole (none for adamw), the f32
+        # gradient blocks
+        "trainer_peak_gb": {k: v / 1e9
+                            for k, v in trainer.peak_bytes.items()}}
+    del trainer
+    _free_cuda()
+    return row
+
+
+def mesh_psum():
+    """psum_compressed on the world of one for its three methods against
+    the local formula (the reduction over one rank is the identity)."""
+    import torch
+    from repro_torch.training.grad_compress import (compress_int8,
+                                                    compress_topk,
+                                                    decompress_int8,
+                                                    init_residual,
+                                                    psum_compressed)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    grads = {"w": torch.randn(64, 1000, generator=gen, device="cuda"),
+             "b": torch.randn(300, generator=gen, device="cuda")
+             .to(torch.bfloat16)}
+    res = init_residual(grads)
+    q, s, _ = compress_int8(grads, res)
+    want = {"int8": decompress_int8(q, s, grads),
+            "topk": compress_topk(grads, res)[0],
+            "none": {k: g.to(torch.float32) for k, g in grads.items()}}
+    out = {}
+    for method, w in want.items():
+        mean, _ = psum_compressed(grads, res, None, method=method)
+        out[method] = all(_bits_equal(mean[k], w[k]) for k in grads)
+    return out
+
+
+def mesh_fitness():
+    """The quickstart evaluator's fitness on ``population_mesh()`` against
+    the unsharded one on the same genomes (bit for bit), then a
+    MESH_FITNESS NSGA-II run through the sharded fitness: its survival
+    runs the dominance kernel (1 + generations launches)."""
+    import torch
+    from repro_torch.cluster.spec import paper_testbed
+    from repro_torch.core.fitness import (EvalConfig, TraceEvaluator,
+                                          population_mesh)
+    from repro_torch.core.nsga2 import NSGA2, NSGA2Config
+    from repro_torch.core.policies.threshold import BOUNDS_HI, BOUNDS_LO
+    from repro_torch.workload.trace import build_trace
+    ev = TraceEvaluator(build_trace(QUICKSTART["n_requests"], seed=0),
+                        paper_testbed(), EvalConfig(concurrency=1),
+                        device="cuda")
+    mesh = population_mesh()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    lo = torch.as_tensor(BOUNDS_LO, device="cuda")
+    hi = torch.as_tensor(BOUNDS_HI, device="cuda")
+    g = lo + (hi - lo) * torch.rand((MESH_FITNESS["pop_size"] + 1, 6),
+                                    generator=gen, device="cuda")
+    zero_launches()
+    F0, v0 = ev.make_fitness("threshold")(g)
+    t0 = time.perf_counter()
+    F1, v1 = ev.make_fitness("threshold", mesh=mesh)(g)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    cfg = NSGA2Config(lo=BOUNDS_LO, hi=BOUNDS_HI, **MESH_FITNESS)
+    opt = NSGA2(ev.make_fitness("threshold", mesh=mesh), cfg, device="cuda")
+    t0 = time.perf_counter()
+    state = opt.evolve(torch.Generator(device="cuda").manual_seed(42))
+    torch.cuda.synchronize()
+    evolve_s = time.perf_counter() - t0
+    launches = launch_counts(
+        dominance_matrix=1 + MESH_FITNESS["n_generations"])
+    F = state.F_raw
+    assert F.shape == (MESH_FITNESS["pop_size"], 3)
+    assert bool(torch.isfinite(F).all())
+    return {"mesh_size": mesh.size(), "genomes": int(g.shape[0]),
+            "F_bit_equal": _bits_equal(F0, F1),
+            "violation_bit_equal": _bits_equal(v0, v1),
+            "sharded_eval_s": eval_s, "nsga2": MESH_FITNESS,
+            "evolve_s": evolve_s, "launches": launches}
+
+
+def phase_mesh():
+    """Phase 18: the mesh tail on a world of one (NCCL, a ``file://``
+    rendezvous under build/): the sharded trainer bit for bit against the
+    plain one, its checkpoint restored onto the mesh, psum_compressed, and
+    the population-sharded fitness with NSGA-II on it."""
+    import datetime
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=root, prefix="chip_smoke_mesh_"))
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp / 'rdv'}", rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=300),
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_host_mesh(model=1)
+        assert dist.get_backend() == "nccl" and mesh.device_type == "cuda"
+        train = mesh_trainer_vs_plain(mesh, tmp / "ckpt")
+        print(json.dumps({"mesh_train": train}), flush=True)
+        psum = mesh_psum()
+        fitness = mesh_fitness()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+        _free_cuda()
+    row = {"phase": "mesh", "world": 1, "backend": "nccl",
+           "mesh": {"data": 1, "model": 1}, "train": train,
+           "psum_compressed_equal_local": psum, "fitness": fitness,
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    failures = []
+    if not train["metrics_bit_equal"]:
+        failures.append("mesh trainer metrics != Trainer()'s")
+    for key in ("params_bit_equal", "moments_bit_equal",
+                "restored_bit_equal"):
+        if train[key][0] != train[key][1]:
+            failures.append((key, train[key]))
+    if train["launches_mesh"] != train["launches_plain"]:
+        failures.append(("launches", train["launches_mesh"],
+                         train["launches_plain"]))
+    if not all(psum.values()):
+        failures.append(("psum_compressed", psum))
+    if not (fitness["F_bit_equal"] and fitness["violation_bit_equal"]):
+        failures.append("sharded fitness != unsharded")
+    assert not failures, failures
+    return row
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3554,6 +3821,7 @@ def main():
     fam = timed("families", phase_families)
     del run, model, sess_run   # the serving models: training needs the room
     trn = timed("train", phase_train)
+    msh = timed("mesh", phase_mesh)
     emit({"phase": "times", "card": smi, "seconds": phase_s,
           "total_s": sum(phase_s.values())})
 
@@ -3572,6 +3840,8 @@ def main():
         "launches_online": onl["launches"],
         "launches_online_refit_256": onl["refit_256"]["launches"],
         "launches_cluster": clu["launches"]["dominance_matrix"],
+        "launches_mesh_fitness": msh["fitness"]["launches"][
+            "dominance_matrix"],
         "launches_policy_matrix": mat["launches"],
         "launches_policy_matrix_refits": {
             m: r["launches"] for m, r in mat["refits"].items()},
@@ -3623,6 +3893,9 @@ def main():
         "launches_serve_sessions": sess_launches["flash_attention"],
         "launches_cluster": clu["launches"]["flash_attention"],
         "launches_families": fam["launches"]["flash_attention"],
+        "launches_mesh": msh["train"]["launches_mesh"]["flash_attention"],
+        "launches_mesh_full_depth_step":
+            msh["train"]["full_depth"]["launches"]["flash_attention"],
         "cases": fa["cases"] + attn["flash_extend"]["cases"],
         "max_abs_err": max(list(fa["max_abs_err"].values())
                            + list(attn["flash_extend"]["max_abs_err"]
@@ -3665,6 +3938,10 @@ def main():
                               "(the TPU kernel has no backward)",
         "launches": trn["main_path"]["launches"]["flash_attention_backward"],
         "launches_per_step": trn["main_path"]["launches_per_step"],
+        "launches_mesh": msh["train"]["launches_mesh"][
+            "flash_attention_backward"],
+        "launches_mesh_full_depth_step": msh["train"]["full_depth"][
+            "launches"]["flash_attention_backward"],
         "kernels_a_backward": BWD_KERNELS,
         "cases": trn["backward_checks"]["cases"],
         "max_abs_err": max(trn["backward_checks"]["max_abs_err"].values()),

@@ -20,8 +20,17 @@ npz has no bfloat16, and the port does not use ``ml_dtypes``: a bf16
 tensor is stored as its raw 16 bits (``uint16``), with "bfloat16" recorded
 as its logical dtype, and restored to the same bits (float8_e4m3fn the same
 way as ``uint8``). A tree is nested dicts, lists and tuples of tensors.
-Restoring onto a mesh (``mesh=``, ``specs=``: the reference's elastic
-reshard) belongs to the multi-device part of the port and raises.
+
+Sharded trees (the sharded trainer's DTensors): ``CheckpointManager.save``
+gathers each DTensor to the whole array (a collective: all ranks call
+it), and rank 0 alone copies them to the host and writes them, as
+``host_0``. ``specs`` (a
+tree of ``models.sharding`` specs shaped like the data) goes into the
+manifest in the reference's JSON (``[None, "model"]``, a tuple of axes as a
+list). ``load_checkpoint(mesh=)`` is the **elastic** restore: each array is
+placed on the current mesh as a DTensor, by the given specs or else the
+recorded ones, with the axes that do not divide a dimension dropped, so
+the mesh need not be the one the checkpoint was written on.
 """
 from __future__ import annotations
 
@@ -35,6 +44,11 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed
+from torch.distributed.tensor import DTensor
+
+from ..models.sharding import (_fit, is_spec, shard, spec_from_json,
+                               spec_to_json)
 
 # logical dtype -> (torch dtype, the numpy type its bits are stored as, the
 # torch type of the same width that numpy converts to)
@@ -44,16 +58,24 @@ _BITCAST = {"bfloat16": (torch.bfloat16, np.uint16, torch.int16),
 _SEP = "/"
 
 
-def _flatten(tree, prefix=""):
-    if isinstance(tree, dict):
+def _flatten(tree, prefix="", is_leaf=None):
+    if is_leaf is not None and is_leaf(tree):
+        yield prefix, tree
+    elif isinstance(tree, dict):
         for k in sorted(tree):
             yield from _flatten(tree[k],
-                                f"{prefix}{_SEP}{k}" if prefix else str(k))
+                                f"{prefix}{_SEP}{k}" if prefix else str(k),
+                                is_leaf)
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from _flatten(v, f"{prefix}{_SEP}{i}")
+            yield from _flatten(v, f"{prefix}{_SEP}{i}", is_leaf)
     else:
         yield prefix, tree
+
+
+def _flat_specs(specs) -> Dict[str, tuple]:
+    """{leaf path: spec} of a specs tree (a spec is a tuple leaf)."""
+    return dict(_flatten(specs, is_leaf=is_spec))
 
 
 def _unflatten_into(template, flat: Dict[str, Any]):
@@ -97,14 +119,25 @@ def _from_host(arr: np.ndarray, logical: str) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def _host_copy(tree):
-    """The tree with every tensor copied to the host (a new tensor)."""
+def _host_copy(tree, keep: bool = True):
+    """The tree with every tensor copied to the host (a new tensor); a
+    DTensor gathered to its whole array first (a collective, one leaf at
+    a time). With ``keep`` False the DTensors are gathered (every rank
+    takes part) and dropped, and nothing is copied."""
     if isinstance(tree, dict):
-        return {k: _host_copy(v) for k, v in tree.items()}
+        return {k: _host_copy(v, keep) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_host_copy(v) for v in tree)
+        return type(tree)(_host_copy(v, keep) for v in tree)
+    if isinstance(tree, DTensor):
+        tree = tree.full_tensor()
+    if not keep:
+        return None
     return (tree.detach().to("cpu", copy=True) if torch.is_tensor(tree)
             else tree)
+
+
+def _sharded(tree) -> bool:
+    return any(isinstance(leaf, DTensor) for _, leaf in _flatten(tree))
 
 
 def _host_leaf(leaf):
@@ -115,10 +148,9 @@ def _host_leaf(leaf):
 def save_checkpoint(directory: str | Path, step: int, tree,
                     specs=None, metadata: Optional[dict] = None,
                     process_index: int = 0, keep: int = 3) -> Path:
-    """Write one checkpoint step atomically. Returns the committed path."""
-    if specs is not None:
-        raise NotImplementedError("checkpoint specs= (sharded layouts) are "
-                                  "not ported")
+    """Write one checkpoint step atomically. Returns the committed path.
+    ``specs`` (a specs tree shaped like ``tree``) is recorded in the
+    manifest."""
     directory = Path(directory)
     tmp = directory / f"step_{step:08d}.tmp"
     final = directory / f"step_{step:08d}"
@@ -136,7 +168,10 @@ def save_checkpoint(directory: str | Path, step: int, tree,
 
     if process_index == 0:
         manifest = {"step": step, "time": time.time(), "entries": entries,
-                    "metadata": metadata or {}, "specs": None}
+                    "metadata": metadata or {},
+                    "specs": ({k: spec_to_json(v)
+                               for k, v in _flat_specs(specs).items()}
+                              if specs is not None else None)}
         (tmp / "manifest.json").write_text(json.dumps(manifest))
         os.rename(tmp, final)                        # atomic commit
         _gc(directory, keep)
@@ -166,10 +201,12 @@ def load_checkpoint(directory: str | Path, template, step: Optional[int] = None,
     """Restore a checkpoint into ``template``'s structure: (tree,
     manifest). Each leaf lands on the device of the template's leaf (the
     CPU where the template's leaf is not a tensor), with its saved dtype
-    and bits."""
-    if mesh is not None or specs is not None:
-        raise NotImplementedError("restoring onto a mesh (mesh=, specs=) is "
-                                  "not ported")
+    and bits.
+
+    With ``mesh`` (a ``DeviceMesh``) every leaf becomes a DTensor on it
+    instead: its spec from ``specs`` (a specs tree shaped like the
+    template) or else the manifest's (replicated where neither has one),
+    with the axes that do not divide a dimension dropped (``_fit``)."""
     directory = Path(directory)
     step = latest_step(directory) if step is None else step
     if step is None:
@@ -180,6 +217,9 @@ def load_checkpoint(directory: str | Path, template, step: Optional[int] = None,
     devices = {path: (leaf.device if torch.is_tensor(leaf)
                       else torch.device("cpu"))
                for path, leaf in _flatten(template)}
+    if mesh is not None:
+        given = _flat_specs(specs) if specs is not None else {}
+        recorded = manifest.get("specs") or {}
     out: Dict[str, torch.Tensor] = {}
     for host_dir in sorted(d.glob("host_*")):
         with np.load(host_dir / "arrays.npz") as z:
@@ -187,8 +227,15 @@ def load_checkpoint(directory: str | Path, template, step: Optional[int] = None,
                 path = k.replace("|", "/")
                 arr = z[k]
                 logical = entries.get(path, {}).get("dtype", str(arr.dtype))
-                out[path] = _from_host(arr, logical).to(
-                    devices.get(path, torch.device("cpu")))
+                t = _from_host(arr, logical)
+                if mesh is None:
+                    out[path] = t.to(devices.get(path, torch.device("cpu")))
+                    continue
+                spec = (given[path] if path in given else
+                        spec_from_json(recorded[path]) if path in recorded
+                        else ())
+                spec = _fit(mesh, spec, tuple(t.shape))
+                out[path] = shard(t.to(mesh.device_type), mesh, spec)
     return _unflatten_into(template, out), manifest
 
 
@@ -209,10 +256,17 @@ class CheckpointManager:
 
     def save(self, step: int, tree, specs=None, metadata=None,
              blocking: bool = False):
+        """Save ``tree`` as step ``step``. A tree of DTensors is gathered
+        leaf by leaf on every rank (all ranks call this); rank 0 alone
+        copies it to the host and writes it."""
         self.wait()
         # copy to the host *before* handing to the thread, so the step loop
         # can update its tensors in place afterwards
-        host_tree = _host_copy(tree)
+        writer = (not _sharded(tree)
+                  or torch.distributed.get_rank() == 0)
+        host_tree = _host_copy(tree, keep=writer)
+        if not writer:
+            return
 
         def work():
             save_checkpoint(self.directory, step, host_tree, specs=specs,

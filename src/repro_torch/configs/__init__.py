@@ -1,6 +1,7 @@
 """Architecture registry: copies of the ``repro.configs`` modules. Each
-module exposes ``config()`` (the full published config) and ``smoke()`` (a
-reduced same-family config for CPU tests)."""
+module exposes ``config()`` (the full published config), ``smoke()`` (a
+reduced same-family config for CPU tests) and ``card()`` (its
+``_base.ModelCard`` on the H100)."""
 from __future__ import annotations
 
 import importlib

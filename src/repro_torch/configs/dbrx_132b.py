@@ -5,6 +5,7 @@ Every layer is MoE. 16e x 3 x 6144 x 10752 x 40 = 127B expert params
 + attention/embeddings ~= 132B total, ~36B active (top-4).
 """
 from ..models.config import MoECfg, ModelConfig
+from ._base import make_card
 
 NAME = "dbrx-132b"
 
@@ -23,3 +24,7 @@ def smoke() -> ModelConfig:
         n_heads=4, n_kv_heads=2, d_ff=256, vocab=512, head_dim=32,
         pattern=(("attn", "moe"),),
         moe=MoECfg(n_experts=4, top_k=2, d_ff=256))
+
+
+def card():
+    return make_card(NAME, config())

@@ -8,6 +8,7 @@ runs the long_500k cell (the 4 attention layers keep KV caches; Mamba
 layers carry O(1) state).
 """
 from ..models.config import MoECfg, ModelConfig, SSMCfg
+from ._base import make_card
 
 NAME = "jamba-v0.1-52b"
 
@@ -30,3 +31,7 @@ def smoke() -> ModelConfig:
         n_heads=4, n_kv_heads=2, d_ff=256, vocab=512, head_dim=32,
         pattern=_PATTERN, moe=MoECfg(n_experts=4, top_k=2, d_ff=256),
         ssm=SSMCfg(d_state=8, chunk=16), supports_long_context=True)
+
+
+def card():
+    return make_card(NAME, config())

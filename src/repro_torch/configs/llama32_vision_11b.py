@@ -7,6 +7,7 @@ precomputed patch embeddings (B, 1600, 4096); each cross layer computes its
 own K/V from them (cached at prefill).
 """
 from ..models.config import ModelConfig
+from ._base import make_card
 
 NAME = "llama-3.2-vision-11b"
 
@@ -25,3 +26,7 @@ def smoke() -> ModelConfig:
         name=NAME + "-smoke", family="vlm", n_layers=5, d_model=128,
         n_heads=4, n_kv_heads=2, d_ff=256, vocab=512, pattern=_PATTERN,
         cross_kv_tokens=32)
+
+
+def card():
+    return make_card(NAME, config())

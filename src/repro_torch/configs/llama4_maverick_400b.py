@@ -8,6 +8,7 @@ Param math: 24 MoE layers x 128e x 3 x 5120 x 8192 = 386B expert
 total, ~17B active (top-1 + dense path), matching the -400b-a17b name.
 """
 from ..models.config import MoECfg, ModelConfig
+from ._base import make_card
 
 NAME = "llama4-maverick-400b-a17b"
 
@@ -26,3 +27,7 @@ def smoke() -> ModelConfig:
         n_heads=4, n_kv_heads=2, d_ff=320, vocab=512, head_dim=32,
         pattern=(("attn", "moe"), ("attn", "dense")),
         moe=MoECfg(n_experts=8, top_k=1, d_ff=160))
+
+
+def card():
+    return make_card(NAME, config())

@@ -3,6 +3,7 @@
 [hf:Qwen/Qwen3-8B family; hf]
 """
 from ..models.config import ModelConfig
+from ._base import make_card
 
 NAME = "qwen3-1.7b"
 
@@ -19,3 +20,7 @@ def smoke() -> ModelConfig:
         name=NAME + "-smoke", family="dense", n_layers=4, d_model=128,
         n_heads=4, n_kv_heads=2, d_ff=256, vocab=512, head_dim=32,
         qk_norm=True, pattern=(("attn", "dense"),))
+
+
+def card():
+    return make_card(NAME, config())

@@ -4,6 +4,7 @@
 and per-head RMS q/k norms.
 """
 from ..models.config import ModelConfig
+from ._base import make_card
 
 NAME = "qwen3-4b"
 
@@ -20,3 +21,7 @@ def smoke() -> ModelConfig:
         name=NAME + "-smoke", family="dense", n_layers=4, d_model=128,
         n_heads=4, n_kv_heads=2, d_ff=256, vocab=512, head_dim=32,
         qk_norm=True, pattern=(("attn", "dense"),))
+
+
+def card():
+    return make_card(NAME, config())

@@ -3,6 +3,7 @@
 [hf:stabilityai/stablelm-2-12b; hf]
 """
 from ..models.config import ModelConfig
+from ._base import make_card
 
 NAME = "stablelm-12b"
 
@@ -19,3 +20,7 @@ def smoke() -> ModelConfig:
         name=NAME + "-smoke", family="dense", n_layers=4, d_model=160,
         n_heads=4, n_kv_heads=1, d_ff=448, vocab=512,
         pattern=(("attn", "dense"),))
+
+
+def card():
+    return make_card(NAME, config())

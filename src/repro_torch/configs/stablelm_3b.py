@@ -4,6 +4,7 @@
 (kv=32 == heads), SwiGLU, RMSNorm, untied head.
 """
 from ..models.config import ModelConfig
+from ._base import make_card
 
 NAME = "stablelm-3b"
 
@@ -20,3 +21,7 @@ def smoke() -> ModelConfig:
         name=NAME + "-smoke", family="dense", n_layers=4, d_model=128,
         n_heads=4, n_kv_heads=4, d_ff=352, vocab=512,
         pattern=(("attn", "dense"),))
+
+
+def card():
+    return make_card(NAME, config())

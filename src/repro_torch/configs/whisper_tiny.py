@@ -8,6 +8,7 @@ cells exceed Whisper's real 448-token decoder context; they exercise the
 backbone mechanically and are marked synthetic in EXPERIMENTS.md.
 """
 from ..models.config import EncoderCfg, ModelConfig
+from ._base import make_card
 
 NAME = "whisper-tiny"
 
@@ -30,3 +31,7 @@ def smoke() -> ModelConfig:
         encoder=EncoderCfg(n_layers=2, n_frames=64),
         cross_kv_tokens=64, norm="layernorm", activation="gelu",
         tie_embeddings=True)
+
+
+def card():
+    return make_card(NAME, config())

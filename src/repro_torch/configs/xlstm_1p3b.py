@@ -6,6 +6,7 @@ chunkwise-parallel linear-attention form. sLSTM: 4 heads at d_model with
 recurrent gate matrices + 4/3x FFN. Sub-quadratic: runs the long_500k cell.
 """
 from ..models.config import ModelConfig, XLSTMCfg
+from ._base import make_card
 
 NAME = "xlstm-1.3b"
 
@@ -26,3 +27,7 @@ def smoke() -> ModelConfig:
         n_heads=2, n_kv_heads=2, d_ff=0, vocab=256, pattern=_PATTERN,
         xlstm=XLSTMCfg(chunk=16), tie_embeddings=True,
         supports_long_context=True, tp_friendly=False)
+
+
+def card():
+    return make_card(NAME, config())

@@ -70,6 +70,37 @@ def _layer(leaf, i: int):
     return leaf[i]
 
 
+def _lm_entries(model: lm.LM, cfg: ModelConfig):
+    """(port parameter, reference path, layer index) of every parameter of
+    ``model``: the keys that reach its leaf in the reference's ``lm.init``
+    pytree, and its entry along a leaf stacked over layers (None for a leaf
+    that is not stacked)."""
+    def module(mod, prefix, i=None):
+        for attr, path in mod.REF.items():
+            dst = getattr(mod, attr)
+            if dst is not None:
+                yield dst, prefix + path, i
+
+    def block(blk: lm.Block, prefix, i: int):
+        for name in ("norm1", "mixer", "mixer2", "norm1b", "norm2", "ffn"):
+            mod = getattr(blk, name)
+            if mod is not None:
+                yield from module(mod, prefix + (name,), i)
+
+    yield model.embed, ("embed", "table"), None
+    if model.head is not None:
+        yield model.head, ("head", "table"), None
+    yield from module(model.final_norm, ("final_norm",))
+    P = len(cfg.pattern)
+    for li, blk in enumerate(model.blocks):
+        yield from block(blk, ("blocks", li % P), li // P)
+    if model.encoder is not None:
+        yield model.encoder.pos, ("encoder", "pos"), None
+        for i, blk in enumerate(model.encoder.blocks):
+            yield from block(blk, ("encoder", "blocks"), i)
+        yield from module(model.encoder.final_norm, ("encoder", "final_norm"))
+
+
 def _lm_leaves(model: lm.LM, cfg: ModelConfig, tree: Mapping[str, Any],
                whole: bool = False):
     """(port parameter, reference leaf) pairs: the leaf of ``tree`` (laid
@@ -77,35 +108,24 @@ def _lm_leaves(model: lm.LM, cfg: ModelConfig, tree: Mapping[str, Any],
     ``model``, sliced to its layer (with ``whole``, the stacked leaf as it
     is). ``tree`` may be any pytree of that layout, such as gradients or
     an optimizer's moments."""
-    def module(mod, t, i=None):
-        for attr, path in mod.REF.items():
-            dst = getattr(mod, attr)
-            if dst is None:
-                continue
-            src = t
-            for key in path:
-                src = src[key]
-            yield dst, (src if i is None or whole else _layer(src, i))
+    for dst, path, i in _lm_entries(model, cfg):
+        src = tree
+        for key in path:
+            src = src[key]
+        yield dst, (src if i is None or whole else _layer(src, i))
 
-    def block(blk: lm.Block, t, i: int):
-        for name in ("norm1", "mixer", "mixer2", "norm1b", "norm2", "ffn"):
-            mod = getattr(blk, name)
-            if mod is not None:
-                yield from module(mod, t[name], i)
 
-    yield model.embed, tree["embed"]["table"]
-    if model.head is not None:
-        yield model.head, tree["head"]["table"]
-    yield from module(model.final_norm, tree["final_norm"])
-    P = len(cfg.pattern)
-    for li, blk in enumerate(model.blocks):
-        yield from block(blk, tree["blocks"][li % P], li // P)
-    if model.encoder is not None:
-        enc = tree["encoder"]
-        yield model.encoder.pos, enc["pos"]
-        for i, blk in enumerate(model.encoder.blocks):
-            yield from block(blk, enc["blocks"], i)
-        yield from module(model.encoder.final_norm, enc["final_norm"])
+def lm_ref_paths(model: lm.LM, cfg: ModelConfig
+                 ) -> Dict[str, Tuple[str, bool]]:
+    """{parameter name: (its reference path, stacked)}: the path joins the
+    keys of the reference's ``lm.init`` pytree with "/" (list indices
+    included, as ``repro.models.sharding`` walks it), and ``stacked`` says
+    that the reference's leaf stacks this parameter with others along a
+    leading axis (the periods of the block pattern, or the encoder's
+    layers)."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {names[id(dst)]: ("/".join(map(str, path)), i is not None)
+            for dst, path, i in _lm_entries(model, cfg)}
 
 
 def lm_params_from_numpy(params_np: Mapping[str, Any], cfg: ModelConfig,

@@ -701,6 +701,46 @@ def _objectives(res: EvalResult, tables: EvalTables, objectives: str
     return torch.stack(F, dim=1)
 
 
+def population_mesh(n_ranks: Optional[int] = None, device: Device = None):
+    """1-D ``('pop',)`` ``DeviceMesh`` for population-sharded fitness
+    (``make_fitness(..., mesh=)``) over ranks 0..n-1 of the initialized
+    process group (default: all of them; every rank calls it). It runs on
+    CUDA unless ``device`` names another."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    device_type = resolve(device).type
+    world = dist.get_world_size()
+    n = world if n_ranks is None else min(int(n_ranks), world)
+    return DeviceMesh(device_type, torch.arange(n), mesh_dim_names=("pop",))
+
+
+def _sharded_fitness(fitness, mesh):
+    """``fitness`` with the population split over the ranks of the 1-D
+    ``mesh``: rows padded by repeating row 0 to a multiple of the rank
+    count, each rank evaluating its contiguous block with ``fitness``,
+    objectives and violations gathered back in row order and the padding
+    dropped. Per-genome evaluation is independent of the other rows, so
+    the result equals the unsharded one."""
+    from torch.distributed.tensor import DTensor, Shard
+    n = mesh.size()
+    rank = mesh.get_local_rank()
+
+    def sharded(genomes):
+        genomes = torch.as_tensor(genomes)
+        P = genomes.shape[0]
+        P_pad = -(-P // n) * n
+        if P_pad != P:
+            fill = genomes[:1].expand((P_pad - P,) + genomes.shape[1:])
+            genomes = torch.cat([genomes, fill], dim=0)
+        block = P_pad // n
+        F, viol = fitness(genomes[rank * block:(rank + 1) * block])
+        gather = lambda t: DTensor.from_local(  # noqa: E731
+            t.contiguous(), mesh, [Shard(0)], run_check=False).full_tensor()
+        return gather(F)[:P], gather(viol)[:P]
+
+    return sharded
+
+
 class TraceEvaluator:
     """Evaluate routing decisions over a fixed (trace × cluster) on
     ``device`` (CUDA unless the caller asks for another).
@@ -802,11 +842,15 @@ class TraceEvaluator:
         return self.run_policy("affinity", params)
 
     # -- population fitness (for NSGA2) --------------------------------------
-    def make_fitness(self, genome: str, objectives: str = "paper"):
+    def make_fitness(self, genome: str, objectives: str = "paper",
+                     mesh=None):
         """Return a fitness function mapping (P, D) genomes to
         ((P, M) objectives, (P,) violation): M = 3 (RQ, C, RT) for
         ``objectives="paper"``; "qoe" appends the SLO violation rate as a
-        4th minimized objective (the trace must carry deadlines)."""
+        4th minimized objective (the trace must carry deadlines). With
+        ``mesh`` (``population_mesh``) the population is split over its
+        ranks, each evaluating its block; every rank calls the function
+        with the same genomes and gets every row."""
         assert objectives in ("paper", "qoe")
         assert objectives != "qoe" or self.trace.has_slos, \
             "qoe objectives need a trace with SLOs (workload.slo.attach_slos)"
@@ -816,7 +860,7 @@ class TraceEvaluator:
             res = self._run(genome, self._genomes(genome, genomes))
             return _objectives(res, self.tables, objectives), res.violation
 
-        return fitness
+        return fitness if mesh is None else _sharded_fitness(fitness, mesh)
 
     # -- reporting ------------------------------------------------------------
     def summarize(self, res: EvalResult) -> dict:

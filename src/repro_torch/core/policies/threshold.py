@@ -15,7 +15,7 @@ Category encoding: 0 = 'code', 1 = 'math', 2 = 'general'. Model types:
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -37,6 +37,20 @@ PAPER_DEFAULTS = np.array([0.5, 0.5, 0.5, 5.0, 0.7, 0.7], np.float32)
 
 CAT_CODE, CAT_MATH, CAT_GENERAL = 0, 1, 2
 TYPE_INSTRUCT, TYPE_CODER, TYPE_MATH = 0, 1, 2
+
+
+class Thresholds(NamedTuple):
+    """The six genes of a threshold genome by name."""
+    d_code: torch.Tensor
+    d_math: torch.Tensor
+    d_general: torch.Tensor
+    q: torch.Tensor
+    t_code: torch.Tensor
+    t_math: torch.Tensor
+
+    @classmethod
+    def from_genome(cls, g) -> "Thresholds":
+        return cls(*(g[i] for i in range(6)))
 
 
 def decide_pair_torch(genomes: torch.Tensor, *, complexity: torch.Tensor,

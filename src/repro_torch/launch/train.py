@@ -7,9 +7,9 @@
 (on the card). It runs on CUDA unless ``--device cpu`` is given. Training
 resumes from the latest committed checkpoint in ``--checkpoint-dir``
 unless ``--no-resume``. ``run_train`` is the body, which ``chip_smoke.py``
-calls. The reference's ``--dry-run`` (compiling the sharded step for a
-production mesh) belongs to the multi-device part of the port, which is not
-ported.
+calls. The reference's ``--dry-run`` (the sharded step on a production
+mesh) is ``python -m repro_torch.launch.dryrun``; ``Trainer(mesh=)`` is
+the sharded trainer.
 """
 from __future__ import annotations
 

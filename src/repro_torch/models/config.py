@@ -20,8 +20,8 @@ Families:
 The modality frontends of the audio and vision families are stubs: the model
 takes precomputed frame / patch embeddings. The copy keeps every field and
 the parameter accounting, so it compares equal to the reference's config
-field by field. Plain Python: nothing of ``repro`` is imported. (The
-reference's training shape cells are not copied: they belong to training.)
+field by field, and the input shape cells of the dry run (``SHAPES``).
+Plain Python: nothing of ``repro`` is imported.
 """
 from __future__ import annotations
 
@@ -92,7 +92,8 @@ class ModelConfig:
     # which serving shapes apply (long_500k only for sub-quadratic archs)
     supports_long_context: bool = False
     # False: recurrent-dense blocks (xLSTM) gain nothing from tensor
-    # parallelism (a sharding hint of the reference; unused here)
+    # parallelism — shard batch + params over the flattened (data, model)
+    # axes instead (pure FSDP/ZeRO-3); see sharding.py
     tp_friendly: bool = True
 
     def __post_init__(self):
@@ -180,3 +181,31 @@ class ModelConfig:
         """6·N_active per trained token; 2·N_active per decoded token."""
         n = self.param_counts()["active"] - self.param_counts()["embed"]
         return (6.0 if train else 2.0) * n
+
+
+# ---------------------------------------------------------------------------
+# Input shape cells of the dry run: every LM arch pairs with these four
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    kind: str            # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeCell("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeCell("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeCell("long_500k", "decode", 524288, 1),
+}
+
+
+def cell_applicable(cfg: ModelConfig, shape: str) -> Tuple[bool, str]:
+    """(runs?, reason) — long_500k only for sub-quadratic archs."""
+    if shape == "long_500k" and not cfg.supports_long_context:
+        return False, ("full-attention arch: 512k-context decode requires "
+                       "sub-quadratic attention (run for SSM/hybrid only)")
+    return True, ""

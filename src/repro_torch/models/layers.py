@@ -8,7 +8,9 @@ the model's dtype. Self-attention goes through ``kernels.ops``: the plain
 version for CPU tensors, the hand-written kernel for CUDA tensors.
 Cross-attention over cached encoder / patch K/V is plain torch on both, as
 the reference computes it outside its kernels (``_xla_attention`` with
-``causal=False``), casts included. Sharding constraints are not ported.
+``causal=False``), casts included. The reference's sharding constraints
+(``constrain``) are not called: activations are each rank's local tensors
+(``models.sharding``).
 """
 from __future__ import annotations
 

@@ -32,18 +32,20 @@ Parameters are built with ``requires_grad=False``, so no serving path
 records a graph; training asks for gradients with ``model.requires_grad_()``
 (``training.trainer``). ``train_logits`` then wraps each period of the block
 pattern in activation checkpointing (``torch.utils.checkpoint``), as the
-reference wraps its scan body in ``jax.checkpoint``.
+reference wraps its scan body in ``jax.checkpoint``, with the reference's
+remat policies (``REMAT_POLICIES``).
 """
 from __future__ import annotations
 
 import functools
 import math
 from types import MappingProxyType
-from typing import Dict, Mapping, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .._device import Device, resolve
 from . import layers as L
@@ -514,9 +516,40 @@ def _final_logits(model: LM, cfg: ModelConfig, x: torch.Tensor):
 # forward passes
 # ---------------------------------------------------------------------------
 
-#: the reference's remat policies; "save_ffn_hidden" (keep each layer's
-#: FFN hidden activation through the recompute) is not ported
+#: the reference's remat policies: "full" keeps only period boundaries;
+#: "save_ffn_hidden" also keeps each dense FFN's hidden product
 REMAT_POLICIES = ("full", "save_ffn_hidden")
+
+
+def _save_ffn_hidden(blocks):
+    """Selective-checkpoint contexts that keep, through the recompute of
+    ``blocks``, the outputs of the products that make each dense FFN's
+    hidden activation: ``x @ wi`` and ``x @ wg``, the ``aten.mm`` ops
+    whose right operand is one of those weights (the reference saves the
+    hidden product by name, ``checkpoint_name(h, "ffn_hidden")``). Eager
+    recompute has no dead-code elimination: a saved product alone would
+    still run the matmuls that feed it, so the products themselves are
+    kept, and the recompute runs neither; the silu and the gate product
+    are recomputed from them, to the same bits. The weights are found by
+    their storage when the op runs (a sharded trainer fills them anew for
+    the recompute)."""
+    weights = [w for blk in blocks if isinstance(blk.ffn, FFN)
+               for w in (blk.ffn.wi, blk.ffn.wg) if w is not None]
+
+    def policy(ctx, op, *args, **kwargs):
+        if (op is torch.ops.aten.mm.default
+                and args[1].data_ptr() in {w.data_ptr() for w in weights}):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+def _materialized(materialize: Callable, cfg: ModelConfig, blocks, *args):
+    """``_forward`` of one period after ``materialize(blocks)``: inside the
+    checkpointed region, so the recompute calls it again."""
+    materialize(blocks)
+    return _forward(cfg, blocks, *args)
 
 
 def _periods(cfg: ModelConfig, model: LM):
@@ -529,31 +562,39 @@ def _periods(cfg: ModelConfig, model: LM):
 def train_logits(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
                  frames: Optional[torch.Tensor] = None,
                  patches: Optional[torch.Tensor] = None,
-                 remat: bool = False, remat_policy: str = "full"):
+                 remat: bool = False, remat_policy: str = "full",
+                 materialize: Optional[Callable] = None):
     """(B, S) tokens -> ((B, S, vocab) f32 logits, causal; the MoE aux
     loss summed over the layers, a 0-d f32, 0 without MoE).
 
     ``remat`` checkpoints each period of the pattern (non-reentrant
     ``torch.utils.checkpoint``): only period boundaries are kept for the
     backward, which runs each period's forward again (``remat_policy``
-    "full", the reference's default; "save_ffn_hidden" raises, not
-    ported). Without grad it changes nothing."""
+    "full", the reference's default); "save_ffn_hidden" also keeps the
+    dense FFNs' hidden products (``_save_ffn_hidden``), the same loss and
+    gradients with two matmuls a layer fewer in the backward. Without grad
+    it changes nothing.
+
+    ``materialize(blocks)``, when given, is called before each period
+    runs, and again before its recompute (the sharded trainer fills the
+    period's parameters there)."""
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy {remat_policy!r}: one of "
                          f"{REMAT_POLICIES}")
-    if remat and remat_policy != "full":
-        raise NotImplementedError(
-            "remat_policy 'save_ffn_hidden' is not ported (ROADMAP)")
     x = L.embed(model.embed, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
     cross_x = _cross_input(model, cfg, frames, patches)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    run = (_forward if materialize is None
+           else functools.partial(_materialized, materialize))
     for blocks, layers in _periods(cfg, model):
         if remat and torch.is_grad_enabled():
-            x, a = checkpoint(_forward, cfg, blocks, layers, x, positions,
-                              cross_x, use_reentrant=False)
+            kw = ({} if remat_policy == "full" else
+                  {"context_fn": _save_ffn_hidden(blocks)})
+            x, a = checkpoint(run, cfg, blocks, layers, x, positions,
+                              cross_x, use_reentrant=False, **kw)
         else:
-            x, a = _forward(cfg, blocks, layers, x, positions, cross_x)
+            x, a = run(cfg, blocks, layers, x, positions, cross_x)
         for term in a:
             aux = aux + term
     return _final_logits(model, cfg, x), aux
@@ -561,7 +602,8 @@ def train_logits(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
 
 def loss_fn(model: LM, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
             remat: bool = True, aux_weight: float = 0.01,
-            remat_policy: str = "full"):
+            remat_policy: str = "full",
+            materialize: Optional[Callable] = None):
     """The reference's training loss: (mean next-token NLL over labels >=
     0 + aux_weight * MoE aux, {"nll": that mean, "aux": the aux loss}).
 
@@ -572,7 +614,8 @@ def loss_fn(model: LM, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
     same sum as the reference's one-hot product."""
     logits, aux = train_logits(model, cfg, batch["tokens"],
                                batch.get("frames"), batch.get("patches"),
-                               remat=remat, remat_policy=remat_policy)
+                               remat=remat, remat_policy=remat_policy,
+                               materialize=materialize)
     labels = batch["labels"].to(torch.int64)
     m = logits.detach().amax(dim=-1, keepdim=True)
     lse = m[..., 0] + torch.log(torch.sum(torch.exp(logits - m), dim=-1))

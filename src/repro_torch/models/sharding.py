@@ -1,0 +1,337 @@
+"""Sharding rules: the counterpart of ``repro.models.sharding``.
+
+A spec is a tuple with one entry per tensor dimension: ``None``
+(replicated), a mesh axis name, or a tuple of names (the dimension split
+over several axes, the first the major one), as JAX's ``PartitionSpec``
+reads. The rules are pure shape logic over a mesh's axis names and sizes:
+an :class:`AbstractMesh` (names and sizes, no process group, as JAX's
+``AbstractMesh``) or a ``torch.distributed.device_mesh.DeviceMesh``.
+:func:`to_placements` turns a spec into DTensor placements on a
+``DeviceMesh``.
+
+Mesh axes: ('data', 'model') single-pod, ('pod', 'data', 'model')
+multi-pod. DP axis = ('pod', 'data') when the pod axis exists.
+
+Training (2-D sharding, MaxText-style):
+  * column-parallel weights (d_in, d_out): ('data', 'model');
+  * row-parallel weights: ('model', 'data');
+  * MoE experts (E, d, ff): ('model', 'data', None);
+  * embeddings (V, d): ('model', 'data') (vocab-parallel);
+  * optimizer state inherits the parameter's spec
+    (``launch.dryrun.opt_state_specs``).
+
+Serving: weights are replicated over 'data' for models under
+:data:`BIG_MODEL_B` parameters and FSDP-sharded over it above.
+
+KV caches (B, S, Hkv, hd): batch over DP and the sequence over 'model'
+(head_dim when S does not divide). Rules match on the parameter's path in
+the reference's ``lm.init`` pytree, replicating wherever an axis does not
+divide the dimension.
+
+The port keeps one tensor per layer where the reference stacks each
+position of the block pattern over periods (``blocks/<i>/...``, a leading
+period axis; the encoder's layers likewise). ``param_specs`` maps each
+parameter to its reference path through ``convert.lm_ref_paths`` and gives
+the reference's spec with the stacked axis dropped. Weights keep the
+reference's (d_in, d_out) layout, so the rules' axes apply as they are.
+
+What a spec means here: the sharded trainer (``training.trainer``) stores
+parameters and optimizer state as DTensors with these placements and
+gathers them to whole tensors for compute, so the 'model' axis shards
+storage, not compute (no tensor parallelism). Activations are each rank's
+local tensors: :func:`constrain` is a no-op.
+"""
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping, Sequence, Tuple, Union
+
+import torch
+
+from .config import ModelConfig
+
+BIG_MODEL_B = 60e9  # params above this FSDP-shard even for serving
+
+Axis = Union[None, str, Tuple[str, ...]]
+Spec = Tuple[Axis, ...]
+
+
+class AbstractMesh:
+    """Axis names and sizes without devices or a process group: what the
+    spec rules read. ``shape`` maps each name to its size, in mesh
+    order."""
+
+    def __init__(self, axes: Union[Mapping[str, int],
+                                   Sequence[Tuple[str, int]]]):
+        self.shape: Dict[str, int] = dict(axes)
+        self.axis_names: Tuple[str, ...] = tuple(self.shape)
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape})"
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of an :class:`AbstractMesh` or a ``DeviceMesh``,
+    in mesh order."""
+    if isinstance(mesh, AbstractMesh):
+        return mesh.shape
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def _names(mesh) -> Tuple[str, ...]:
+    return tuple(axis_sizes(mesh))
+
+
+def best_dp_prefix(mesh, dim: int, full_dp: bool) -> Axis:
+    """Longest data-parallel axis tuple whose product divides ``dim``."""
+    names = _names(mesh)
+    axes = [a for a in ("pod", "data") if a in names]
+    if full_dp and "model" in names:
+        axes.append("model")
+    while axes and dim % _axis_size(mesh, tuple(axes)) != 0:
+        axes.pop()
+    return tuple(axes) if axes else None
+
+
+def constrain(x, *axes):
+    """The reference's activation sharding constraint: a no-op. Each
+    rank's activations are its local tensors (the 'model' axis shards
+    storage, gathered for compute), so there is nothing to constrain."""
+    return x
+
+
+def dp_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in _names(mesh))
+
+
+def _axis_size(mesh, axis: Axis) -> int:
+    if axis is None:
+        return 1
+    sizes = axis_sizes(mesh)
+    if isinstance(axis, tuple):
+        out = 1
+        for a in axis:
+            out *= sizes[a]
+        return out
+    return sizes[axis]
+
+
+def _normal(axis: Axis) -> Axis:
+    """An entry as ``PartitionSpec`` normalizes it: a one-name tuple is
+    the name, an empty one None."""
+    if isinstance(axis, tuple) and len(axis) <= 1:
+        return axis[0] if axis else None
+    return axis
+
+
+def _fit(mesh, spec: Spec, shape) -> Spec:
+    """Drop axes that do not divide their dimension (replicate instead)."""
+    spec = tuple(map(_normal, spec)) + (None,) * (len(shape) - len(spec))
+    return tuple(axis if axis is not None and dim % _axis_size(mesh, axis)
+                 == 0 else None for dim, axis in zip(shape, spec))
+
+
+# path-regex -> spec, in the reference's order (the first match wins)
+_COL = ("data", "model")     # (d_in, d_out) column-parallel
+_ROW = ("model", "data")     # row-parallel
+_RULES = [
+    # attention / generic dense
+    (r".*(wq|wk|wv|wi|wg|up|in_proj|x_proj|ff_up|wx)/w$", _COL),
+    (r".*(wo|down|out_proj|ff_down|dt_proj)/w$", _ROW),
+    # MoE experts: E over model (EP), d over data (FSDP)
+    (r".*ffn/(wi|wg)/w$", ("model", "data", None)),
+    (r".*ffn/wo/w$", ("model", None, "data")),
+    (r".*router/w$", ("data", None)),
+    # embeddings
+    (r".*(embed|head)/table$", ("model", "data")),
+    (r".*encoder/pos$", (None, "data")),
+    # ssm / xlstm specials
+    (r".*A_log$", ("model", None)),
+    (r".*mixer/D$", ("model",)),
+    (r".*conv/w$", (None, "model")),
+    (r".*conv/b$", ("model",)),
+    (r".*(rz|ri|rf|ro)$", (None, None, None)),
+    # norms & biases: replicated
+    (r".*", ()),
+]
+
+
+def _match(path: str, mesh, shape, serve_replicate_fsdp: bool) -> Spec:
+    """The rule's spec for the reference path ``path`` (list indices
+    stripped) of a tensor of ``shape`` (one layer's, unstacked)."""
+    for pat, spec in _RULES:
+        if re.fullmatch(pat, path):
+            axes = tuple(spec)
+            if serve_replicate_fsdp:
+                axes = tuple(None if a == "data" else a for a in axes)
+            return _fit(mesh, axes, shape)
+    raise AssertionError(f"no rule for {path}")
+
+
+def _fsdp_only_spec(mesh, shape, serve_rep: bool) -> Spec:
+    """Pure ZeRO-3: shard the first dimension that the flattened (data,
+    model) axes divide; replicate the rest. Used for tp_friendly=False
+    archs, whose blocks gain nothing from TP. (The reference starts after
+    a stacked leaf's period axis; a port tensor has none.)"""
+    names = _names(mesh)
+    axes_full = tuple(a for a in ("data", "model") if a in names)
+    if serve_rep:
+        axes_full = tuple(a for a in axes_full if a != "data")
+    out = [None] * len(shape)
+    for cand in (axes_full, axes_full[:1]):
+        if not cand:
+            continue
+        size = _axis_size(mesh, cand)
+        for i in range(len(shape)):
+            if shape[i] % size == 0 and shape[i] >= size:
+                out[i] = cand if len(cand) > 1 else cand[0]
+                return tuple(out)
+    return tuple(out)
+
+
+def param_specs(cfg: ModelConfig, model, mesh, mode: str = "train"
+                ) -> Dict[str, Spec]:
+    """{parameter name: spec} for every parameter of ``model`` (an
+    ``lm.LM``, on any device, "meta" included). mode: train | serve."""
+    from ..convert import lm_ref_paths
+    if mode not in ("train", "serve"):
+        raise ValueError(f"mode {mode!r}: train or serve")
+    serve_rep = (mode == "serve"
+                 and cfg.param_counts()["total"] < BIG_MODEL_B)
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    out = {}
+    for name, (path, _stacked) in lm_ref_paths(model, cfg).items():
+        shape = shapes[name]
+        if not cfg.tp_friendly:
+            out[name] = _fsdp_only_spec(mesh, shape, serve_rep)
+        else:
+            out[name] = _match(re.sub(r"/\d+(/|$)", r"\1", path), mesh,
+                               shape, serve_rep)
+    return out
+
+
+def cache_specs(cfg: ModelConfig, cache, mesh):
+    """Specs for an ``lm.Cache``, with its fields' structure (``state`` a
+    dict): batch over DP; KV caches (n, B, S, Hkv, hd) sequence-sharded
+    over 'model' (head_dim when S does not divide); recurrent-state inner
+    dims over 'model'. The port's ``k``/``v`` stack the self-attention
+    layers as the reference stacks periods, and its state leaves put the
+    layer first too, so each leaf's spec is the reference's rule on the
+    same rank."""
+    dp = dp_axes(mesh) or None
+
+    def leaf_spec(x) -> Spec:
+        shape = tuple(x.shape)
+        if len(shape) == 5:          # (n, B, S, Hkv, hd) KV cache
+            spec = _fit(mesh, (None, dp, "model", None, None), shape)
+            if spec[2] is None:      # S not divisible: fall back to hd
+                spec = _fit(mesh, (None, dp, None, None, "model"), shape)
+            return spec
+        if len(shape) == 4:
+            return _fit(mesh, (None, dp, None, "model"), shape)
+        if len(shape) == 3:
+            return _fit(mesh, (None, dp, "model"), shape)
+        if len(shape) in (1, 2):
+            return _fit(mesh, (dp,), shape) if shape[0] > 1 else ()
+        return ()
+
+    return type(cache)(k=leaf_spec(cache.k), v=leaf_spec(cache.v),
+                       kv_len=leaf_spec(cache.kv_len),
+                       state={k: leaf_spec(t)
+                              for k, t in cache.state.items()})
+
+
+def batch_specs(cfg: ModelConfig, batch: Mapping[str, torch.Tensor], mesh
+                ) -> Dict[str, Spec]:
+    """{key: spec}: each batch tensor's leading dimension over DP."""
+    dp = dp_axes(mesh) or None
+    return {k: _fit(mesh, (dp,) + (None,) * (len(x.shape) - 1),
+                    tuple(x.shape)) for k, x in batch.items()}
+
+
+def to_placements(device_mesh, spec: Spec):
+    """DTensor placements (one per mesh dimension) for ``spec`` on
+    ``device_mesh``: a tensor dimension over an axis is ``Shard(dim)`` on
+    that mesh dimension, and over a tuple of axes ``Shard(dim)`` on each,
+    the first the major one as JAX orders them (so the tuple must follow
+    the mesh's order); other mesh dimensions replicate."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(device_mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            continue
+        axes = axis if isinstance(axis, tuple) else (axis,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: axes {axes} out of the mesh's "
+                             f"order {names}")
+        for i in idx:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"spec {spec}: axis {names[i]} used twice")
+            out[i] = Shard(dim)
+    return out
+
+
+def is_spec(x) -> bool:
+    """Whether ``x`` is a spec (a leaf of a specs tree): a tuple of None,
+    axis names and tuples of names."""
+    return isinstance(x, tuple) and all(
+        a is None or isinstance(a, str)
+        or (isinstance(a, tuple) and all(isinstance(n, str) for n in a))
+        for a in x)
+
+
+def spec_to_json(spec: Spec) -> list:
+    """A spec as the reference's checkpoint manifest writes it: a list,
+    each tuple entry a list."""
+    return [list(a) if isinstance(a, tuple) else a for a in spec]
+
+
+def spec_from_json(j) -> Spec:
+    return tuple(tuple(a) if isinstance(a, list) else a for a in j)
+
+
+def local_block(tensor: torch.Tensor, device_mesh, spec: Spec
+                ) -> torch.Tensor:
+    """This rank's block of ``tensor`` (whole, the same on every rank)
+    under ``spec``: a view of it (no communication)."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(tensor.detach(), device_mesh,
+                             to_placements(device_mesh, spec),
+                             src_data_rank=None).to_local()
+
+
+def shard(tensor: torch.Tensor, device_mesh, spec: Spec):
+    """``tensor`` (whole, the same on every rank) as a DTensor with
+    ``spec``'s placements, each rank keeping a copy of its own block (no
+    communication)."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local_block(tensor, device_mesh, spec).clone(),
+                              device_mesh, to_placements(device_mesh, spec),
+                              run_check=False)
+
+
+def shard_tree(tree, specs, device_mesh):
+    """A dict tree of whole tensors as DTensors (:func:`shard`), each leaf
+    with the spec at the same place in ``specs``."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, specs[k], device_mesh)
+                for k, v in tree.items()}
+    return shard(tree, device_mesh, specs)
+
+
+def gather_tree(tree):
+    """A dict tree with every DTensor gathered to its whole tensor (a
+    collective: every rank of its mesh calls it)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, dict):
+        return {k: gather_tree(v) for k, v in tree.items()}
+    return tree.full_tensor() if isinstance(tree, DTensor) else tree
+
+
+def local_shape(shape, mesh, spec: Spec) -> Tuple[int, ...]:
+    """The shape of one rank's block of a tensor of ``shape`` under
+    ``spec`` (every axis of a fitted spec divides its dimension)."""
+    spec = _fit(mesh, spec, shape)
+    return tuple(d // _axis_size(mesh, a) for d, a in zip(shape, spec))

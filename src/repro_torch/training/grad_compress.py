@@ -12,9 +12,9 @@ gradients it sends:
   its size), sent dense-masked.
 
 Gradients and residuals are dicts of tensors keyed by parameter name; the
-functions are pure. The reduction itself over a named mesh axis
-(``psum_compressed``) belongs to the multi-device part of the port, which is
-not ported yet.
+functions are pure. ``psum_compressed`` is the reduction: the mean of every
+rank's gradients over a process group (a named mesh dimension's, through
+``DeviceMesh.get_group(axis)``), sent compressed.
 """
 from __future__ import annotations
 
@@ -86,3 +86,42 @@ def compress_topk(grads: Tensors, residual: Tensors, frac: float = 0.05
 def init_residual(grads_or_params: Tensors) -> Tensors:
     return {k: torch.zeros(g.shape, dtype=torch.float32, device=g.device)
             for k, g in grads_or_params.items()}
+
+
+def psum_compressed(grads: Tensors, residual: Tensors, group=None,
+                    method: str = "int8") -> Tuple[Tensors, Tensors]:
+    """All-reduce ``grads`` over the process group ``group`` (default: the
+    world; a mesh axis's is ``mesh.get_group("pod")``) with error-feedback
+    compression: (the mean gradients in f32, the new residuals).
+
+    * ``int8``: each rank's int8 payload summed in int32 (no overflow across
+      ranks), the scales averaged, and the sum over the count dequantized
+      with the mean scales, as the reference's arithmetic;
+    * ``topk``: the dense-masked sent values summed and divided by the
+      count;
+    * otherwise no compression: the f32 gradients' mean, residuals
+      unchanged.
+
+    Every rank must call it with the same keys in the same order."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+
+    def psum(t: torch.Tensor) -> torch.Tensor:
+        t = t.clone()
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        return t
+
+    if method == "int8":
+        q, s, new_res = compress_int8(grads, residual)
+        mean = {}
+        for k, g in grads.items():
+            summed = psum(q[k].to(torch.int32))
+            s_mean = psum(s[k]) / n
+            mean[k] = _dequantize_int8(summed.to(torch.float32) / n, s_mean,
+                                       g.shape)
+        return mean, new_res
+    if method == "topk":
+        sent, new_res = compress_topk(grads, residual)
+        return {k: psum(x) / n for k, x in sent.items()}, new_res
+    return ({k: psum(g.to(torch.float32)) / n for k, g in grads.items()},
+            residual)

@@ -43,7 +43,9 @@ Stacks = Callable[[List[str]], Dict[str, List[str]]]
 
 class Optimizer(NamedTuple):
     init: Callable     # params -> state
-    update: Callable   # (grads, state, params) -> (params, state), in place
+    # (grads, state, params, gnorm=None) -> (params, state), in place;
+    # ``gnorm`` the global gradient norm when ``grads`` is a part
+    update: Callable
     name: str
 
 
@@ -62,10 +64,14 @@ def _tree_norm(grads: Tensors) -> torch.Tensor:
                           for g in grads.values()))
 
 
-def _clip_scale(grads: Tensors, clip: float
+def _clip_scale(grads: Tensors, clip: float,
+                gnorm: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(scale, global norm): gradients times ``scale`` have norm <= clip."""
-    gnorm = _tree_norm(grads)
+    """(scale, global norm): gradients times ``scale`` have norm <= clip.
+    ``gnorm``, when given, is the global norm (of more gradients than
+    ``grads``: a sharded trainer updates a group at a time)."""
+    if gnorm is None:
+        gnorm = _tree_norm(grads)
     scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     return scale, gnorm
 
@@ -101,8 +107,8 @@ def adamw(cfg: OptConfig = OptConfig()) -> Optimizer:
                 **_scalars(params)}
 
     @torch.no_grad()
-    def update(grads: Tensors, state, params: Tensors):
-        scale, gnorm = _clip_scale(grads, cfg.grad_clip)
+    def update(grads: Tensors, state, params: Tensors, gnorm=None):
+        scale, gnorm = _clip_scale(grads, cfg.grad_clip, gnorm)
         step = state["step"] + 1
         b1c, b2c = _bias_corrections(cfg, step)
         for k, p in params.items():
@@ -165,8 +171,8 @@ def adamw8bit(cfg: OptConfig = OptConfig()) -> Optimizer:
                 **_scalars(params)}
 
     @torch.no_grad()
-    def update(grads: Tensors, state, params: Tensors):
-        scale, gnorm = _clip_scale(grads, cfg.grad_clip)
+    def update(grads: Tensors, state, params: Tensors, gnorm=None):
+        scale, gnorm = _clip_scale(grads, cfg.grad_clip, gnorm)
         step = state["step"] + 1
         b1c, b2c = _bias_corrections(cfg, step)
         for k, p in params.items():
@@ -225,8 +231,8 @@ def adafactor(cfg: OptConfig = OptConfig(),
         return {"f": f, **_scalars(params)}
 
     @torch.no_grad()
-    def update(grads: Tensors, state, params: Tensors):
-        scale, gnorm = _clip_scale(grads, cfg.grad_clip)
+    def update(grads: Tensors, state, params: Tensors, gnorm=None):
+        scale, gnorm = _clip_scale(grads, cfg.grad_clip, gnorm)
         step = state["step"] + 1
         decay = 1.0 - step.to(torch.float32) ** -0.8
         for key, members, stacked in leaves(params):

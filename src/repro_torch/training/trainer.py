@@ -1,5 +1,4 @@
-"""The training loop: the counterpart of ``repro.training.trainer`` on one
-device.
+"""The training loop: the counterpart of ``repro.training.trainer``.
 
 It composes the model zoo (``lm.loss_fn``, each period of the block pattern
 checkpointed), the memory-tiered optimizers, gradient accumulation over
@@ -10,9 +9,34 @@ its backward kernels (``kernels.flash_attention.FlashAttention``).
 
 Parameters come from ``lm.init`` with a ``torch.Generator`` seeded by
 ``TrainConfig.seed`` on the training device, or from a model the caller
-hands in (the tests hand in the reference's initial parameters). A mesh
-(the reference's FSDP x TP x DP sharding) belongs to the multi-device part
-of the port and raises.
+hands in (the tests hand in the reference's initial parameters).
+
+**On a mesh** (``Trainer(mesh=)``, a ``DeviceMesh`` with the reference's
+('data', 'model') or ('pod', 'data', 'model') axes over every rank of an
+initialized process group): parameters and optimizer state are stored as
+DTensors with the placements of ``sharding.param_specs(mode="train")`` and
+``dryrun.opt_state_specs`` (``self.params``, the optimizer state), each
+rank holding its blocks. The model's own parameters hold no storage
+between steps. A step fills them FSDP-style over both axes: the embedding,
+head, final norm and encoder for the whole step, and each period of the
+block pattern (``full_tensor()``) just before it runs, again before its
+recompute in the backward, and frees it when the next one is filled (with
+``remat``; without it every period stays filled to the step's end). The
+model then runs on plain local tensors as without a mesh (the hand-written
+flash kernels on the card). Each data-parallel rank (the coordinate over
+the DP axes) trains on its rows of the global batch
+(``SyntheticLMData(host_index=, n_hosts=)``), the DP axes those of the
+reference's input specs (the whole mesh for ``tp_friendly=False`` archs).
+As each parameter's gradient is complete it is summed over the DP axes'
+process groups in f32, divided by their count, and only this rank's block
+of it is kept. The global gradient norm is summed from the blocks. adamw
+then updates each rank's blocks in place, element by element; adamw8bit
+and adafactor, whose quantization blocks and factored moments run along
+whole axes, update a group at a time (a parameter; for adafactor a stack,
+the reference's leaf), gathered whole and stored again as blocks. The
+'model' axis shards storage only: its ranks compute alike (no tensor
+parallelism). Checkpoints record the specs and restore onto the current
+mesh.
 """
 from __future__ import annotations
 
@@ -22,11 +46,13 @@ import time
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from .._device import Device, resolve
 from ..checkpoint import CheckpointManager
 from ..data import DataConfig, SyntheticLMData
 from ..models import lm
+from ..models import sharding as shard
 from ..models.config import ModelConfig
 from .optim import OptConfig, make_optimizer, optimizer_for_arch
 
@@ -52,27 +78,65 @@ class TrainConfig:
     data_branch: int = 32
 
 
+def _nbytes(tree) -> int:
+    """Bytes of the tensors of a dict tree."""
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    return tree.nbytes
+
+
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig,
                  device: Device = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("Trainer(mesh=): the sharded trainer "
-                                      "is not ported")
-        if tcfg.global_batch % tcfg.microbatches:
-            raise ValueError(f"global_batch {tcfg.global_batch} is not a "
-                             f"multiple of microbatches {tcfg.microbatches}")
         self.cfg = cfg
         self.tcfg = tcfg
+        self.mesh = mesh
         self.device = resolve(device)
+        #: the mesh axes the batch splits over (the reference's input
+        #: specs: the whole mesh for tp_friendly=False archs, each axis
+        #: kept while the global batch divides)
+        self.dp: tuple = ()
+        self.n_dp, dp_index = 1, 0
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"mesh on {mesh.device_type}, trainer on "
+                                 f"{self.device}")
+            self.dp = shard.best_dp_prefix(
+                mesh, tcfg.global_batch, full_dp=not cfg.tp_friendly) or ()
+            coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+            for a in self.dp:
+                n = mesh.size(mesh.mesh_dim_names.index(a))
+                dp_index, self.n_dp = dp_index * n + coord[a], self.n_dp * n
+        local = tcfg.global_batch // self.n_dp
+        if local % tcfg.microbatches:
+            raise ValueError(f"global_batch {tcfg.global_batch} does not "
+                             f"split into {self.n_dp} data-parallel ranks "
+                             f"of {tcfg.microbatches} microbatches")
         self.opt_name = tcfg.optimizer or optimizer_for_arch(
             cfg.param_counts()["total"])
-        self.opt = make_optimizer(self.opt_name, tcfg.opt,
-                                  functools.partial(lm.param_stacks, cfg))
+        stacks = functools.partial(lm.param_stacks, cfg)
+        self.opt = make_optimizer(self.opt_name, tcfg.opt, stacks)
         self.data = SyntheticLMData(DataConfig(
             vocab=min(tcfg.data_vocab or cfg.vocab, cfg.vocab),
             seq_len=tcfg.seq_len, global_batch=tcfg.global_batch,
             seed=tcfg.seed, n_chains=tcfg.data_chains,
-            branch=tcfg.data_branch))
+            branch=tcfg.data_branch), host_index=dp_index, n_hosts=self.n_dp)
+        self.pspecs = self.sspecs = None
+        #: the stored parameters on a mesh: {name: DTensor}
+        self.params: Optional[Dict[str, torch.Tensor]] = None
+        if mesh is not None:
+            from ..launch.dryrun import opt_state_specs
+            model = lm.LM(cfg, "meta")
+            self.pspecs = shard.param_specs(cfg, model, mesh, mode="train")
+            shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+            self.sspecs = opt_state_specs(self.opt_name, shapes, self.pspecs,
+                                          stacks)
+        #: on a mesh, the most bytes a step has held at once of: whole
+        #: parameters filled into the model ("filled"), one update group's
+        #: parameters, gradients and state gathered whole ("update"; none
+        #: for adamw, which updates the blocks in place), and the f32
+        #: gradient blocks kept from the backward to the update ("grads")
+        self.peak_bytes = {"filled": 0, "update": 0, "grads": 0}
         self.ckpt = (CheckpointManager(tcfg.checkpoint_dir,
                                        keep=tcfg.keep_checkpoints,
                                        save_interval_steps=tcfg.checkpoint_every)
@@ -89,20 +153,23 @@ class Trainer:
             for (k, p), g in zip(params.items(), grads)}
 
     def train_step(self, model: lm.LM, opt_state, batch):
-        """One optimizer step on ``batch`` (tokens and labels (B, S));
-        updates the model's parameters and ``opt_state`` in place and
+        """One optimizer step on ``batch`` (tokens and labels (B, S): this
+        rank's rows on a mesh); updates the parameters (the model's, or
+        the stored blocks on a mesh) and ``opt_state`` in place and
         returns (opt_state, metrics: loss, nll, gnorm as 0-d tensors).
 
         With microbatches, the gradients of each 1/microbatches slice of
         the batch (rows in order) are summed into f32 zeros and divided by
         the count, and loss and nll are the slices' means, as the
         reference's scan does."""
+        if self.mesh is not None:
+            return self._mesh_step(model, opt_state, batch)
         params = dict(model.named_parameters())
         n = self.tcfg.microbatches
         if n == 1:
             loss, nll, grads = self._grads(model, params, batch)
         else:
-            mb = self.tcfg.global_batch // n
+            mb = batch["tokens"].shape[0] // n
             grads = {k: torch.zeros(p.shape, dtype=torch.float32,
                                     device=p.device)
                      for k, p in params.items()}
@@ -123,27 +190,250 @@ class Trainer:
                            "gnorm": opt_state["gnorm"]}
 
     # ------------------------------------------------------------------
+    # on a mesh
+    def _fill(self, params, names) -> None:
+        """Give the model's parameters ``names`` their stored whole values
+        (a collective: every rank calls it)."""
+        with torch.no_grad():
+            for k in names:
+                p, whole = params[k], self.params[k].full_tensor()
+                # the recompute refills a tensor that autograd saved: its
+                # values come back unchanged, so its version stays
+                with torch.autograd._unsafe_preserve_version_counter(p):
+                    p.untyped_storage().resize_(whole.nbytes)
+                    p.copy_(whole)
+        self._peak("filled", sum(p.untyped_storage().nbytes()
+                                 for p in params.values()))
+
+    def _peak(self, what: str, nbytes: int) -> None:
+        self.peak_bytes[what] = max(self.peak_bytes[what], nbytes)
+
+    @staticmethod
+    def _release(params, names) -> None:
+        """Free the storage of the model's parameters ``names``."""
+        for k in names:
+            params[k].untyped_storage().resize_(0)
+
+    def _store(self, model: lm.LM) -> None:
+        """Keep this rank's blocks of ``model``'s parameters (whole, the
+        same on every rank) in ``self.params`` and free the model's."""
+        params = dict(model.named_parameters())
+        self.params = {k: shard.shard(p, self.mesh, self.pspecs[k])
+                       for k, p in params.items()}
+        self._release(params, params)
+
+    def gather_model(self, model: lm.LM) -> lm.LM:
+        """``model`` with every parameter filled with its stored whole
+        value (a collective); on a mesh the trainer leaves them empty
+        between steps."""
+        self._fill(dict(model.named_parameters()), self.params)
+        return model
+
+    def _groups(self, names) -> list:
+        """The parameter groups the update takes at a time: adafactor's
+        stacks (each the reference's one leaf) and lone parameters, else
+        each parameter alone."""
+        if self.opt_name != "adafactor":
+            return [[k] for k in names]
+        stacks = lm.param_stacks(self.cfg, names)
+        stacked = {n for members in stacks.values() for n in members}
+        return ([[k] for k in names if k not in stacked]
+                + list(stacks.values()))
+
+    def _init_opt_state(self, params):
+        """The optimizer's initial state, stored as blocks, made a group
+        at a time (no rank holds the whole state)."""
+        state = {}
+        for group in self._groups(list(params)):
+            part = self.opt.init({k: params[k] for k in group})
+            for top, v in part.items():
+                if isinstance(v, dict):
+                    state.setdefault(top, {}).update(shard.shard_tree(
+                        v, self.sspecs[top], self.mesh))
+                else:
+                    state[top] = shard.shard(v, self.mesh, self.sspecs[top])
+        return state
+
+    def _reduce_grad(self, grads, k: str, p: torch.Tensor) -> None:
+        """Hook run when ``p``'s gradient is complete: the gradient
+        averaged over the data-parallel ranks, this rank's block of it
+        added to ``grads[k]`` (f32), the whole one dropped."""
+        block = shard.local_block(self._dp_mean(p.grad), self.mesh,
+                                  self.pspecs[k])
+        p.grad = None
+        if k in grads:
+            grads[k].add_(block)
+        else:
+            grads[k] = block.clone()
+
+    def _gnorm(self, grads) -> torch.Tensor:
+        """The global norm of the gradients whose blocks are ``grads``:
+        each block's sum of squares counted by the ranks at coordinate 0
+        of the mesh dimensions it is replicated over, summed over the mesh,
+        then over the parameters in order as ``optim`` sums them."""
+        from torch.distributed.tensor import Replicate
+        coord = self.mesh.get_coordinate()
+        sq = torch.stack([
+            torch.sum(torch.square(g))
+            if all(c == 0 for c, pl in zip(coord, self.params[k].placements)
+                   if isinstance(pl, Replicate))
+            else torch.zeros((), dtype=torch.float32, device=g.device)
+            for k, g in grads.items()])
+        for i in range(self.mesh.ndim):
+            dist.all_reduce(sq, group=self.mesh.get_group(i))
+        return torch.sqrt(sum(sq.unbind()))
+
+    def _mesh_step(self, model: lm.LM, opt_state, batch):
+        """``train_step`` on the mesh (the module's docstring)."""
+        params = dict(model.named_parameters())
+        index = {id(blk): i for i, blk in enumerate(model.blocks)}
+        layer: Dict[int, list] = {}
+        for k in params:
+            if k.startswith("blocks."):
+                layer.setdefault(int(k.split(".")[1]), []).append(k)
+        live: Dict[int, list] = {}
+
+        def materialize(blocks):
+            """Fill the period ``blocks``; with remat, free the period
+            filled before it (its forward, or its backward, is done)."""
+            key = index[id(blocks[0])]
+            if self.tcfg.remat:
+                for other in [o for o in live if o != key]:
+                    self._release(params, live.pop(other))
+            if key not in live:
+                live[key] = [k for blk in blocks
+                             for k in layer[index[id(blk)]]]
+                self._fill(params, live[key])
+
+        grads: Dict[str, torch.Tensor] = {}
+        hooks = [p.register_post_accumulate_grad_hook(
+            functools.partial(self._reduce_grad, grads, k))
+            for k, p in params.items()]
+        n = self.tcfg.microbatches
+        mb = batch["tokens"].shape[0] // n
+        losses, nlls = [], []
+        self._fill(params, [k for k in params if not k.startswith("blocks.")])
+        try:
+            for i in range(n):
+                part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                loss, aux = lm.loss_fn(model, self.cfg, part,
+                                       remat=self.tcfg.remat,
+                                       materialize=materialize)
+                loss.backward()
+                losses.append(loss.detach())
+                nlls.append(aux["nll"].detach())
+                del loss, aux
+        finally:
+            for h in hooks:
+                h.remove()
+            self._release(params, params)
+        grads = {k: (grads[k].div_(n) if n > 1 else grads[k]) if k in grads
+                 else torch.zeros(self.params[k].to_local().shape,
+                                  dtype=torch.float32, device=self.device)
+                 for k in params}
+        loss = losses[0] if n == 1 else torch.stack(losses).mean()
+        nll = nlls[0] if n == 1 else torch.stack(nlls).mean()
+        loss, nll = self._dp_mean(loss), self._dp_mean(nll)
+        gnorm = self._gnorm(grads)
+        self._peak("grads", _nbytes(grads))
+        scalars = {t: v.full_tensor() for t, v in opt_state.items()
+                   if not isinstance(v, dict)}
+        state = {t: dict(v) for t, v in opt_state.items()
+                 if isinstance(v, dict)}
+        update = (self._update_blocks if self.opt_name == "adamw"
+                  else self._update_groups)
+        new = update(grads, state, scalars, gnorm)
+        for t in scalars:
+            state[t] = shard.shard(new[t], self.mesh, self.sspecs[t])
+        return state, {"loss": loss, "nll": nll, "gnorm": new["gnorm"]}
+
+    def _update_blocks(self, grads, state, scalars, gnorm):
+        """adamw's update, element by element: each rank updates its own
+        blocks of the parameters and moments in place. Returns the
+        optimizer's new state (its scalars are read from it)."""
+        def local(tree):
+            return {k: v.to_local() for k, v in tree.items()}
+        params = local(self.params)
+        part = {t: local(v) for t, v in state.items()}
+        _, new = self.opt.update(grads, {**part, **scalars}, params,
+                                 gnorm=gnorm)
+        return new
+
+    def _update_groups(self, grads, state, scalars, gnorm):
+        """The update a group at a time (``_groups``): the group's
+        parameters, gradient blocks and state gathered whole, updated, and
+        stored again as blocks (adamw8bit's blocks and adafactor's factored
+        moments run along whole axes). Returns the optimizer's last new
+        state (its scalars are read from it)."""
+        from torch.distributed.tensor import DTensor
+        for group in self._groups(list(self.params)):
+            part = shard.gather_tree({t: {k: v[k] for k in group if k in v}
+                                      for t, v in state.items()})
+            whole = {k: self.params[k].full_tensor() for k in group}
+            g = {k: DTensor.from_local(grads.pop(k), self.mesh,
+                                       self.params[k].placements,
+                                       run_check=False).full_tensor()
+                 for k in group}
+            self._peak("update", _nbytes(part) + _nbytes(whole) + _nbytes(g))
+            _, new = self.opt.update(g, {**part, **scalars}, whole,
+                                     gnorm=gnorm)
+            for k in group:
+                self.params[k] = shard.shard(whole[k], self.mesh,
+                                             self.pspecs[k])
+            for t in state:
+                state[t].update(shard.shard_tree(new[t], self.sspecs[t],
+                                                 self.mesh))
+            del part, whole, g
+        return new
+
+    def _dp_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean of ``t`` (in f32) over the data-parallel ranks: summed
+        over each DP axis's process group, divided by their count."""
+        t = t.to(torch.float32).clone()
+        for a in self.dp:
+            dist.all_reduce(t, group=self.mesh.get_group(a))
+        return t / self.n_dp
+
+    # ------------------------------------------------------------------
     def init_state(self, resume: bool = True,
                    model: Optional[lm.LM] = None):
         """(model with gradients on, optimizer state, first step): ``model``
         or ``lm.init`` from the seed, then the latest committed checkpoint
-        when ``resume``."""
+        when ``resume``. On a mesh the parameters are stored as blocks
+        (``self.params``) and the model's are left empty
+        (``gather_model`` fills them)."""
         if model is None:
             gen = torch.Generator(device=self.device).manual_seed(
                 self.tcfg.seed)
             model = lm.init(self.cfg, gen, self.device)
         model.requires_grad_(True)
         params = dict(model.named_parameters())
-        opt_state = self.opt.init(params)
+        if self.mesh is None:
+            opt_state = self.opt.init(params)
+        else:
+            opt_state = self._init_opt_state(params)
+            self._store(model)
         start = 0
         if self.ckpt and resume and self.ckpt.latest_step() is not None:
-            (saved, opt_state), manifest = self.ckpt.restore(
-                (params, opt_state))
-            with torch.no_grad():
-                for k, p in params.items():
-                    p.copy_(saved[k])
+            if self.mesh is None:
+                (saved, opt_state), manifest = self.ckpt.restore(
+                    (params, opt_state))
+                with torch.no_grad():
+                    for k, p in params.items():
+                        p.copy_(saved[k])
+            else:
+                (self.params, opt_state), manifest = self.ckpt.restore(
+                    (self.params, opt_state), mesh=self.mesh,
+                    specs=(self.pspecs, self.sspecs))
             start = manifest["step"]
         return model, opt_state, start
+
+    def _saved(self, model: lm.LM, opt_state):
+        """(tree, specs) that a checkpoint stores: the stored parameters
+        and their specs on a mesh, else the model's parameters."""
+        if self.mesh is None:
+            return (dict(model.named_parameters()), opt_state), None
+        return (self.params, opt_state), (self.pspecs, self.sspecs)
 
     def batch(self, host: Dict) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(v).to(self.device, torch.int64)
@@ -155,7 +445,8 @@ class Trainer:
         """Train to step ``steps`` (default ``TrainConfig.steps``) from step
         0 or the latest checkpoint; returns (model, optimizer state,
         history: the metrics of every ``log_every``-th step and the last,
-        with ``step`` and ``tokens_per_s``).
+        with ``step`` and ``tokens_per_s``). On a mesh the model comes back
+        with its parameters empty, as between steps (``gather_model``).
 
         The checkpoint of step N holds the state after N updates, and a run
         resumed from it starts with batch N: every ``checkpoint_every``
@@ -183,14 +474,16 @@ class Trainer:
                     callback(step, m)
             done = step + 1
             if self.ckpt and done < steps and self.ckpt.should_save(done):
-                self.ckpt.save(done, (dict(model.named_parameters()),
-                                      opt_state),
+                tree, specs = self._saved(model, opt_state)
+                self.ckpt.save(done, tree, specs=specs,
                                metadata={"arch": self.cfg.name})
         if self.ckpt:
             if steps > start:
-                self.ckpt.save(steps, (dict(model.named_parameters()),
-                                       opt_state),
+                tree, specs = self._saved(model, opt_state)
+                self.ckpt.save(steps, tree, specs=specs,
                                metadata={"arch": self.cfg.name},
                                blocking=True)
             self.ckpt.wait()
+            if self.mesh is not None:   # rank 0's commit, seen by all
+                dist.barrier()
         return model, opt_state, history

@@ -1,0 +1,182 @@
+"""The port's dry run, model cards and policy shim against the reference.
+
+One dry-run cell of each kind for qwen3-1.7b on the (16, 16) production
+mesh (a fake process group of 256 ranks, fake tensors): train_4k,
+prefill_32k, decode_32k, and long_500k skipped with the reference's
+reason. Held per rank:
+
+* the parameters' local blocks, summed over each parameter's distinct
+  shards, give the model's whole bytes: bf16 weights at 2 bytes and f32
+  norms at 4, over ``param_counts()["total"]`` parameters plus what that
+  count leaves out (``chip_smoke.uncounted_params``: the final norm);
+* adamw's state is 8 bytes for each parameter of the rank's blocks, the
+  batch 8-byte tokens (and labels) of the rank's rows; the train step,
+  run by the sharded trainer itself, keeps 4-byte gradient blocks,
+  updates the blocks in place and fills at most the embedding, the head,
+  the final norm and one period; its collectives are counted, and a
+  serving cell's are null (the port serves on one card);
+* FLOPs against ``model_flops_per_token()`` x the rank's tokens, within
+  the factor the step's structure gives. Train runs the forward, the remat
+  recompute of every period (not the head) and the backward: at least
+  (8 N - 2 head) / 6 N of 6 N (N the active parameters less the
+  embedding), and at most 4/3 plus the attention scores, which the plain
+  attention computes over the whole S x S square (4 L S q_dim a token
+  forward). Prefill reads the head at one row; decode reads the S-deep
+  cache.
+* ``card()``'s fields equal the reference's when ``make_card`` gets the
+  reference's own chip constants (197 TFLOP/s, 819 GB/s).
+"""
+import dataclasses
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import repro.core.policy as ref_policy
+from repro.configs import all_ids
+from repro.configs import get as ref_get
+from repro_torch.configs import get
+from repro_torch.configs._base import make_card
+from repro_torch.core import policy
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+from repro_torch.models import lm
+from repro_torch.models import sharding as shard
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+
+ARCH = "qwen3-1.7b"
+SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+
+
+@pytest.fixture(scope="module")
+def cells(tmp_path_factory):
+    out = tmp_path_factory.mktemp("dryrun")
+    return {s: dryrun.run_cell(ARCH, s, "single", out) for s in SHAPES}
+
+
+def test_dryrun_records_each_kind(cells):
+    for s in SHAPES[:3]:
+        rec = cells[s]
+        assert rec["status"] == "ok", rec.get("trace")
+        assert rec["n_chips"] == 256 and rec["mesh_shape"] == {
+            "data": 16, "model": 16}
+        assert rec["memory"] is None and rec["cost_analysis"] is None
+        assert "no torch counterpart" in rec["null_because"]
+    train = cells["train_4k"]["collectives"]
+    assert train["total_count"] > 0
+    assert set(train["count"]) == set(train["bytes"]) == {
+        "c10d_functional.all_gather_into_tensor", "c10d.allreduce_"}
+    for s in SHAPES[1:3]:       # the port serves on one card
+        assert cells[s]["collectives"] is None
+        assert "no sharded serving step" in \
+            cells[s]["collectives_null_because"]
+    skipped = cells["long_500k"]
+    assert skipped["status"] == "skipped"
+    assert skipped["reason"].startswith("full-attention arch")
+
+
+@pytest.mark.parametrize("shape", SHAPES[:3])
+def test_dryrun_bytes_per_rank(cells, shape):
+    rec = cells[shape]
+    cfg = get(ARCH).config()
+    mesh = shard.AbstractMesh({"data": 16, "model": 16})
+    mode = "train" if shape == "train_4k" else "serve"
+    model = lm.LM(cfg, "meta")
+    specs = shard.param_specs(cfg, model, mesh, mode=mode)
+    local = whole = numel = 0
+    for name, p in model.named_parameters():
+        n_local = int(np.prod(shard.local_shape(p.shape, mesh, specs[name])))
+        n_shards = p.numel() // n_local
+        local += n_local * p.element_size()
+        whole += n_local * n_shards * p.element_size()
+        numel += p.numel()
+    assert rec["param_bytes_per_rank"] == local
+    assert rec["param_bytes_total"] == whole
+    assert numel == cfg.param_counts()["total"] + \
+        chip_smoke.uncounted_params(cfg)
+    f32 = sum(p.numel() for p in model.parameters() if p.element_size() == 4)
+    assert whole == 2 * (numel - f32) + 4 * f32
+    rows = {"train_4k": 16, "prefill_32k": 2, "decode_32k": 8}[shape]
+    assert rec["batch_local"] == rows and rec["batch_axes"] == ["data"]
+    width = {"train_4k": 4096, "prefill_32k": 32768, "decode_32k": 1}[shape]
+    assert rec["batch_bytes_per_rank"] == \
+        rows * width * 8 * (2 if shape == "train_4k" else 1)
+    if shape == "train_4k":
+        assert rec["optimizer"] == "adamw"
+        n_local = sum(np.prod(shard.local_shape(p.shape, mesh, specs[n]))
+                      for n, p in model.named_parameters())
+        assert rec["opt_state_bytes_per_rank"] == 8 * n_local + 8
+        # the step: f32 gradient blocks; adamw updates the blocks in
+        # place (gathers nothing); the filled parameters are the
+        # embedding, the head, the final norm and one period at most
+        assert rec["grad_bytes_per_rank"] == 4 * n_local
+        assert rec["update_group_bytes_peak"] == 0
+        outside = sum(p.numel() * p.element_size()
+                      for n, p in model.named_parameters()
+                      if not n.startswith("blocks."))
+        layer = sum(p.numel() * p.element_size()
+                    for p in model.blocks[0].parameters())
+        assert outside < rec["filled_param_bytes_peak"] <= outside + layer
+        assert rec["step_bytes_per_rank"] == (
+            rec["param_bytes_per_rank"] + rec["opt_state_bytes_per_rank"]
+            + rec["grad_bytes_per_rank"] + rec["filled_param_bytes_peak"])
+
+
+@pytest.mark.parametrize("shape", SHAPES[:3])
+def test_dryrun_flops_against_model_flops(cells, shape):
+    rec = cells[shape]
+    cfg = get(ARCH).config()
+    counts = cfg.param_counts()
+    N = counts["active"] - counts["embed"]
+    head = counts["head"]
+    S = 4096 if shape == "train_4k" else 32768
+    attn = 4 * cfg.n_layers * S * cfg.q_dim           # a token, forward
+    ratio = rec["flops_per_rank"] / rec["model_flops_per_rank"]
+    if shape == "train_4k":
+        lo, hi = (8 * N - 2 * head) / (6 * N), 4 / 3 + 4 * attn / (6 * N)
+    elif shape == "prefill_32k":
+        lo, hi = (N - head) / N, 1 + attn / (2 * N)
+    else:
+        lo, hi = 1.0, 1 + attn / (2 * N)
+    assert lo <= ratio <= hi, (shape, lo, ratio, hi)
+
+
+def test_dryrun_cli_writes_records(tmp_path):
+    assert dryrun.main(["--arch", ARCH, "--shape", "long_500k", "--mesh",
+                        "both", "--out", str(tmp_path)]) == 0
+    names = sorted(p.name for p in tmp_path.glob("*.json"))
+    assert names == [f"{ARCH}__long_500k__multipod.json",
+                     f"{ARCH}__long_500k__single.json"]
+
+
+@pytest.mark.parametrize("arch", all_ids())
+def test_card_equals_reference(arch):
+    ref = ref_get(arch).card()
+    mod = get(arch)
+    got = make_card(mod.NAME, mod.config(), peak_flops=197e12,
+                    hbm_bw=819e9)
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    card = mod.card()                     # the H100's constants
+    na = card.active_params_b
+    assert card.decode_tps == HBM_BW / max(2e9 * na, 1e6)
+    assert card.prefill_tps == PEAK_FLOPS_BF16 / max(2e9 * na, 1e6)
+
+
+def test_policy_shim_exports_the_reference_names():
+    for name in ref_policy.__all__:
+        assert hasattr(policy, name), name
+        assert name in policy.__all__
+        ref, got = getattr(ref_policy, name), getattr(policy, name)
+        if isinstance(ref, (np.ndarray, int, float, tuple)):
+            np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
+    assert policy.decide_pair_jnp is policy.decide_pair_torch
+    assert policy.decide_pair_slo_jnp is policy.decide_pair_slo_torch
+    assert policy.decide_pair_affinity_jnp is \
+        policy.decide_pair_affinity_torch
+    g = np.arange(6, dtype=np.float32)
+    assert policy.Thresholds.from_genome(g).q == 3.0

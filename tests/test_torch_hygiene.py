@@ -233,8 +233,8 @@ def test_c_entry_points_match_their_ctypes_signatures():
 
 
 def test_training_entry_points_require_cuda(monkeypatch, tmp_path):
-    """The trainer, the launcher and the crash-and-resume example resolve
-    the card unless the CPU is asked for; the mesh tail raises."""
+    """The trainer, the launcher, the crash-and-resume example and the
+    meshes resolve the card unless the CPU is asked for."""
     from repro_torch import train_small
     from repro_torch.launch import train as launch_train
     from repro_torch.training.trainer import TrainConfig, Trainer
@@ -249,8 +249,14 @@ def test_training_entry_points_require_cuda(monkeypatch, tmp_path):
                            "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_small.main(["--steps", "2"])
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Trainer(cfg, TrainConfig(), device="cpu", mesh=object())
+    from repro_torch.core.fitness import population_mesh
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_host_mesh(model=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_production_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        population_mesh()
     hist = launch_train.run_train("qwen3-1.7b", smoke=True, device="cpu",
                                   steps=2, seq_len=16, global_batch=2,
                                   log_every=1,

@@ -1,0 +1,315 @@
+"""The port's mesh tail on CPU process groups (gloo): the sharded trainer,
+its checkpoints, ``psum_compressed`` and the population-sharded fitness.
+
+Multi-rank runs are 2 processes started by ``torch_mesh_workers.launch``
+(a ``file://`` rendezvous under ``tmp_path``, a timeout on every rank);
+world-of-one runs join a 1-rank gloo group in this process. Every group is
+destroyed after its test.
+
+Held:
+* the train step (adamw, the stablelm-3b smoke config in f32, global batch
+  4) on a (2, 1) mesh (2 data-parallel ranks of 2 rows) and on (1, 2) (the
+  'model' axis sharding storage) against one rank without a mesh on the
+  whole batch: loss within 1e-5 relative; the gradients, through adamw's
+  first moment m = 0.1 g of the clipped gradient, within 1e-5 x max|g|;
+  v within 1e-5 x max|v|; each run's parameters equal to adamw's step
+  recomputed from its own moments within 1e-6 x max|delta p|. (A missing
+  mean over the DP ranks doubles g on (2, 1).) A world of one equals
+  ``Trainer()`` bit for bit;
+* a checkpoint saved on 2 ranks restores on 1 rank (no mesh) and on (1, 2)
+  bit for bit; the twin of ``tests/test_training.py::
+  test_checkpoint_elastic_reshard``;
+* ``psum_compressed``'s three methods, different gradients on each rank,
+  against the reference's arithmetic from its ``compress_int8`` /
+  ``compress_topk`` on one process: the int8 payloads' int32 sums exactly,
+  the f32 means within 1e-6 relative;
+* the sharded fitness on 3 genomes (padding by row 0 runs) under slo / qoe
+  and threshold / paper bit-equal to the unsharded port and within the
+  reference's rtol 1e-5 of the reference; a 4-generation NSGA-II run under
+  it leaves both ranks' states bit-equal; the twins of
+  ``tests/test_hotpath.py::test_sharded_fitness_*``.
+"""
+import dataclasses
+import datetime
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+import torch_mesh_workers as workers
+from repro.cluster.spec import paper_testbed as ref_testbed
+from repro.core.fitness import EvalConfig as RefEvalConfig
+from repro.core.fitness import TraceEvaluator as RefEvaluator
+from repro.training import grad_compress as rgc
+from repro.workload.slo import attach_slos as ref_attach_slos
+from repro.workload.trace import build_trace as ref_build_trace
+from repro_torch.checkpoint.manager import (_flatten, load_checkpoint,
+                                            save_checkpoint)
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.training.optim import OptConfig, _bias_corrections
+from repro_torch.training.trainer import TrainConfig, Trainer
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def world_of_one(tmp_path, monkeypatch):
+    """A 1-rank gloo process group in this process, destroyed after."""
+    monkeypatch.setenv("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group(
+        "gloo", init_method=f"file://{tmp_path / 'rdv1'}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def train_runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("train")
+    ranks = workers.launch("train", 2, tmp)
+    cfg = workers._train_cfg()
+    model, state, hist = Trainer(cfg, TrainConfig(**workers.TRAIN),
+                                 device="cpu").run(model=workers._model(cfg),
+                                                   resume=False)
+    one = {"hist": hist, "m": state["m"], "v": state["v"],
+           "params": {k: p.detach() for k, p in model.named_parameters()}}
+    return ranks, one
+
+
+def _rel(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("mesh_shape", ["2x1", "1x2"])
+def test_sharded_train_step_matches_one_rank(train_runs, mesh_shape):
+    ranks, one = train_runs
+    runs = [r[mesh_shape] for r in ranks]
+    assert runs[0]["n_dp"] == (2 if mesh_shape == "2x1" else 1)
+    for run in runs:
+        loss, want = run["hist"][0]["loss"], one["hist"][0]["loss"]
+        assert abs(loss - want) <= 1e-5 * abs(want)
+        assert abs(run["hist"][0]["gnorm"] - one["hist"][0]["gnorm"]) \
+            <= 1e-5 * one["hist"][0]["gnorm"]
+    p0 = {k: p.detach() for k, p in workers._model(
+        workers._train_cfg()).named_parameters()}
+    opt = OptConfig()
+    b1c, b2c = _bias_corrections(opt, torch.tensor(1, dtype=torch.int32))
+    for k, want_m in one["m"].items():
+        for run in runs:
+            assert _rel(run["m"][k], want_m) <= 1e-5, k   # 0.1 x gradient
+            assert _rel(run["v"][k], one["v"][k]) <= 1e-5, k
+            assert torch.equal(run["params"][k], run["model"][k])
+            assert run["model_empty"]   # between steps
+            m, v = run["m"][k], run["v"][k]
+            step = p0[k] - opt.lr * ((m / b1c) / (torch.sqrt(v / b2c)
+                                                  + opt.eps)
+                                     + opt.weight_decay * p0[k])
+            delta = float((one["params"][k] - p0[k]).abs().max())
+            assert float((run["params"][k] - step).abs().max()) \
+                <= 1e-6 * delta, k
+        # both ranks hold the same whole arrays
+        assert torch.equal(runs[0]["params"][k], runs[1]["params"][k])
+    # storage is sharded: a rank keeps half of the embedding on either mesh
+    for run in runs:
+        assert run["local_shapes"]["embed"] != tuple(p0["embed"].shape)
+
+
+def test_world_of_one_trainer_bit_equal(world_of_one, tmp_path):
+    """Trainer(mesh=make_host_mesh(model=1)) against Trainer() on the same
+    seed, 2 steps: metrics, parameters and moments bit for bit; its
+    checkpoint (with specs) restored onto the mesh bit for bit."""
+    cfg = workers._train_cfg()
+    tcfg = TrainConfig(**{**workers.TRAIN, "steps": 2})
+    model, state, hist = Trainer(cfg, tcfg, device="cpu").run(resume=False)
+    mesh = make_host_mesh(model=1, device="cpu")
+    tr = Trainer(cfg, dataclasses.replace(
+        tcfg, checkpoint_dir=str(tmp_path / "ck")), device="cpu", mesh=mesh)
+    model_m, state_m, hist_m = tr.run(resume=False)
+    assert [(h["loss"], h["nll"], h["gnorm"]) for h in hist] == \
+        [(h["loss"], h["nll"], h["gnorm"]) for h in hist_m]
+    for k, p in model.named_parameters():
+        assert torch.equal(p.detach(), tr.params[k].full_tensor()), k
+        for mom in ("m", "v"):
+            assert torch.equal(state[mom][k], state_m[mom][k].full_tensor())
+    (params, st), man = tr.ckpt.restore((tr.params, state_m), mesh=mesh,
+                                        specs=(tr.pspecs, tr.sspecs))
+    assert man["specs"]["/0/embed"] == list(tr.pspecs["embed"])
+    for (_, a), (_, b) in zip(_flatten((params, st)),
+                              _flatten((tr.params, state_m))):
+        assert a.placements == b.placements
+        assert torch.equal(a.full_tensor(), b.full_tensor())
+
+
+@pytest.mark.parametrize("optimizer,microbatches,remat", [
+    ("adamw", 2, True), ("adamw", 1, False), ("adamw8bit", 1, True),
+    ("adafactor", 2, True)])
+def test_world_of_one_mesh_step_variants_bit_equal(world_of_one, optimizer,
+                                                   microbatches, remat):
+    """The other optimizers (updated a group at a time: adafactor a
+    stack), microbatches and no remat on a world of one: metrics,
+    parameters and every optimizer-state leaf bit for bit against
+    Trainer()."""
+    cfg = workers._train_cfg()
+    tcfg = TrainConfig(**{**workers.TRAIN, "steps": 2,
+                          "optimizer": optimizer,
+                          "microbatches": microbatches, "remat": remat})
+    model, state, hist = Trainer(cfg, tcfg, device="cpu").run(resume=False)
+    tr = Trainer(cfg, tcfg, device="cpu",
+                 mesh=make_host_mesh(model=1, device="cpu"))
+    _, state_m, hist_m = tr.run(resume=False)
+    assert [(h["loss"], h["nll"], h["gnorm"]) for h in hist] == \
+        [(h["loss"], h["nll"], h["gnorm"]) for h in hist_m]
+    for k, p in model.named_parameters():
+        assert torch.equal(p.detach(), tr.params[k].full_tensor()), k
+    # adamw updates the blocks in place; the others gather a group
+    assert (tr.peak_bytes["update"] > 0) == (optimizer != "adamw")
+    want = dict(_flatten(state))
+    got = {k: t.full_tensor() for k, t in _flatten(state_m)}
+    assert set(got) == set(want)
+    for k, t in want.items():
+        assert torch.equal(t, got[k]), k
+
+
+def test_mesh_step_fills_one_period_at_a_time(world_of_one, monkeypatch):
+    """A step on the mesh fills each period of the smoke config (4
+    periods of one layer) before its forward and again before its
+    recompute (the last stays filled from its forward into its backward),
+    never holds two periods filled at once, and leaves none filled."""
+    events = []
+    fill = Trainer._fill
+
+    def recording_fill(self, params, names):
+        fill(self, params, names)
+        filled = {int(k.split(".")[1]) for k, p in params.items()
+                  if k.startswith("blocks.")
+                  and p.untyped_storage().nbytes()}
+        events.append((sorted({int(k.split(".")[1]) for k in names
+                               if k.startswith("blocks.")}), filled))
+
+    monkeypatch.setattr(Trainer, "_fill", recording_fill)
+    cfg = workers._train_cfg()
+    tr = Trainer(cfg, TrainConfig(**workers.TRAIN), device="cpu",
+                 mesh=make_host_mesh(model=1, device="cpu"))
+    model, _, _ = tr.run(resume=False)
+    periods = [e[0] for e in events if e[0]]
+    assert periods == [[0], [1], [2], [3], [2], [1], [0]]
+    assert all(len(filled) <= 1 for _, filled in events)
+    assert all(p.untyped_storage().nbytes() == 0 for p in model.parameters())
+
+
+def test_checkpoint_saved_on_2_ranks_restores_on_1_and_1x2(train_runs):
+    ranks, _ = train_runs
+    saved = ranks[0]["2x1"]
+    names = {k: 0 for k in saved["params"]}
+    tree, man = load_checkpoint(ranks[0]["ckpt_dir"], (names, {
+        "m": names, "v": names, "step": 0, "gnorm": 0}))
+    assert man["step"] == 1 and man["specs"] is not None
+    flat = dict(_flatten(tree))
+    for k, p in saved["params"].items():
+        assert torch.equal(flat[f"/0/{k}"], p), k
+        for mom in ("m", "v"):
+            assert torch.equal(flat[f"/1/{mom}/{k}"], saved[mom][k])
+    for r in ranks:
+        back = r["restore"]
+        assert back["start"] == 1
+        assert set(back["whole"]) == set(flat)
+        for path, t in back["whole"].items():
+            assert torch.equal(t, flat[path]), path
+        assert back["placements"]["/0/embed"] == ["S(1)", "S(0)"]
+        assert back["model_empty"]
+        for k, p in saved["params"].items():
+            assert torch.equal(back["model"][k], p)
+
+
+def test_checkpoint_elastic_reshard(world_of_one, tmp_path):
+    """Save unsharded with specs, restore onto a 1-rank mesh."""
+    tree = {"w": torch.arange(32, dtype=torch.float32).reshape(4, 8)}
+    save_checkpoint(tmp_path, 0, tree, specs={"w": (None, "model")})
+    mesh = make_host_mesh(model=1, device="cpu")
+    restored, manifest = load_checkpoint(tmp_path, tree, mesh=mesh)
+    assert torch.equal(restored["w"].full_tensor(), tree["w"])
+    assert manifest["specs"]["w"] == [None, "model"]
+
+
+@pytest.fixture(scope="module")
+def psum_runs(tmp_path_factory):
+    return workers.launch("psum", 2, tmp_path_factory.mktemp("psum"))
+
+
+@pytest.mark.parametrize("method", ["int8", "topk", "none"])
+def test_psum_compressed_matches_reference_arithmetic(psum_runs, method):
+    n = len(psum_runs)
+    grads = [{k: jnp.asarray(v.numpy()) for k, v in r["grads"].items()}
+             for r in psum_runs]
+    res = rgc.init_residual(grads[0])
+    if method == "int8":
+        qs, ss = zip(*(rgc.compress_int8(g, res)[:2] for g in grads))
+        for k in grads[0]:
+            ref_sum = sum(np.asarray(q[k]).astype(np.int32) for q in qs)
+            port_sum = sum(r["q"][k].to(torch.int32) for r in psum_runs)
+            np.testing.assert_array_equal(port_sum.numpy(), ref_sum)
+        want = {k: rgc._dequantize_int8(
+            jnp.asarray(sum(np.asarray(q[k]).astype(np.int32) for q in qs),
+                        jnp.float32) / n,
+            sum(s[k] for s in ss) / n, grads[0][k].shape) for k in grads[0]}
+    elif method == "topk":
+        sents = [rgc.compress_topk(g, res)[0] for g in grads]
+        want = {k: sum(s[k] for s in sents) / n for k in grads[0]}
+    else:
+        want = {k: sum(g[k] for g in grads) / n for k in grads[0]}
+    for r in psum_runs:
+        mean, _ = r[method]
+        for k, w in want.items():
+            w = np.asarray(w)
+            got = mean[k].numpy()
+            assert np.abs(got - w).max() <= 1e-6 * np.abs(w).max(), k
+        assert torch.equal(mean["w"], psum_runs[0][method][0]["w"])
+
+
+def test_sharded_fitness_single_device_mesh_equivalence(world_of_one):
+    ev, mesh, plain, sharded = workers._fitness_case("slo", "qoe",
+                                                     workers.SLO_GENOMES)
+    assert mesh.size() == 1
+    assert torch.equal(plain[0], sharded[0])
+    assert torch.equal(plain[1], sharded[1])
+
+
+@pytest.fixture(scope="module")
+def fitness_runs(tmp_path_factory):
+    return workers.launch("fitness", 2, tmp_path_factory.mktemp("fitness"))
+
+
+@pytest.mark.parametrize("policy, objectives", [("slo", "qoe"),
+                                                ("threshold", "paper")])
+def test_sharded_fitness_multi_rank(fitness_runs, policy, objectives):
+    tr = ref_build_trace(40, seed=0)
+    ref_attach_slos(tr, seed=0)
+    ev = RefEvaluator(tr, ref_testbed(), RefEvalConfig(concurrency=4),
+                      bucket="pow2")
+    genomes = (workers.SLO_GENOMES if policy == "slo"
+               else workers.THRESHOLD_GENOMES)
+    F0, v0 = ev.make_fitness(policy, objectives=objectives)(
+        jnp.asarray(genomes, jnp.float32), jax.random.key(0))
+    for r in fitness_runs:
+        (Fp, vp), (Fs, vs) = r[policy]["plain"], r[policy]["sharded"]
+        assert Fs.shape[0] == len(genomes)
+        assert torch.equal(Fp, Fs) and torch.equal(vp, vs)
+        assert np.allclose(Fs.numpy(), np.asarray(F0), rtol=1e-5, atol=1e-7)
+        assert np.allclose(vs.numpy(), np.asarray(v0))
+
+
+def test_sharded_nsga2_states_equal_across_ranks(fitness_runs):
+    a, b = (r["nsga2"] for r in fitness_runs)
+    assert a["generation"] == b["generation"] == 4
+    for f, t in a.items():
+        if torch.is_tensor(t):
+            assert torch.equal(t, b[f]), f

@@ -2,8 +2,8 @@
 the gradient-compression operators, the trainer with microbatching, and
 checkpoint/restart. The first eleven tests are the single-device tests of
 ``tests/test_training.py`` run on the port (the elastic reshard onto a mesh
-belongs to the multi-device part, not ported); the rest hold the port to
-the reference on the same inputs, made with numpy from seeds.
+is in ``tests/test_torch_mesh_train.py``); the rest hold the port to the
+reference on the same inputs, made with numpy from seeds.
 
 Tolerances: optimizer parameters and moments within 1e-6 relative (1e-6
 of the leaf's max|x| absolute) after 3 updates from the reference's state —
@@ -15,6 +15,8 @@ parameters: nll and gnorm within 1e-4 relative (a 4-layer model's f32
 forward and backward in another order of summation, then two optimizer
 steps through it).
 """
+import collections
+import contextlib
 import dataclasses
 import functools
 import json
@@ -25,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs import get as ref_get
 from repro.models import lm as rlm
@@ -539,31 +542,81 @@ def test_trainer_steps_match_reference(microbatches):
     assert int(state["step"]) == 3
 
 
+def _remat_grads(cfg, batch, remat, policy="full", count=None):
+    """(loss, gradients) of a fresh model from seed 0; ``count`` (a
+    dispatch mode) sees the backward."""
+    model = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    model.requires_grad_(True)
+    loss, aux = lm.loss_fn(model, cfg, batch, remat=remat,
+                           remat_policy=policy)
+    with count or contextlib.nullcontext():
+        loss.backward()
+    return loss.detach(), [p.grad for p in model.parameters()]
+
+
+def _lm_batch(cfg, seed=0):
+    rng = np.random.default_rng(seed)
+    return {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16))),
+            "labels": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)))}
+
+
 def test_loss_remat_changes_nothing():
     """The checkpointed loss and its gradients equal the plain ones bit for
-    bit (the recompute runs the same ops on the same inputs)."""
+    bit (the recompute runs the same ops on the same inputs), under both
+    remat policies."""
     cfg = dataclasses.replace(get("jamba-v0.1-52b").smoke(), dtype="float32")
-    rng = np.random.default_rng(0)
-    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16))),
-             "labels": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)))}
-    out = []
-    for remat in (False, True):
-        model = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
-        model.requires_grad_(True)
-        loss, aux = lm.loss_fn(model, cfg, batch, remat=remat)
-        loss.backward()
-        out.append((loss.detach(), [p.grad for p in model.parameters()]))
-    assert torch.equal(out[0][0], out[1][0])
-    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
-    with pytest.raises(NotImplementedError, match="save_ffn_hidden"):
-        lm.loss_fn(model, cfg, batch, remat_policy="save_ffn_hidden")
+    batch = _lm_batch(cfg)
+    out = [_remat_grads(cfg, batch, False),
+           _remat_grads(cfg, batch, True),
+           _remat_grads(cfg, batch, True, "save_ffn_hidden")]
+    for loss, grads in out[1:]:
+        assert torch.equal(out[0][0], loss)
+        assert all(torch.equal(a, b) for a, b in zip(out[0][1], grads))
+
+
+class _OpCount(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.ops = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops[func.overloadpacket.__name__] += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "llama-3.2-vision-11b"])
+def test_save_ffn_hidden_keeps_the_hidden_products(arch):
+    """``remat_policy="save_ffn_hidden"``: loss and every gradient equal
+    "full"'s bit for bit in f32, and the backward (recompute included)
+    runs two ``mm`` fewer for each dense FFN (its x @ wi and x @ wg come
+    from the forward), so a policy that saves nothing fails."""
+    cfg = dataclasses.replace(get(arch).smoke(), dtype="float32")
+    batch = _lm_batch(cfg, 1)
+    if cfg.family == "vlm":
+        batch["patches"] = torch.from_numpy(np.random.default_rng(2)
+                                            .standard_normal(
+            (2, cfg.cross_kv_tokens, cfg.d_model)).astype(np.float32))
+    counts = {}
+    res = {}
+    for policy in ("full", "save_ffn_hidden"):
+        counts[policy] = _OpCount()
+        res[policy] = _remat_grads(cfg, batch, True, policy,
+                                   counts[policy])
+    assert torch.equal(res["full"][0], res["save_ffn_hidden"][0])
+    assert all(torch.equal(a, b) for a, b in zip(res["full"][1],
+                                                 res["save_ffn_hidden"][1]))
+    n_dense = sum(f == "dense" for _, f in map(cfg.block_at,
+                                                 range(cfg.n_layers)))
+    assert counts["full"].ops["mm"] - counts["save_ffn_hidden"].ops["mm"] \
+        == 2 * n_dense
 
 
 def test_checkpoint_bf16_bits_and_layout(tmp_path):
     """bf16 goes to disk as its raw 16 bits with "bfloat16" in the
     manifest, in the reference's layout, and comes back bit for bit; the
     reference's loader reads the port's checkpoint; the async manager's
-    save is isolated from later in-place updates; mesh restores raise."""
+    save is isolated from later in-place updates; specs are recorded in
+    the reference's JSON, which its loader reads back."""
     x = torch.randn(3, 300).to(torch.bfloat16)
     x[0, :4] = torch.tensor([float("nan"), float("inf"), -0.0, 1e-40])
     saved = x.clone()
@@ -592,5 +645,15 @@ def test_checkpoint_bf16_bits_and_layout(tmp_path):
         mgr.save(4 + _, tree, blocking=True)
     assert sorted(p.name for p in tmp_path.glob("step_*")) == [
         "step_00000005", "step_00000006"]
-    with pytest.raises(NotImplementedError):
-        mgr.restore(tree, mesh=object())
+    assert json.loads((tmp_path / "step_00000006" / "manifest.json")
+                      .read_text())["specs"] is None
+    specs = ({"w": (None, ("data", "model")), "n": ("data",)},
+             {"step": ()})
+    mgr.save(7, tree, specs=specs, blocking=True)
+    man = json.loads((tmp_path / "step_00000007" / "manifest.json")
+                     .read_text())
+    assert man["specs"] == {"/0/w": [None, ["data", "model"]],
+                            "/0/n": ["data"], "/1/step": []}
+    from repro.checkpoint.manager import _spec_from_json
+    assert tuple(_spec_from_json(man["specs"]["/0/w"])) == \
+        (None, ("data", "model"))
