@@ -56,7 +56,10 @@ that each print one JSON line (run in the order 1-5, 9, 13, 14, 6, 10, 7,
    version and to the column sums of the matrix kernel, over P in {1, 63,
    64, 65, 200, 4096, 4099}, M 1-9 and 33, f32/bf16/f16, ties, duplicates
    and NaN rows, and on every objective matrix that phases 3 and 5 sorted;
-   timed at P = 200 and 4096;
+   two calls equal, P 4096 then 200 then 4096 again exact, a call on a
+   second stream exact; one device operation a call (the profiled names
+   and events a call);
+   timed at P = 200 and 4096 with its share of the bound;
 10. paged kernel: the paged decode kernel against its plain version (2e-5
    f32, 2e-2 bf16) and bit for bit equal to the decode kernel on the
    gathered cache (the same split kernel with other row addresses), in
@@ -379,15 +382,21 @@ def device_total_ms(fn, *args, iters=20, attempts=3):
     return sum(us) / iters / 1e3 if us else None
 
 
-def device_kernel_names(fn, *args, iters=5, attempts=3, fresh=True):
+def device_kernel_names(fn, *args, iters=5, attempts=3, fresh=True,
+                        events=False):
     """The names of the device kernels that calls of ``fn`` run (an empty
     window is profiled again; with ``fresh``, when every window is empty,
-    in a new process: ``in_fresh_process``)."""
-    names = _profiled(lambda: sorted(
-        {n for n, _ in _device_events(fn, *args, iters=iters)}), attempts)
-    if not names and fresh:
-        names = _fresh(fn, args, "device_kernel_names", iters=iters)
-    return names
+    in a new process: ``in_fresh_process``). With ``events``, (names, the
+    device operations that the ``iters`` calls recorded, memsets and copies
+    included): the profiler may drop a few events of a window, never add
+    one."""
+    evs = _profiled(lambda: _device_events(fn, *args, iters=iters),
+                    attempts)
+    if not evs and fresh:
+        return _fresh(fn, args, "device_kernel_names", iters=iters,
+                      events=events)
+    names = sorted({n for n, _ in evs})
+    return (names, len(evs)) if events else names
 
 
 def _idle(busy, wall):
@@ -847,12 +856,38 @@ def _check_sorted(Fs):
     return len(Fs)
 
 
+def _check_counts_state():
+    """The counts kernel keeps nothing between calls: two calls give equal
+    counts, P 4096 then 200 then 4096 again are exact, and so is a call on
+    a second stream; returns how many calls were checked."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator().manual_seed(8)
+    Fa = torch.rand((4096, 3), generator=gen).cuda()
+    Fb = torch.rand((200, 3), generator=gen).cuda()
+    first, again = ops.dominance_counts(Fa), ops.dominance_counts(Fa)
+    small, third = ops.dominance_counts(Fb), ops.dominance_counts(Fa)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        on_side = ops.dominance_counts(Fa)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    want = ref.dominance_counts(Fa)
+    assert torch.equal(first, again), "two calls differ"
+    assert torch.equal(third, want) and torch.equal(
+        small, ref.dominance_counts(Fb)), "P 4096, 200, 4096 not exact"
+    assert torch.equal(on_side, want), "a second stream not exact"
+    return 5
+
+
 def phase_counts_kernel(sorted_F):
     """The dominator-counts kernel exactly equal to its plain version and to
     the column sums of the matrix kernel: synthetic cases, then every
-    objective matrix the quickstart's and the pop-4096 run's sorts saw."""
+    objective matrix the quickstart's and the pop-4096 run's sorts saw; no
+    state between calls; one device operation a call."""
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import dominance, ops, ref
     gen = torch.Generator().manual_seed(5)
     check = _check_counts
     n = max_err = 0
@@ -867,20 +902,36 @@ def phase_counts_kernel(sorted_F):
         max_err = max(max_err, check(F))
         shapes[str(tuple(F.shape))] += 1
     assert shapes, "the main path sorted no population"
+    state_calls = _check_counts_state()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     timing = {}
     for P in (200, 4096):
         F = torch.rand((P, 3), device="cuda")
         bound, by = counts_bound(P, 3)
+        # one device operation a call: a counts kernel and nothing else (a
+        # memset would show by name), at most once a call (the profiler
+        # drops events now and then, so fewer is taken)
+        iters = 20
+        names, events = device_kernel_names(ops.dominance_counts, F,
+                                            iters=iters, events=True)
+        assert names and all("dominance_counts" in nm for nm in names) and (
+            0 < events <= iters), ("one device operation a call", names,
+                                   events)
+        dev = device_kernel_ms(ops.dominance_counts, F,
+                               name="dominance_counts")
         timing[str(P)] = dict(
             ms=time_ms(ops.dominance_counts, F),
             plain_ms=time_ms(ref.dominance_counts, F),
-            device_ms=device_kernel_ms(ops.dominance_counts, F,
-                                       name="dominance_counts_kernel"),
-            bound_ms=bound, bound_by=by, library_ms=None)
+            device_ms=dev, bound_ms=bound, bound_by=by, library_ms=None,
+            share_of_bound=None if dev is None else bound / dev,
+            profiled_ops_per_call=events / iters,
+            profiled_op_names=names,
+            grid=list(dominance.dominance_counts_grid(P, n_sm)))
     row = {"phase": "counts_kernel", "cases": n,
            "main_path_matrices": len(sorted_F.Fs),
            "main_path_shapes": dict(shapes), "exact": True,
-           "max_abs_err": max_err, "timing": timing,
+           "state_calls": state_calls, "max_abs_err": max_err,
+           "timing": timing,
            "library": "none: no single PyTorch call counts dominators"}
     emit(row)
     return row
@@ -3865,8 +3916,11 @@ def main():
         "cases": counts["cases"], "exact": counts["exact"],
         "max_abs_err": counts["max_abs_err"],
         **{k: c200[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                "library_ms", "device_ms")},
-        "library": counts["library"], "p4096": c4096}, {
+                                "library_ms", "device_ms", "share_of_bound",
+                                "profiled_ops_per_call")},
+        "state_calls": counts["state_calls"],
+        "library": counts["library"], "p4096": c4096,
+        "previous": "PERF.md section 6, column Previous"}, {
         "name": "gqa_decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "kernel_body": "src/repro_torch/kernels/csrc/split_decode.cuh",

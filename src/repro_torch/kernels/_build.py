@@ -38,7 +38,7 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 # C symbol -> argument types (every function returns a cudaError_t as int)
 SYMBOLS = {
-    "repro_dominance_counts": [_PTR, _PTR, _INT, _INT, _PTR],
+    "repro_dominance_counts": [_PTR, _PTR] + [_INT] * 5 + [_PTR],
     "repro_dominance_matrix": [_PTR, _PTR] + [_INT] * 5 + [_PTR],
     "repro_flash_attention": [_PTR] * 7 + [_INT] * 9 + [_I64] * 18 + [_PTR],
     "repro_flash_attention_bwd_dq": [_PTR] * 8 + [_INT] * 7 + [_I64] * 18

@@ -2,7 +2,7 @@
 // (`cp.async.cg`, sm_80 and later), shared by the bf16 flash kernel
 // (flash_attention.cu) and the split decode kernel (split_decode.cuh), and
 // `allow_smem`, which every launch that stages more than 48 KB of shared
-// memory calls (flash, split decode and the dominance matrix kernel).
+// memory calls (flash, split decode and the dominance kernels).
 //
 // A copy with src_bytes = 0 reads nothing and writes 16 zero bytes: the
 // kernels use it for rows past their limit (kv_len, S, prefix_len) and for

@@ -96,16 +96,21 @@ __device__ __forceinline__ void store_run(uint8_t* out, const uint32_t (&w)[4],
     if (c >= done && c < n) out[c] = (uint8_t)(w[c / 4] >> (8 * (c % 4)));
 }
 
-// Byte q of the result is 1 where y[q]'s sign bit is set, else 0: `prmt`
-// with a selector nibble of 8 + i copies the sign of byte i into all eight
-// bits, so two permutes take the top bytes' signs of y[0], y[1] and of
-// y[2], y[3], a third joins them, and the mask keeps one bit a byte.
-__device__ __forceinline__ uint32_t pack_signs(const uint32_t (&y)[4]) {
+// Byte q of the result is 0xFF where y[q]'s sign bit is set, else 0:
+// `prmt` with a selector nibble of 8 + i copies the sign of byte i into all
+// eight bits, so two permutes take the top bytes' signs of y[0], y[1] and
+// of y[2], y[3], and a third joins them.
+__device__ __forceinline__ uint32_t sign_bytes(const uint32_t (&y)[4]) {
   uint32_t lo, hi, s;
   asm("prmt.b32 %0, %1, %2, 0x00FB;" : "=r"(lo) : "r"(y[0]), "r"(y[1]));
   asm("prmt.b32 %0, %1, %2, 0x00FB;" : "=r"(hi) : "r"(y[2]), "r"(y[3]));
   asm("prmt.b32 %0, %1, %2, 0x5410;" : "=r"(s) : "r"(lo), "r"(hi));
-  return s & 0x01010101u;
+  return s;
+}
+
+// The same with one bit a byte: 1 where y[q]'s sign bit is set.
+__device__ __forceinline__ uint32_t pack_signs(const uint32_t (&y)[4]) {
+  return sign_bytes(y) & 0x01010101u;
 }
 
 // Objectives [m0, m0 + mc) of columns [strip0, strip0 + 512) into shared
@@ -360,176 +365,490 @@ int launch_matrix_chunked(const float* F, uint8_t* D, int P, int M, int rows,
 //
 // What bounds it: 2 * P * P * M f32 comparisons against a P*M*4 byte read
 // and a P*4 byte write: operations, ~1.5 us of the card's f32 rate at
-// P = 4096, M = 3. In practice it is latency: few rows per thread, one
-// dependent shared-memory load per objective.
+// P = 4096, M = 3. In practice, at large P, the issue of ~6.6
+// instructions an entry (M subtractions on the FMA pipe, the integer work
+// below on the ALU), which the loop below issues at well under the card's
+// rate (PERF.md); at small P, the launch and the memory round trips.
 //
-// What the design does about it: one thread per column j holds F[j] in
-// registers (the objective loop is unrolled, to M itself for M <= 8 and to
-// 32 with a guard above, so the row stays in registers and the loop has no
-// branch where it matters) and counts its dominators in a register; past
-// 32 objectives (dominance_counts_chunked_kernel) it holds 32 at a time
-// and keeps bits across the chunks.
-// Each block of kCountThreads columns walks its share of the i rows in
-// tiles of at most kCountTileI staged in shared memory (contiguous rows,
-// read by every thread as a broadcast). The TPU grid's sequential i axis
-// becomes that loop. A thread's row loop waits on a shared-memory load per
-// objective, so the card needs many warps in flight: the i rows are split
-// over gridDim.y blocks, in shares of a multiple of 32 rows, for about two
-// blocks per SM in all, and the partial counts meet in one integer
-// atomicAdd per column and block (the sum of integers is exact in any
-// order). With one split the count is stored directly.
-constexpr int kCountThreads = 128;
-constexpr int kCountTileI = 256;
-constexpr int kCountRowStep = 32;   // the rows of a split: a multiple of it
+// What the design does about it:
+//   * up to 1,024 rows (dominance_counts_ballot_kernel) the work is too
+//     small for the loop below to matter: a call is its launch and a few
+//     dependent memory round trips. A lane holds one row, so a block holds
+//     every row (a warp per 32), and owns 4 or 8 columns: for each column a
+//     warp votes with `__ballot_sync` which of its rows dominate it and
+//     counts them with `__popc`, the warps' counts meet in shared memory,
+//     and each count is stored once. The comparisons themselves, so no
+//     value needs a special path (-0 equals +0, NaN compares false). One
+//     load of the rows and columns, one barrier, one pass;
+//   * past 1,024 rows a thread owns 8 consecutive columns j and keeps
+//     their objectives in registers (M <= 8, the loops unrolled to M by a
+//     template; dominance_counts_kernel); a block
+//     owns `groups` such groups (8, 16 or 32 columns) and all P rows: its
+//     512 threads are the groups times 512 / groups row phases, a phase
+//     taking every (512 / groups)-th row of a tile staged in shared memory,
+//     two rows at a time. The tiles are double-buffered (the next tile's
+//     loads are in flight while this one is counted) and each block starts
+//     on its own tile, so that the blocks' loads spread over L2. A row's M
+//     values are one or two 16-byte loads that serve 8 entries, whose
+//     chains are independent;
+//   * for finite objectives an entry costs M subtractions and a few
+//     integer operations, as in the matrix kernel: x, the OR of the
+//     differences' bits, is positive iff row i dominates column j, so the
+//     sign of -x is the answer. `sign_bytes` packs four of them as 0xFF
+//     bytes into a word that one add puts into four byte counters. The
+//     counters then hold 255 * n mod 2^32 for the word n of the four
+//     counts, so a multiply by 255's inverse reads n back, exact while no
+//     count passes 255: they are flushed into 32-bit counts every
+//     kCountFlush tiles, at most 128 rows a thread. A tile, or a thread's
+//     columns, with a NaN or an infinity takes the comparisons instead;
+//   * there, past 8 objectives (dominance_counts_chunked_kernel), the
+//     block's columns and a batch of rows are staged in shared memory, 32
+//     objectives at a time, and a thread keeps x for its 2 rows of the
+//     batch by its 8 columns across the chunks;
+//   * a block ends with its counts: the row phases' sums meet by warp
+//     shuffles, then across the 16 warps in shared memory, and each count
+//     is stored once. No block depends on another, so a call is one
+//     launch: no memset, no atomics, no state kept between calls, and
+//     integer sums in a fixed order. The host picks the kernel and its
+//     block (kernels/dominance.py: dominance_counts_grid): past 1,024 rows
+//     the widest block whose grid covers three quarters of the SMs in one
+//     wave (an SM holds one block; P / 32 blocks at P = 4096, each reading
+//     F once from L2).
+constexpr int kCountCols = 8;                  // consecutive columns a thread
+constexpr int kCountThreads = 512;             // 16 warps
+constexpr int kCountWarps = kCountThreads / 32;
+constexpr int kMaxGroups = 4;                  // a block: 8, 16 or 32 columns
+constexpr int kCountTileBytes = 16384;         // a staged tile of rows
+constexpr int kCountFlush = 16;                // tiles between flushes
+constexpr int kCountLanePad = kCountCols + 4;  // a group's staged columns
+constexpr int kCountBatch = 2;                 // rows a thread holds, M > 8
+// rows a thread counts between flushes, at most: a tile of 4-float rows
+// over the 128 phases of 4 groups, kCountFlush times
+static_assert(kCountFlush * (kCountTileBytes / 16) * kMaxGroups /
+                  kCountThreads <= 255,
+              "byte counters would wrap");
+constexpr uint32_t kInv255 = 0xFEFEFEFFu;      // 255 * kInv255 == 1 mod 2^32
+constexpr int kBallotRows = 1024;              // a lane a row, one block
+constexpr int kCountsBallot = 0, kCountsTiles = 1;   // the host's kernel
 
-template <int kM>   // kM = M for 1 <= M <= 8; 0 for 9 <= M <= kChunkM
-__global__ void __launch_bounds__(kCountThreads)
-dominance_counts_kernel(const float* __restrict__ F, int* __restrict__ C,
-                        int P, int M_any, int rows_per_split) {
-  constexpr int kUnroll = kM > 0 ? kM : kChunkM;
-  const int M = kM > 0 ? kM : M_any;
-  __shared__ float fi[kCountTileI * kChunkM];
-  const int j = blockIdx.x * kCountThreads + threadIdx.x;
-  float fj[kUnroll];
+// P <= kBallotRows: columns [b * kCols, (b + 1) * kCols) against every row,
+// a lane a row. kM = M for 1 <= M <= 8 (the lane's row in registers, the
+// block's columns staged in shared memory); 0 past 8 (both read from L1 as
+// the objectives are compared).
+template <int kM, int kCols>
+__global__ void __launch_bounds__(kBallotRows)
+dominance_counts_ballot_kernel(const float* __restrict__ F,
+                               int* __restrict__ C, int P, int M_any) {
+  __shared__ float colv[kCols * (kM > 0 ? kM : 1)];
+  __shared__ int red[kBallotRows / 32][kCols];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int i = threadIdx.x, j0 = blockIdx.x * kCols;
+  const int ncol = min(kCols, P - j0);   // the same in every lane
+  int mine = 0;   // lane c: the warp's rows dominating column j0 + c
+  if constexpr (kM > 0) {
+    float a[kM];
 #pragma unroll
-  for (int m = 0; m < kUnroll; ++m)
-    fj[m] = (j < P && m < M) ? F[(size_t)j * M + m] : 0.0f;
-  const int i_begin = blockIdx.y * rows_per_split;
-  const int i_end = min(P, i_begin + rows_per_split);
-  int count = 0;
-  for (int i0 = i_begin; i0 < i_end; i0 += kCountTileI) {
-    const int ni = min(kCountTileI, i_end - i0);
-    __syncthreads();  // the previous tile is consumed
-    for (int e = threadIdx.x; e < ni * M; e += kCountThreads)
-      fi[e] = F[(size_t)i0 * M + e];
+    for (int m = 0; m < kM; ++m)   // rows past P: NaN, which dominates none
+      a[m] = i < P ? F[(size_t)i * kM + m] : __int_as_float(0x7FC00000);
+    for (int e = threadIdx.x; e < ncol * kM; e += blockDim.x)
+      colv[e] = F[(size_t)j0 * kM + e];
     __syncthreads();
-    if (j >= P) continue;
-    for (int il = 0; il < ni; ++il) {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      if (c >= ncol) break;
       bool le = true, lt = false;
 #pragma unroll
-      for (int m = 0; m < kUnroll; ++m) {
-        if (kM > 0 || m < M) {
-          const float a = fi[il * M + m];
-          le &= a <= fj[m];
-          lt |= a < fj[m];
+      for (int m = 0; m < kM; ++m) {
+        const float b = colv[c * kM + m];   // the same address: a broadcast
+        le &= a[m] <= b;
+        lt |= a[m] < b;
+      }
+      const int n = __popc(__ballot_sync(0xFFFFFFFFu, le && lt));
+      if (lane == c) mine = n;
+    }
+  } else {
+    // an objective of the lane's row against it in each column at once
+    const int M = M_any;
+    bool le[kCols], lt[kCols];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) le[c] = i < P, lt[c] = false;
+    if (i < P) {
+      const float* row = F + (size_t)i * M;
+      const float* col = F + (size_t)j0 * M;   // the block's columns
+#pragma unroll 2
+      for (int m = 0; m < M; ++m) {
+        const float a = __ldg(row + m);
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          // the same address in every lane: a broadcast
+          const float b = c < ncol ? __ldg(col + (size_t)c * M + m) : 0.0f;
+          le[c] &= a <= b;
+          lt[c] |= a < b;
         }
       }
-      count += (le && lt) ? 1 : 0;
+    }
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      if (c >= ncol) break;
+      const int n = __popc(__ballot_sync(0xFFFFFFFFu, le[c] && lt[c]));
+      if (lane == c) mine = n;
     }
   }
-  if (j >= P) return;
-  if (gridDim.y == 1)
-    C[j] = count;
-  else if (count)
-    atomicAdd(&C[j], count);
+  if (lane < kCols) red[warp][lane] = mine;
+  __syncthreads();
+  if (threadIdx.x < ncol) {
+    int sum = 0;
+    for (int w = 0; w < (int)blockDim.x / 32; ++w) sum += red[w][threadIdx.x];
+    C[j0 + threadIdx.x] = sum;
+  }
 }
 
-// M > kChunkM: a thread holds kChunkM objectives of its column at a time,
-// and for each row of the tile one bit of "all <=" and one of "any <"
-// across the chunks, counted when every chunk is seen. Same block and grid
-// as above.
+template <int kCols>
+void launch_ballot(const float* f, int* c, int P, int M, int blocks,
+                   cudaStream_t s) {
+  const int threads = 32 * ((P + 31) / 32);
+  switch (M) {
+#define REPRO_BALLOT(kM)                                          \
+  case kM:                                                        \
+    dominance_counts_ballot_kernel<kM, kCols>                     \
+        <<<blocks, threads, 0, s>>>(f, c, P, M);                  \
+    break;
+    REPRO_BALLOT(1) REPRO_BALLOT(2) REPRO_BALLOT(3) REPRO_BALLOT(4)
+    REPRO_BALLOT(5) REPRO_BALLOT(6) REPRO_BALLOT(7) REPRO_BALLOT(8)
+#undef REPRO_BALLOT
+    default:
+      dominance_counts_ballot_kernel<0, kCols><<<blocks, threads, 0, s>>>(
+          f, c, P, M);
+  }
+}
+
+// One thread's rows of a staged tile (phase, phase + phases, ... < nt)
+// against its columns fj, into the byte counters acc (byte k of acc[q]:
+// 255 x the rows dominating column 4q + k), two rows at a time for
+// independent work (the second masked out past nt). kFast: the
+// subtraction test; else the comparisons.
+template <int kM, int kRow, bool kFast>
+__device__ __forceinline__ void count_tile(const float (&fj)[kM][kCountCols],
+                                           const float* tile, int phase,
+                                           int phases, int nt,
+                                           uint32_t (&acc)[kCountCols / 4]) {
+  for (int r = phase; r < nt; r += 2 * phases) {
+    const int rows[2] = {r, min(r + phases, nt - 1)};
+    const uint32_t keep = r + phases < nt ? ~0u : 0u;
+    float a[2][kM];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int k = 0; k < kRow / 4; ++k) {
+        const float4 v4 =
+            reinterpret_cast<const float4*>(tile)[rows[h] * (kRow / 4) + k];
+        const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+        for (int m = 4 * k; m < 4 * k + 4; ++m)
+          if (m < kM) a[h][m] = v[m - 4 * k];
+      }
+#pragma unroll
+    for (int q = 0; q < kCountCols / 4; ++q) {
+      uint32_t y[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int c = 4 * q + k;
+          if constexpr (kFast) {
+            // the matrix kernel's subtraction test (see its row loop)
+            int x = 0;
+#pragma unroll
+            for (int m = 0; m < kM; ++m)
+              x |= __float_as_int(fj[m][c] - a[h][m]);
+            y[h][k] = 0u - (uint32_t)x;
+          } else {
+            bool lt = false, le = true;
+#pragma unroll
+            for (int m = 0; m < kM; ++m) {
+              lt |= a[h][m] < fj[m][c];
+              le &= a[h][m] <= fj[m][c];
+            }
+            y[h][k] = (uint32_t)(le && lt) << 31;
+          }
+        }
+      acc[q] += sign_bytes(y[0]) + (sign_bytes(y[1]) & keep);
+    }
+  }
+}
+
+// The block's counts: each thread's 8 counts summed over the row phases
+// (the lanes of a warp with its group, by shuffles, then the 16 warps in
+// shared memory, `red`), one store a column.
+__device__ __forceinline__ void store_counts(int (&count)[kCountCols],
+                                             int (*red)[kMaxGroups *
+                                                        kCountCols],
+                                             int* __restrict__ C, int P,
+                                             int groups) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int o = 1; o < 32; o *= 2)
+    if (o >= groups)   // the 8 shuffles of a step are independent
+#pragma unroll
+      for (int c = 0; c < kCountCols; ++c)
+        count[c] += __shfl_xor_sync(0xFFFFFFFFu, count[c], o);
+  if (lane < groups)
+#pragma unroll
+    for (int c = 0; c < kCountCols; ++c) red[warp][lane * kCountCols + c] =
+        count[c];
+  __syncthreads();
+  const int width = groups * kCountCols, j = blockIdx.x * width + threadIdx.x;
+  if (threadIdx.x < width && j < P) {
+    int sum = 0;
+#pragma unroll
+    for (int w = 0; w < kCountWarps; ++w) sum += red[w][threadIdx.x];
+    C[j] = sum;
+  }
+}
+
+// Block b: columns [b * 8 * groups, (b + 1) * 8 * groups), every row.
+// kM = M, 1 <= M <= 8.
+template <int kM>
+__global__ void __launch_bounds__(kCountThreads)
+dominance_counts_kernel(const float* __restrict__ F, int* __restrict__ C,
+                        int P, int groups) {
+  constexpr int kRow = kM <= 4 ? 4 : 8;              // floats a staged row
+  constexpr int kTile = kCountTileBytes / (4 * kRow);  // 1024 or 512 rows
+  constexpr int kPre = (kTile * kM + kCountThreads - 1) / kCountThreads;
+  __shared__ __align__(16) float tile[2][kTile * kRow];
+  __shared__ __align__(16) float colT[kMaxGroups * kCountCols * kRow];
+  __shared__ int red[kCountWarps][kMaxGroups * kCountCols];
+  const int g = threadIdx.x % groups;
+  const int phase = threadIdx.x / groups, phases = kCountThreads / groups;
+  // a tile's values, loaded into registers before they are stored
+  float pre[kPre];
+  auto load = [&](int t0) {
+    const int n = min(kTile, P - t0) * kM;
+#pragma unroll
+    for (int k = 0; k < kPre; ++k) {
+      const int e = threadIdx.x + k * kCountThreads;
+      pre[k] = e < n ? F[(size_t)t0 * kM + e] : 0.0f;
+    }
+  };
+  auto store = [&](float* t) {
+    bool finite = true;
+#pragma unroll
+    for (int k = 0; k < kPre; ++k) {
+      const int e = threadIdx.x + k * kCountThreads;
+      const float v = pre[k] + 0.0f;   // -0 becomes +0
+      if (e < kTile * kM) t[(e / kM) * kRow + e % kM] = v;
+      finite &= isfinite(v);
+    }
+    return __syncthreads_and(finite) != 0;
+  };
+  // the blocks start on different tiles, so that their loads spread
+  // over L2 instead of all asking for the same lines at once
+  const int ntiles = (P + kTile - 1) / kTile, first = blockIdx.x % ntiles;
+  auto tile_row = [&](int n) {   // n < ntiles
+    const int t = first + n;
+    return (t < ntiles ? t : t - ntiles) * kTile;
+  };
+  // the block's columns: one coalesced load, staged with the first tile
+  const int width = groups * kCountCols, col0 = blockIdx.x * width;
+  const int ncol = min(width, P - col0) * kM;
+  const float col = threadIdx.x < ncol ? F[(size_t)col0 * kM + threadIdx.x]
+                                       : 0.0f;   // columns past P: zeros
+  load(tile_row(0));
+  if (threadIdx.x < width * kM)
+    colT[threadIdx.x / kM * kRow + threadIdx.x % kM] = col + 0.0f;
+  bool rows_finite = store(tile[0]);
+  float fj[kM][kCountCols];   // the thread's columns, in registers
+  bool cols_finite = true;
+#pragma unroll
+  for (int c = 0; c < kCountCols; ++c)
+#pragma unroll
+    for (int k = 0; k < kRow / 4; ++k) {
+      const float4 v4 = reinterpret_cast<const float4*>(
+          colT)[(g * kCountCols + c) * (kRow / 4) + k];
+      const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+      for (int m = 4 * k; m < 4 * k + 4; ++m)
+        if (m < kM) {
+          fj[m][c] = v[m - 4 * k];
+          cols_finite &= isfinite(v[m - 4 * k]);
+        }
+    }
+  int count[kCountCols];
+#pragma unroll
+  for (int c = 0; c < kCountCols; ++c) count[c] = 0;
+  uint32_t acc[kCountCols / 4] = {};
+  for (int n = 0; n < ntiles; ++n) {
+    const bool more = n + 1 < ntiles;
+    if (more) load(tile_row(n + 1));   // in flight while this one is counted
+    const float* t = tile[n & 1];
+    const int nt = min(kTile, P - tile_row(n));
+    if (rows_finite && cols_finite)
+      count_tile<kM, kRow, true>(fj, t, phase, phases, nt, acc);
+    else
+      count_tile<kM, kRow, false>(fj, t, phase, phases, nt, acc);
+    if (n % kCountFlush == kCountFlush - 1 || !more) {
+#pragma unroll
+      for (int q = 0; q < kCountCols / 4; ++q) {
+        const uint32_t w = acc[q] * kInv255;   // four counts of <= 128
+#pragma unroll
+        for (int k = 0; k < 4; ++k) count[4 * q + k] += (w >> (8 * k)) & 0xFFu;
+        acc[q] = 0u;
+      }
+    }
+    // the other buffer was last read before the previous barrier
+    if (more) rows_finite = store(tile[(n + 1) & 1]);
+  }
+  store_counts(count, red, C, P, groups);
+}
+
+// One chunk of mc objectives, staged, into the words x of a thread's
+// kCountBatch rows of the batch (phase, phase + phases) by its columns.
+// kFast: the differences' bits; else the comparisons' word (all ones where
+// not a <= b, else 1 where a < b), which x reads the same way: neither is
+// ever INT_MIN, nor is an OR of them.
+template <bool kFast>
+__device__ __forceinline__ void chunk_words(
+    uint32_t (&x)[kCountBatch][kCountCols], const float* colT,
+    const float* rowT, int stride, int phase, int phases, int mc) {
+  for (int m = 0; m < mc; ++m) {
+    float b[kCountCols];
+#pragma unroll
+    for (int k = 0; k < kCountCols / 4; ++k) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          colT + m * kMaxGroups * kCountLanePad + 4 * k);
+      b[4 * k] = v.x, b[4 * k + 1] = v.y;
+      b[4 * k + 2] = v.z, b[4 * k + 3] = v.w;
+    }
+#pragma unroll
+    for (int k = 0; k < kCountBatch; ++k) {
+      const float a = rowT[(phase + k * phases) * stride + m];
+#pragma unroll
+      for (int c = 0; c < kCountCols; ++c) {
+        if constexpr (kFast)
+          x[k][c] |= (uint32_t)__float_as_int(b[c] - a);
+        else
+          x[k][c] |= (0u - (uint32_t)!(a <= b[c])) | (uint32_t)(a < b[c]);
+      }
+    }
+  }
+}
+
+// M > 8: the block's columns and a batch of kCountBatch * phases rows are
+// staged in shared memory, 32 objectives at a time (a group's 8 columns
+// padded to 12 floats, a row to mc + 1), and a thread ORs the words of
+// every chunk into x for its rows by its columns, counting the rows whose
+// x is positive when every chunk is seen. A chunk with a NaN or an
+// infinity among its staged values takes the comparisons. Same block and
+// grid as above; dynamic shared memory for min(M, 32) objectives of the
+// columns and of the batch.
 __global__ void __launch_bounds__(kCountThreads)
 dominance_counts_chunked_kernel(const float* __restrict__ F,
                                 int* __restrict__ C, int P, int M,
-                                int rows_per_split) {
-  constexpr int kWords = kCountTileI / 32;   // a tile's rows, as bits
-  __shared__ float fi[kCountTileI * kChunkM];
-  const int j = blockIdx.x * kCountThreads + threadIdx.x;
-  const int i_begin = blockIdx.y * rows_per_split;
-  const int i_end = min(P, i_begin + rows_per_split);
-  int count = 0;
-  for (int i0 = i_begin; i0 < i_end; i0 += kCountTileI) {
-    const int ni = min(kCountTileI, i_end - i0);
-    uint32_t le[kWords], lt[kWords];
+                                int groups) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int red[kCountWarps][kMaxGroups * kCountCols];
+  const int mmax = min(M, kChunkM);
+  const int g = threadIdx.x % groups;
+  const int phase = threadIdx.x / groups, phases = kCountThreads / groups;
+  const int batch = kCountBatch * phases;
+  const int width = groups * kCountCols, col0 = blockIdx.x * width;
+  float* colT = smem;                  // mmax x kMaxGroups * kCountLanePad
+  float* rowT = smem + mmax * kMaxGroups * kCountLanePad;   // batch rows
+  int count[kCountCols];
 #pragma unroll
-    for (int w = 0; w < kWords; ++w) le[w] = ~0u, lt[w] = 0u;
+  for (int c = 0; c < kCountCols; ++c) count[c] = 0;
+  for (int b0 = 0; b0 < P; b0 += batch) {
+    uint32_t x[kCountBatch][kCountCols];
+#pragma unroll
+    for (int k = 0; k < kCountBatch; ++k)
+#pragma unroll
+      for (int c = 0; c < kCountCols; ++c) x[k][c] = 0u;
     for (int m0 = 0; m0 < M; m0 += kChunkM) {
-      const int mc = min(kChunkM, M - m0);
-      float fj[kChunkM];
-#pragma unroll
-      for (int m = 0; m < kChunkM; ++m)
-        fj[m] = (j < P && m < mc) ? F[(size_t)j * M + m0 + m] : 0.0f;
-      __syncthreads();  // the previous chunk is consumed
-      for (int e = threadIdx.x; e < ni * mc; e += kCountThreads) {
-        const int il = e / mc, m = e - il * mc;
-        fi[e] = F[(size_t)(i0 + il) * M + m0 + m];
+      const int mc = min(kChunkM, M - m0), stride = mc + 1;
+      __syncthreads();  // every thread is done with the previous chunk
+      bool finite = true;
+      for (int e = threadIdx.x; e < width * mc; e += kCountThreads) {
+        const int c = e / mc, m = e - c * mc;
+        const float v =
+            col0 + c < P ? F[(size_t)(col0 + c) * M + m0 + m] + 0.0f : 0.0f;
+        colT[m * kMaxGroups * kCountLanePad + (c / kCountCols) *
+             kCountLanePad + c % kCountCols] = v;
+        finite &= isfinite(v);
       }
-      __syncthreads();
-      if (j >= P) continue;
-#pragma unroll
-      for (int w = 0; w < kWords; ++w) {
-        uint32_t e_bits = le[w], t_bits = lt[w];
-        for (int b = 0; b < 32 && w * 32 + b < ni; ++b) {
-          const float* a = fi + (w * 32 + b) * mc;
-          bool l = true, t = false;
-#pragma unroll
-          for (int m = 0; m < kChunkM; ++m) {
-            if (m < mc) {
-              l &= a[m] <= fj[m];
-              t |= a[m] < fj[m];
-            }
-          }
-          e_bits &= ~((uint32_t)!l << b);
-          t_bits |= (uint32_t)t << b;
-        }
-        le[w] = e_bits, lt[w] = t_bits;
+      for (int e = threadIdx.x; e < batch * mc; e += kCountThreads) {
+        const int r = e / mc, m = e - r * mc;
+        const float v =
+            b0 + r < P ? F[(size_t)(b0 + r) * M + m0 + m] + 0.0f : 0.0f;
+        rowT[r * stride + m] = v;
+        finite &= isfinite(v);
       }
+      const float* cg = colT + g * kCountLanePad;
+      if (__syncthreads_and(finite))
+        chunk_words<true>(x, cg, rowT, stride, phase, phases, mc);
+      else
+        chunk_words<false>(x, cg, rowT, stride, phase, phases, mc);
     }
-    // rows past ni never set an "any <" bit
 #pragma unroll
-    for (int w = 0; w < kWords; ++w) count += __popc(le[w] & lt[w]);
+    for (int k = 0; k < kCountBatch; ++k)
+      if (b0 + phase + k * phases < P)
+#pragma unroll
+        for (int c = 0; c < kCountCols; ++c)
+          count[c] += (0u - x[k][c]) >> 31;
   }
-  if (j >= P) return;
-  if (gridDim.y == 1)
-    C[j] = count;
-  else if (count)
-    atomicAdd(&C[j], count);
-}
-
-template <int kM>
-void launch_counts(const float* F, int* C, int P, int M, int rows, dim3 grid,
-                   cudaStream_t s) {
-  dominance_counts_kernel<kM><<<grid, kCountThreads, 0, s>>>(F, C, P, M,
-                                                             rows);
+  store_counts(count, red, C, P, groups);
 }
 
 }  // namespace
 
-// F: (P, M) float32, contiguous, on the device. C: (P,) int32. Launches on
-// `stream` (after zeroing C when the i rows are split), allocates nothing,
-// and returns cudaGetLastError().
+// F: (P, M) float32, contiguous, on the device. C: (P,) int32: every entry
+// is written once and none is read. The kernel and grid are the host's
+// (kernels/dominance.py: dominance_counts_grid): `blocks` of `cols` columns,
+// for kCountsBallot (P <= 1,024) 4 or 8, for kCountsTiles 8, 16 or 32; a
+// grid that does not cover P exactly is refused. One launch on `stream`,
+// nothing allocated; returns cudaGetLastError().
 extern "C" int repro_dominance_counts(const void* F, void* C, int P, int M,
+                                      int kernel, int blocks, int cols,
                                       void* stream) {
-  if (P <= 0 || M <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int col_blocks = (P + kCountThreads - 1) / kCountThreads;
-  // about two blocks per SM in all, each split a multiple of 32 rows
-  const int want = (2 * 132 + col_blocks - 1) / col_blocks;
-  const int per = (P + want - 1) / want;
-  const int rows = ((per + kCountRowStep - 1) / kCountRowStep) * kCountRowStep;
-  const int splits = (P + rows - 1) / rows;
-  if (splits > 1) {
-    cudaError_t e = cudaMemsetAsync(C, 0, sizeof(int) * (size_t)P, s);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid(col_blocks, splits);
+  if (P <= 0 || M <= 0 || cols <= 0 || blocks != (P + cols - 1) / cols)
+    return (int)cudaErrorInvalidValue;
   const float* f = static_cast<const float*>(F);
   int* c = static_cast<int*>(C);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (kernel == kCountsBallot) {
+    if (P > kBallotRows) return (int)cudaErrorInvalidValue;
+    if (cols == 4)
+      launch_ballot<4>(f, c, P, M, blocks, s);
+    else if (cols == 8)
+      launch_ballot<8>(f, c, P, M, blocks, s);
+    else
+      return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
+  }
+  const int groups = cols / kCountCols;
+  if (kernel != kCountsTiles || cols % kCountCols ||
+      (groups != 1 && groups != 2 && groups != 4))
+    return (int)cudaErrorInvalidValue;
   switch (M) {
-    case 1: launch_counts<1>(f, c, P, M, rows, grid, s); break;
-    case 2: launch_counts<2>(f, c, P, M, rows, grid, s); break;
-    case 3: launch_counts<3>(f, c, P, M, rows, grid, s); break;
-    case 4: launch_counts<4>(f, c, P, M, rows, grid, s); break;
-    case 5: launch_counts<5>(f, c, P, M, rows, grid, s); break;
-    case 6: launch_counts<6>(f, c, P, M, rows, grid, s); break;
-    case 7: launch_counts<7>(f, c, P, M, rows, grid, s); break;
-    case 8: launch_counts<8>(f, c, P, M, rows, grid, s); break;
-    default:
-      if (M <= kChunkM)
-        launch_counts<0>(f, c, P, M, rows, grid, s);
-      else
-        dominance_counts_chunked_kernel<<<grid, kCountThreads, 0, s>>>(
-            f, c, P, M, rows);
+#define REPRO_COUNTS(kM)                                                  \
+  case kM:                                                                \
+    dominance_counts_kernel<kM><<<blocks, kCountThreads, 0, s>>>(f, c, P, \
+                                                                 groups); \
+    break;
+    REPRO_COUNTS(1) REPRO_COUNTS(2) REPRO_COUNTS(3) REPRO_COUNTS(4)
+    REPRO_COUNTS(5) REPRO_COUNTS(6) REPRO_COUNTS(7) REPRO_COUNTS(8)
+#undef REPRO_COUNTS
+    default: {
+      static int smem_allowed = 48 * 1024;
+      const int mmax = M < kChunkM ? M : kChunkM;
+      const int smem = (int)sizeof(float) *
+                       (mmax * kMaxGroups * kCountLanePad +
+                        kCountBatch * kCountThreads / groups * (mmax + 1));
+      const cudaError_t e = repro_async::allow_smem(
+          dominance_counts_chunked_kernel, smem, &smem_allowed);
+      if (e != cudaSuccess) return (int)e;
+      dominance_counts_chunked_kernel<<<blocks, kCountThreads, smem, s>>>(
+          f, c, P, M, groups);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -6,19 +6,24 @@ alternating turns on one card.
 OTHER is the root of another checkout of the repository (a parent commit
 unpacked by ``git archive``, say). Each side's ``csrc/dominance.cu`` is built
 alone with :data:`_build.NVCC_FLAGS` into a library of its own (under the
-repository's ``build/``, removed at the end), and both are
-called through the same C signatures on the same inputs and grids. A case
-(kernel, P, M) runs other, this, this, other for ``--rounds`` rounds; a turn
-is the median device time of the kernel over 20 launches from
-torch.profiler. Both sides' outputs must be equal. Prints the card's name
-and power limit, then one JSON line per case (times in ms), and writes them
-all to ``--out`` when given. A case that the other side refuses (M > 32 in
-a build without the chunked kernel) runs on this side only.
+repository's ``build/``, removed at the end), and each is called through the
+C signatures that its own ``_build.py`` declares, on the same inputs and,
+where the signature takes one, this checkout's grids (before the host chose
+the counts grid, the counts entry was ``(F, C, P, M, stream)``). A case
+(kernel, P, M) runs other, this, this, other for ``--rounds`` rounds; a
+turn is the median device time of the kernel over 20 launches
+from torch.profiler, beside the device operations a call runs (a memset
+counts) and their device time together. Both sides' outputs must be equal.
+Prints the card's name and power limit, then one JSON line per case (times
+in ms), and writes them all to ``--out`` when given. A case that the other
+side refuses (M > 32 in a build without the chunked kernel) runs on this
+side only.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import statistics
 import subprocess
@@ -32,20 +37,35 @@ from . import _build, dominance
 MATRIX_CASES = ((32, 4), (64, 4), (200, 3), (4096, 3), (200, 9), (4096, 9),
                 (200, 32), (4096, 32), (200, 33), (4096, 64))
 COUNTS_CASES = ((200, 3), (4096, 3), (200, 9), (4096, 9), (200, 32),
-                (4096, 32), (4096, 33))
+                (4096, 32), (4096, 33), (1024, 3), (2048, 3))
 
 
-def build_library(csrc: Path, out_dir: Path) -> ctypes.CDLL:
-    """``csrc/dominance.cu`` alone, compiled and linked into ``out_dir``."""
+NAMES = ("repro_dominance_matrix", "repro_dominance_counts")
+
+
+def signatures(root: Path) -> dict:
+    """The ctypes signatures that the checkout at ``root`` declares for the
+    dominance entry points: its ``kernels/_build.py``, loaded as a module of
+    its own."""
+    path = root / "src" / "repro_torch" / "kernels" / "_build.py"
+    spec = importlib.util.spec_from_file_location("_ab_build", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return {name: list(mod.SYMBOLS[name]) for name in NAMES}
+
+
+def build_library(csrc: Path, out_dir: Path, symbols: dict) -> ctypes.CDLL:
+    """``csrc/dominance.cu`` alone, compiled and linked into ``out_dir``,
+    its entry points given the ctypes signatures ``symbols``."""
     nvcc = _build.find_nvcc()
     obj, so = out_dir / "dominance.o", out_dir / "libdominance.so"
     _build._run_all([_build.compile_command(nvcc, csrc / "dominance.cu",
                                             obj)])
     _build._run_all([_build.link_command(nvcc, [obj], so)])
     lib = ctypes.CDLL(str(so))
-    for name in ("repro_dominance_matrix", "repro_dominance_counts"):
+    for name in NAMES:
         fn = getattr(lib, name)
-        fn.argtypes = _build.SYMBOLS[name]
+        fn.argtypes = symbols[name]
         fn.restype = ctypes.c_int
     return lib
 
@@ -55,8 +75,9 @@ def launcher(lib: ctypes.CDLL, kernel: str, F: torch.Tensor):
     output, or None when the entry point refuses the shapes."""
     P, M = F.shape
     stream = _build.stream(F.device)
+    n_sm = _build.n_sm(F.device)
     if kernel == "matrix":
-        grid = dominance.dominance_grid(P, _build.n_sm(F.device))
+        grid = dominance.dominance_grid(P, n_sm)
 
         def call():
             out = torch.empty((P, P), dtype=torch.uint8, device=F.device)
@@ -64,17 +85,22 @@ def launcher(lib: ctypes.CDLL, kernel: str, F: torch.Tensor):
                                              M, *grid, stream)
             return None if err else out
     else:
+        # (F, C, P, M, stream): the entry that chose its grid itself
+        takes_grid = len(lib.repro_dominance_counts.argtypes) > 5
+        grid = dominance.dominance_counts_grid(P, n_sm) if takes_grid else ()
+
         def call():
             out = torch.empty((P,), dtype=torch.int32, device=F.device)
             err = lib.repro_dominance_counts(F.data_ptr(), out.data_ptr(), P,
-                                             M, stream)
+                                             M, *grid, stream)
             return None if err else out
     return call
 
 
-def device_ms(call, name: str, iters: int = 20) -> float:
-    """Median device time of the kernel whose name holds ``name`` over
-    ``iters`` calls (a window without device activity is profiled again)."""
+def device_ms(call, name: str, iters: int = 20):
+    """(median device time of the kernel whose name holds ``name``, device
+    operations a call, their device time a call) over ``iters`` calls, in
+    ms (a window without device activity is profiled again)."""
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
@@ -83,10 +109,12 @@ def device_ms(call, name: str, iters: int = 20) -> float:
             for _ in range(iters):
                 call()
             torch.cuda.synchronize()
-        us = [ev.time_range.elapsed_us() for ev in prof.events()
-              if ev.device_type.name == "CUDA" and name in ev.name]
+        evs = [(ev.name, ev.time_range.elapsed_us()) for ev in prof.events()
+               if ev.device_type.name == "CUDA"]
+        us = [t for n, t in evs if name in n]
         if us:
-            return statistics.median(us) / 1e3
+            return (statistics.median(us) / 1e3, len(evs) / iters,
+                    sum(t for _, t in evs) / iters / 1e3)
     raise RuntimeError(f"the profiler recorded no {name} kernel")
 
 
@@ -109,11 +137,21 @@ def compare(this: ctypes.CDLL, other: ctypes.CDLL, rounds: int):
             order = ["other", "this", "this", "other"]
         name = f"dominance_{kernel}"
         times = {side: [] for side in set(order)}
+        ops, totals = {}, {side: [] for side in set(order)}
         for _ in range(rounds):
             for side in order:
-                times[side].append(device_ms(calls[side], name))
-        yield {"kernel": kernel, "P": P, "M": M, **{
-            f"{side}_ms": t for side, t in sorted(times.items())}}
+                t, ops[side], total = device_ms(calls[side], name)
+                times[side].append(t)
+                totals[side].append(total)
+        row = {"kernel": kernel, "P": P, "M": M}
+        for side in sorted(times):
+            row[f"{side}_ms"] = times[side]
+            row[f"{side}_ops_per_call"] = ops[side]
+            row[f"{side}_all_ops_ms"] = totals[side]
+        if "other" in times:
+            row["speedup"] = (statistics.median(times["other"])
+                              / statistics.median(times["this"]))
+        yield row
 
 
 def main(argv=None) -> None:
@@ -131,8 +169,10 @@ def main(argv=None) -> None:
     with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT.parent) as tmp:
         (Path(tmp) / "this").mkdir()
         (Path(tmp) / "other").mkdir()
-        this = build_library(_build.CSRC, Path(tmp) / "this")
-        other = build_library(other_csrc, Path(tmp) / "other")
+        this = build_library(_build.CSRC, Path(tmp) / "this",
+                             {name: _build.SYMBOLS[name] for name in NAMES})
+        other = build_library(other_csrc, Path(tmp) / "other",
+                              signatures(args.other))
         rows = []
         for row in compare(this, other, args.rounds):
             print(json.dumps(row), flush=True)
