@@ -206,12 +206,16 @@ that each print one JSON line (run in the order 1-5, 9, 13, 14, 6, 10, 7,
    ``make_host_mesh(model=1)``; no fallback: a failure to init NCCL or
    build the mesh fails the phase). ``Trainer(mesh=)`` at qwen3-1.7b's
    published widths cut to 4 of 28 layers (``reduced``: depth, to keep the
-   comparison short), 2 adamw steps of TRAIN_RUN's batch, held bit for bit
-   against ``Trainer()`` on the same seed, run one after the other: loss,
-   nll and gnorm, every parameter and moment, and the flash forward and
-   backward launches (32 + 32); its checkpoint, saved with the specs,
-   restored onto the mesh bit for bit; then one mesh step at full depth
-   (112 + 112 launches, peak memory). ``psum_compressed`` for its three
+   comparison short), 2 steps of TRAIN_RUN's batch under each of adamw,
+   adamw8bit and adafactor (updated on the blocks in place), held bit for
+   bit against ``Trainer()`` on the same seed, run one after the other:
+   loss, nll and gnorm, every parameter and optimizer-state leaf, and the
+   flash forward and backward launches (32 + 32); the adamw and adafactor
+   checkpoints, saved with the specs, restored onto the mesh bit for bit;
+   dbrx-132b at its published widths cut to 1 of 40 layers (its experts,
+   vocabulary and region's collectives on one rank), 2 adamw8bit steps of
+   seq 128 x batch 8, held alike, with each run's peak memory; then one
+   mesh step at full depth (112 + 112 launches, peak memory). ``psum_compressed`` for its three
    methods equal to the local formula; the quickstart evaluator's fitness
    on ``population_mesh()`` bit for bit equal to the unsharded one on 101
    genomes, then a 5-generation NSGA-II run on it (6 dominance launches).
@@ -292,10 +296,20 @@ TRAIN_MODEL = "qwen3-1.7b"
 TRAIN_RUN = dict(seq_len=128, global_batch=8, microbatches=2, steps=4)
 TRAIN_PROFILED_STEP = 2
 # phase 18: the sharded trainer on a world of one, qwen3-1.7b cut to 4 of 28
-# layers for the bit-for-bit comparison (then one step at full depth)
+# layers for the bit-for-bit comparison under each optimizer (then one
+# adamw step at full depth)
 MESH_LAYERS = 4
 MESH_TRAIN = dict(seq_len=128, global_batch=8, microbatches=2, steps=2,
                   optimizer="adamw", log_every=1)
+MESH_OPTIMIZERS = ("adamw", "adamw8bit", "adafactor")
+MESH_CHECKPOINTED = ("adamw", "adafactor")  # saved, restored onto the mesh
+# and the experts and vocabulary split over 'model': dbrx-132b at its
+# published widths cut to 1 of 40 layers, under adamw8bit
+# (optimizer_for_arch's choice for the whole model)
+MESH_MOE_MODEL = "dbrx-132b"
+MESH_MOE_LAYERS = 1
+MESH_MOE_TRAIN = dict(seq_len=128, global_batch=8, microbatches=1, steps=2,
+                      optimizer="adamw8bit", log_every=1)
 MESH_FITNESS = dict(pop_size=100, n_generations=5)
 # the backward kernel against its plain version: gradients within this
 # times max|g| of each of dq, dk, dv
@@ -3586,9 +3600,10 @@ def phase_train():
     return row
 
 
-def _mesh_step_launches(n_layers, steps):
+def _mesh_step_launches(n_layers, train, steps=None):
     from repro_torch.kernels import flash_attention as fa
-    per = n_layers * MESH_TRAIN["microbatches"]
+    per = n_layers * train["microbatches"]
+    steps = train["steps"] if steps is None else steps
     return {"flash_attention": 2 * per * steps,
             "flash_attention_backward": fa.BWD_KERNELS * per * steps}
 
@@ -3604,79 +3619,122 @@ def _bits_equal(a, b):
     return bool(torch.equal(a, b))
 
 
-def mesh_trainer_vs_plain(mesh, tmp):
-    """Trainer(mesh=) against Trainer() on the same seed at MESH_LAYERS
-    layers, one after the other: metrics, parameters, moments and launches
-    bit for bit / equal; the mesh run's checkpoint (with specs) restored
-    onto the mesh bit for bit. Then one mesh step at full depth."""
+def _plain_then_mesh(cfg, train, mesh, ckpt=None):
+    """Trainer() then Trainer(mesh=) on the same seed, one after the other
+    from a clean card (the plain run's parameters and optimizer state held
+    on the host meanwhile): metrics, every parameter and every
+    optimizer-state leaf compared bit for bit, launches, walls and each
+    run's peak memory. Returns (row, the mesh trainer, its state)."""
     import torch
     from repro_torch.checkpoint.manager import _flatten
     from repro_torch.training.trainer import TrainConfig, Trainer
-    cfg = _train_cfg(n_layers=MESH_LAYERS)
-    steps = MESH_TRAIN["steps"]
-    runs = {}
+    runs, host, t_all = {}, {}, time.perf_counter()
     for name in ("plain", "mesh"):
         _free_cuda()
-        kw = ({"checkpoint_dir": str(tmp), "checkpoint_every": 100}
-              if name == "mesh" else {})
-        trainer = Trainer(cfg, TrainConfig(**MESH_TRAIN, **kw),
-                          device="cuda",
+        kw = ({"checkpoint_dir": str(ckpt), "checkpoint_every": 100}
+              if name == "mesh" and ckpt else {})
+        trainer = Trainer(cfg, TrainConfig(**train, **kw), device="cuda",
                           mesh=mesh if name == "mesh" else None)
+        torch.cuda.reset_peak_memory_stats()
         zero_launches()
         probe = _TrainProbe()
         t0 = time.perf_counter()
         model, state, hist = trainer.run(resume=False, callback=probe)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = launch_counts(**_mesh_step_launches(cfg.n_layers, steps))
-        if name == "mesh":
-            params = {k: p.full_tensor() for k, p in trainer.params.items()}
-            moments = {m: {k: t.full_tensor() for k, t in state[m].items()}
-                       for m in ("m", "v")}
-        else:
-            params = {k: p.detach() for k, p in model.named_parameters()}
-            moments = {m: dict(state[m]) for m in ("m", "v")}
-        runs[name] = dict(trainer=trainer, state=state, hist=hist,
-                          params=params, moments=moments, wall=wall,
-                          step_walls=probe.walls, launches=launches)
-    a, b = runs["plain"], runs["mesh"]
-    metrics_equal = [(h["loss"], h["nll"], h["gnorm"]) for h in a["hist"]] \
-        == [(h["loss"], h["nll"], h["gnorm"]) for h in b["hist"]]
-    params_equal = sum(_bits_equal(a["params"][k], b["params"][k])
-                       for k in a["params"])
-    moments_equal = sum(_bits_equal(a["moments"][m][k], b["moments"][m][k])
-                        for m in ("m", "v") for k in a["params"])
-    tr = b["trainer"]
+        runs[name] = {"hist": hist, "wall": time.perf_counter() - t0,
+                      "walls": probe.walls,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "launches": launch_counts(**_mesh_step_launches(
+                          cfg.n_layers, train))}
+        if name == "plain":
+            t0 = time.perf_counter()
+            host = {"params": {k: p.detach().cpu()
+                               for k, p in model.named_parameters()},
+                    "state": {k: t.cpu() for k, t in _flatten(state)}}
+            to_host_s = time.perf_counter() - t0
+            del model, state, trainer
     t0 = time.perf_counter()
-    (rp, rs), manifest = tr.ckpt.restore((tr.params, b["state"]), mesh=mesh,
-                                         specs=(tr.pspecs, tr.sspecs))
-    torch.cuda.synchronize()
-    restore_s = time.perf_counter() - t0
-    restored_equal, n_leaves = 0, 0
-    for (_, x), (_, y) in zip(_flatten((rp, rs)),
-                              _flatten((tr.params, b["state"]))):
-        n_leaves += 1
-        restored_equal += (x.placements == y.placements
-                           and _bits_equal(x.full_tensor(), y.full_tensor()))
-    row = {"model": cfg.name, "layers": cfg.n_layers, "train": MESH_TRAIN,
+    params_equal = sum(_bits_equal(w.cuda(), trainer.params[k].full_tensor())
+                       for k, w in host["params"].items())
+    flat = dict(_flatten(state))
+    state_equal = sum(k in flat and _bits_equal(w.cuda(),
+                                                flat[k].full_tensor())
+                      for k, w in host["state"].items())
+    compare_s = time.perf_counter() - t0
+    a, b = runs["plain"], runs["mesh"]
+    metrics = [[(h["loss"], h["nll"], h["gnorm"]) for h in r["hist"]]
+               for r in (a, b)]
+    row = {"model": cfg.name, "layers": cfg.n_layers, "train": train,
            "losses": [h["loss"] for h in b["hist"]],
            "gnorm": [h["gnorm"] for h in b["hist"]],
-           "metrics_bit_equal": metrics_equal,
-           "params_bit_equal": [params_equal, len(a["params"])],
-           "moments_bit_equal": [moments_equal, 2 * len(a["params"])],
+           "metrics_bit_equal": metrics[0] == metrics[1],
+           "params_bit_equal": [params_equal, len(host["params"])],
+           "state_bit_equal": [state_equal, len(host["state"])],
+           "state_leaves_mesh": len(flat),
            "launches_plain": a["launches"], "launches_mesh": b["launches"],
            "wall_s_plain": a["wall"], "wall_s_mesh": b["wall"],
            # host time between steps: the first holds the init (and on
            # the mesh the first sharding), the last run's wall the save
-           "step_walls_s_plain": a["step_walls"],
-           "step_walls_s_mesh": b["step_walls"],
-           "checkpoint_specs_recorded": manifest["specs"] is not None,
-           "restored_bit_equal": [restored_equal, n_leaves],
-           "restore_s": restore_s}
-    del runs, a, b, tr, rp, rs
+           "step_walls_s_plain": a["walls"], "step_walls_s_mesh": b["walls"],
+           "peak_memory_gb_plain": a["peak_gb"],
+           "peak_memory_gb_mesh": b["peak_gb"],
+           # the trainer's own accounting: parameters filled at once,
+           # what the update gathers whole (nothing), the f32 gradient
+           # blocks
+           "trainer_peak_gb": {k: v / 1e9
+                               for k, v in trainer.peak_bytes.items()},
+           "regions": sorted(trainer.split),
+           "region_size": trainer.region and trainer.region.size,
+           # the plain run's results to the host, and the comparison
+           "to_host_s": to_host_s, "compare_s": compare_s,
+           "seconds": time.perf_counter() - t_all}
+    return row, trainer, state
+
+
+def mesh_trainer_vs_plain(mesh, tmp):
+    """Trainer(mesh=) against Trainer() on the same seed at MESH_LAYERS
+    layers under each of MESH_OPTIMIZERS, and dbrx-132b at its published
+    widths (MESH_MOE_LAYERS layers: experts and vocabulary in regions of
+    one rank), one after the other: metrics, parameters, optimizer state
+    and launches bit for bit / equal; the adamw and adafactor mesh runs'
+    checkpoints (with specs) restored onto the mesh bit for bit. Then one
+    adamw mesh step at full depth."""
+    import torch
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.configs import get
+    from repro_torch.training.trainer import TrainConfig, Trainer
+    cfg = _train_cfg(n_layers=MESH_LAYERS)
+    out = {}
+    for opt in MESH_OPTIMIZERS:
+        row, tr, state = _plain_then_mesh(
+            cfg, {**MESH_TRAIN, "optimizer": opt}, mesh,
+            ckpt=tmp / opt if opt in MESH_CHECKPOINTED else None)
+        if opt in MESH_CHECKPOINTED:
+            t0 = time.perf_counter()
+            (rp, rs), manifest = tr.ckpt.restore(
+                (tr.params, state), mesh=mesh, specs=(tr.pspecs, tr.sspecs))
+            torch.cuda.synchronize()
+            row["restore_s"] = time.perf_counter() - t0
+            # a comprehension: no loop variable keeps a leaf on the card
+            # into the next run's peak
+            equal = [x.placements == y.placements
+                     and _bits_equal(x.full_tensor(), y.full_tensor())
+                     for (_, x), (_, y) in zip(_flatten((rp, rs)),
+                                               _flatten((tr.params, state)))]
+            row["checkpoint_specs_recorded"] = manifest["specs"] is not None
+            row["restored_bit_equal"] = [sum(equal), len(equal)]
+            del rp, rs
+        out[opt] = row
+        del tr, state
+    moe_cfg = dataclasses.replace(get(MESH_MOE_MODEL).config(),
+                                  n_layers=MESH_MOE_LAYERS)
+    out["moe"], tr, state = _plain_then_mesh(moe_cfg, MESH_MOE_TRAIN, mesh)
+    out["moe"]["params"] = moe_cfg.param_counts()["total"]
+    del tr, state
     _free_cuda()
     # one step at full depth under the mesh (112 + 112 flash launches),
     # and its peak memory against the plain trainer's on the same step
+    t_full = time.perf_counter()
     full = _train_cfg()
     peak = {}
     for name in ("plain", "mesh"):
@@ -3695,19 +3753,26 @@ def mesh_trainer_vs_plain(mesh, tmp):
         if name == "plain":
             del trainer
             _free_cuda()
-    row["full_depth"] = {
+    out["full_depth"] = {
         "layers": full.n_layers, "loss": hist[0]["loss"],
         "gnorm": hist[0]["gnorm"], "wall_s": wall,
-        "launches": launch_counts(**_mesh_step_launches(full.n_layers, 1)),
+        "launches": launch_counts(**_mesh_step_launches(full.n_layers,
+                                                        MESH_TRAIN, 1)),
         "peak_memory_gb": peak["mesh"], "peak_memory_gb_plain": peak["plain"],
-        # the trainer's own accounting: whole parameters filled at once,
-        # what an update group gathers whole (none for adamw), the f32
-        # gradient blocks
         "trainer_peak_gb": {k: v / 1e9
                             for k, v in trainer.peak_bytes.items()}}
     del trainer
     _free_cuda()
-    return row
+    out["full_depth"]["seconds"] = time.perf_counter() - t_full
+    return out
+
+
+def mesh_launches(train, kernel):
+    """``kernel``'s launches in phase 18's mesh runs, by run."""
+    return {**{opt: train[opt]["launches_mesh"][kernel]
+               for opt in MESH_OPTIMIZERS},
+            MESH_MOE_MODEL: train["moe"]["launches_mesh"][kernel],
+            "full_depth_step": train["full_depth"]["launches"][kernel]}
 
 
 def mesh_psum():
@@ -3782,9 +3847,12 @@ def mesh_fitness():
 
 def phase_mesh():
     """Phase 18: the mesh tail on a world of one (NCCL, a ``file://``
-    rendezvous under build/): the sharded trainer bit for bit against the
-    plain one, its checkpoint restored onto the mesh, psum_compressed, and
-    the population-sharded fitness with NSGA-II on it."""
+    rendezvous under build/): the sharded trainer, its 'model'-parallel
+    regions of one rank (vocabulary, FFN, experts) and its block updates,
+    bit for bit against the plain one under each optimizer and for
+    dbrx-132b's experts at full width, its checkpoint restored onto the
+    mesh, psum_compressed, and the population-sharded fitness with
+    NSGA-II on it."""
     import datetime
     import shutil
     import tempfile
@@ -3816,15 +3884,21 @@ def phase_mesh():
            "seconds": time.perf_counter() - t0}
     emit(row)
     failures = []
-    if not train["metrics_bit_equal"]:
-        failures.append("mesh trainer metrics != Trainer()'s")
-    for key in ("params_bit_equal", "moments_bit_equal",
-                "restored_bit_equal"):
-        if train[key][0] != train[key][1]:
-            failures.append((key, train[key]))
-    if train["launches_mesh"] != train["launches_plain"]:
-        failures.append(("launches", train["launches_mesh"],
-                         train["launches_plain"]))
+    for run in (*MESH_OPTIMIZERS, "moe"):
+        r = train[run]
+        if not r["metrics_bit_equal"]:
+            failures.append((run, "mesh trainer metrics != Trainer()'s"))
+        for key in ("params_bit_equal", "state_bit_equal",
+                    "restored_bit_equal"):
+            if key in r and r[key][0] != r[key][1]:
+                failures.append((run, key, r[key]))
+        if r["state_leaves_mesh"] != r["state_bit_equal"][1]:
+            failures.append((run, "state leaves", r["state_leaves_mesh"]))
+        if r["launches_mesh"] != r["launches_plain"]:
+            failures.append((run, "launches", r["launches_mesh"],
+                             r["launches_plain"]))
+        if r["region_size"] != 1 or "" not in r["regions"]:
+            failures.append((run, "no region of one rank", r["regions"]))
     if not all(psum.values()):
         failures.append(("psum_compressed", psum))
     if not (fitness["F_bit_equal"] and fitness["violation_bit_equal"]):
@@ -3947,9 +4021,7 @@ def main():
         "launches_serve_sessions": sess_launches["flash_attention"],
         "launches_cluster": clu["launches"]["flash_attention"],
         "launches_families": fam["launches"]["flash_attention"],
-        "launches_mesh": msh["train"]["launches_mesh"]["flash_attention"],
-        "launches_mesh_full_depth_step":
-            msh["train"]["full_depth"]["launches"]["flash_attention"],
+        "launches_mesh": mesh_launches(msh["train"], "flash_attention"),
         "cases": fa["cases"] + attn["flash_extend"]["cases"],
         "max_abs_err": max(list(fa["max_abs_err"].values())
                            + list(attn["flash_extend"]["max_abs_err"]
@@ -3992,10 +4064,8 @@ def main():
                               "(the TPU kernel has no backward)",
         "launches": trn["main_path"]["launches"]["flash_attention_backward"],
         "launches_per_step": trn["main_path"]["launches_per_step"],
-        "launches_mesh": msh["train"]["launches_mesh"][
-            "flash_attention_backward"],
-        "launches_mesh_full_depth_step": msh["train"]["full_depth"][
-            "launches"]["flash_attention_backward"],
+        "launches_mesh": mesh_launches(msh["train"],
+                                       "flash_attention_backward"),
         "kernels_a_backward": BWD_KERNELS,
         "cases": trn["backward_checks"]["cases"],
         "max_abs_err": max(trn["backward_checks"]["max_abs_err"].values()),

@@ -11,11 +11,13 @@ memory allocated. As rank 0 of that mesh it records
     the rank's rows: the parameter and optimizer-state blocks it stores
     (the placements of ``sharding.param_specs`` and
     :func:`opt_state_specs`), the f32 gradient blocks it keeps, the most
-    whole parameters it fills into the model at once and the largest
-    update group it gathers (``Trainer.peak_bytes``); the step's FLOPs
+    parameter bytes it fills into the model at once (the 'model'-parallel
+    weights as the rank's blocks) and what the update gathers whole
+    (nothing; ``Trainer.peak_bytes``); the step's FLOPs
     (``torch.utils.flop_counter``: the forward, the remat recompute and
-    the backward); its collectives as ``CommDebugMode`` counts them, with
-    the bytes each op writes;
+    the backward, the regions' products on the rank's blocks); its
+    collectives as ``CommDebugMode`` counts them, with the bytes each op
+    writes;
   * prefill and decode: the serve placements' local blocks (the port's
     server runs on one card, so they are what a sharded server would
     store), the FLOPs of ``lm.prefill`` or one ``lm.decode_step`` on the
@@ -174,8 +176,9 @@ def step_flops(cfg: ModelConfig, shape_name: str, model: lm.LM,
 
 class _CollectiveBytes(TorchDispatchMode):
     """Adds up, by op, the bytes of the output tensors of every collective
-    op it sees (``c10d`` and ``_c10d_functional``, waits left out): what
-    the step moves."""
+    op it sees (``c10d`` and ``_c10d_functional``, waits left out), or of
+    the buffer it writes for an op that returns none (``alltoall_base_``):
+    what the step moves."""
 
     def __init__(self):
         super().__init__()
@@ -187,9 +190,12 @@ class _CollectiveBytes(TorchDispatchMode):
         name = str(func.overloadpacket).lstrip("_")
         if func.namespace in ("c10d", "_c10d_functional") \
                 and "wait" not in name:
+            def tensors(tree):
+                return [t for t in tree_leaves(tree)
+                        if isinstance(t, torch.Tensor)]
+            written = tensors(out) or tensors(args[:1])
             self.bytes[name] = self.bytes.get(name, 0) + sum(
-                t.nbytes for t in tree_leaves(out)
-                if isinstance(t, torch.Tensor))
+                t.nbytes for t in written)
         return out
 
 
@@ -225,11 +231,12 @@ def _train_record(cfg: ModelConfig, shape_name: str, mesh, batch) -> dict:
                                 + max(peak["filled"], peak["update"])),
         "step_bytes_what": (
             "the trainer's stored parameter and optimizer-state blocks, "
-            "its f32 gradient blocks, and the larger of the whole "
-            "parameters filled into the model at once (embedding, head, "
-            "norms, one period) and one update group's parameters, "
-            "gradients and state gathered whole (none for adamw); "
-            "activations and temporaries not counted"),
+            "its f32 gradient blocks, and the larger of the parameters "
+            "filled into the model at once (embedding, head, norms, one "
+            "period; the vocabulary, dense FFNs and experts as 'model' "
+            "blocks) and what the update gathers whole (nothing: every "
+            "optimizer updates the blocks in place); activations and "
+            "temporaries not counted"),
         "flops_per_rank": float(flops.get_total_flops()),
         "collectives": {
             "count": {str(op): n

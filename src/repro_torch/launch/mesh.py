@@ -13,8 +13,10 @@ Axis roles:
   pod   — data parallelism across pods (only the gradient all-reduce
           crosses pod links);
   data  — data parallelism + FSDP/ZeRO-3 parameter sharding;
-  model — the reference's tensor / expert parallelism; in the port it shards
-          parameter and optimizer storage, gathered for compute.
+  model — the reference's tensor / expert parallelism; in the port the
+          vocabulary, the dense FFN and the experts compute on its
+          blocks (``models.tensor_parallel``), attention on whole
+          weights.
 
 The card's figures, NVIDIA H100 SXM5 80GB HBM3 at 700 W (NVIDIA's data
 sheet, dense rates), for bounds and ``configs._base.make_card``:

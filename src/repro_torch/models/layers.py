@@ -10,7 +10,8 @@ Cross-attention over cached encoder / patch K/V is plain torch on both, as
 the reference computes it outside its kernels (``_xla_attention`` with
 ``causal=False``), casts included. The reference's sharding constraints
 (``constrain``) are not called: activations are each rank's local tensors
-(``models.sharding``).
+(``models.sharding``); the FFN runs column- then row-parallel when its
+module carries a ``tensor_parallel.Region`` (``tp``).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from . import tensor_parallel as TP
 from .config import ModelConfig
 
 
@@ -69,8 +71,17 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
-def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+def embed(table: torch.Tensor, tokens: torch.Tensor,
+          region: Optional[TP.Region] = None) -> torch.Tensor:
+    """``table[tokens]``; in a region ``table`` is this rank's slice of
+    the vocabulary's rows, a token outside it looks up zeros, and the
+    lookups are summed over the group (one rank contributes each row)."""
+    if region is None:
+        return table[tokens]
+    idx = tokens - region.rank * table.shape[0]
+    own = (idx >= 0) & (idx < table.shape[0])
+    rows = table[torch.where(own, idx, 0)]
+    return TP.reduce_from(torch.where(own[..., None], rows, 0), region)
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -253,10 +264,14 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 def ffn_apply(p, x: torch.Tensor, activation: str = "swiglu"
               ) -> torch.Tensor:
     """The ``models.lm.FFN`` ``p``: SwiGLU, or the GELU MLP (whisper), the
-    activation computed in f32."""
+    activation computed in f32. In a region (``p.tp``) ``wi`` / ``wg`` are
+    this rank's columns and ``wo`` its rows: the output is summed over the
+    region."""
+    region = getattr(p, "tp", None)
+    x = TP.copy_to(x, region)
     h = x @ p.wi
     if activation == "swiglu":
         h = F.silu((x @ p.wg).to(torch.float32)).to(x.dtype) * h
     else:
         h = gelu(h.to(torch.float32)).to(x.dtype)
-    return h @ p.wo
+    return TP.reduce_from(h @ p.wo, region)

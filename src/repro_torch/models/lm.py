@@ -34,6 +34,11 @@ records a graph; training asks for gradients with ``model.requires_grad_()``
 pattern in activation checkpointing (``torch.utils.checkpoint``), as the
 reference wraps its scan body in ``jax.checkpoint``, with the reference's
 remat policies (``REMAT_POLICIES``).
+
+The modules with ``SPLIT`` (the LM's embedding and head, ``FFN``, ``MoE``)
+are the 'model'-parallel regions of ``tensor_parallel``: a sharded trainer
+sets their ``tp`` for a step, and ``SPLIT`` names the dimension of each
+weight that a rank then holds a block of.
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ from .._device import Device, resolve
 from . import layers as L
 from . import moe as M
 from . import ssm as S
+from . import tensor_parallel as TP
 from . import xlstm as X
 from .config import ModelConfig
 
@@ -173,6 +179,8 @@ class FFN(nn.Module):
     """SwiGLU (``wg`` the gate), or the GELU MLP (no ``wg``)."""
     RANDOM = ("wi", "wg", "wo")
     REF = {"wi": ("wi", "w"), "wg": ("wg", "w"), "wo": ("wo", "w")}
+    SPLIT = {"wi": 1, "wg": 1, "wo": 0}     # column-, then row-parallel
+    tp: Optional[TP.Region] = None
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -188,6 +196,8 @@ class MoE(nn.Module):
     RANDOM = ("router", "wi", "wg", "wo")
     REF = {"router": ("router", "w"), "wi": ("wi", "w"), "wg": ("wg", "w"),
            "wo": ("wo", "w")}
+    SPLIT = {"wi": 0, "wg": 0, "wo": 0}     # expert-parallel
+    tp: Optional[TP.Region] = None
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -326,6 +336,8 @@ class LM(nn.Module):
     them with ``init`` or ``convert.lm_params_from_numpy``)."""
     RANDOM = ("embed", "head")
     SCALES = {"embed": 0.02, "head": 0.02}
+    SPLIT = {"embed": 0, "head": 0}         # vocab-parallel
+    tp: Optional[TP.Region] = None
 
     def __init__(self, cfg: ModelConfig, device: Device = None):
         super().__init__()
@@ -508,8 +520,8 @@ def _cross_input(model: LM, cfg: ModelConfig,
 
 
 def _final_logits(model: LM, cfg: ModelConfig, x: torch.Tensor):
-    return L.unembed(model.head_table(), L.apply_norm(cfg, model.final_norm,
-                                                      x))
+    return L.unembed(model.head_table(), TP.copy_to(
+        L.apply_norm(cfg, model.final_norm, x), model.tp))
 
 
 # ---------------------------------------------------------------------------
@@ -565,7 +577,8 @@ def train_logits(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
                  remat: bool = False, remat_policy: str = "full",
                  materialize: Optional[Callable] = None):
     """(B, S) tokens -> ((B, S, vocab) f32 logits, causal; the MoE aux
-    loss summed over the layers, a 0-d f32, 0 without MoE).
+    loss summed over the layers, a 0-d f32, 0 without MoE). In a region
+    (``model.tp``) the logits are this rank's slice of the vocabulary.
 
     ``remat`` checkpoints each period of the pattern (non-reentrant
     ``torch.utils.checkpoint``): only period boundaries are kept for the
@@ -581,7 +594,7 @@ def train_logits(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy {remat_policy!r}: one of "
                          f"{REMAT_POLICIES}")
-    x = L.embed(model.embed, tokens)
+    x = L.embed(model.embed, tokens, model.tp)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
     cross_x = _cross_input(model, cfg, frames, patches)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -611,16 +624,14 @@ def loss_fn(model: LM, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
     vision families, ``frames`` / ``patches`` as ``train_logits`` takes
     them. The log-sum-exp subtracts the row max with its gradient detached
     (the reference's ``stop_gradient``); the label logit is a gather, the
-    same sum as the reference's one-hot product."""
+    same sum as the reference's one-hot product (``tensor_parallel.nll``,
+    vocab-parallel in a region)."""
     logits, aux = train_logits(model, cfg, batch["tokens"],
                                batch.get("frames"), batch.get("patches"),
                                remat=remat, remat_policy=remat_policy,
                                materialize=materialize)
     labels = batch["labels"].to(torch.int64)
-    m = logits.detach().amax(dim=-1, keepdim=True)
-    lse = m[..., 0] + torch.log(torch.sum(torch.exp(logits - m), dim=-1))
-    label_logit = torch.gather(logits, -1, labels.clamp(min=0)[..., None])
-    nll = lse - label_logit[..., 0]
+    nll = TP.nll(logits, labels.clamp(min=0), model.tp)
     mask = (labels >= 0).to(torch.float32)
     loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return loss + aux_weight * aux, {"nll": loss, "aux": aux}

@@ -20,6 +20,14 @@ Tie order is the reference's: ``jax.lax.top_k`` takes the lower expert id
 among equal probabilities, which a stable descending sort gives, and the
 dispatch sort is stable (``jnp.argsort``). All plain torch on both devices:
 the reference has no kernel here.
+
+Expert parallelism: when the module carries a ``tensor_parallel.Region``
+(``tp``), its expert weights are this rank's E / size experts. Routing,
+the aux loss and the dispatch run alike on every rank (the tokens are the
+same on each); a rank runs the GEMMs of its experts' slice of the (E, C,
+d) buffer, the outputs are all-gathered into (E, C, d), and the combine
+runs as without a region, in the same order: drops and routing are those
+of the whole layer.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import tensor_parallel as TP
 from .config import ModelConfig
 
 #: when a list, every ``moe_apply`` appends its (T, k) expert choices and
@@ -92,14 +101,19 @@ def moe_apply(p, cfg: ModelConfig, x: torch.Tensor
     slot_token[dst] = torch.div(order, k, rounding_mode="floor")
     slot_token = slot_token[:E * C].reshape(E, C)
 
-    xpad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
-    xe = xpad[slot_token]                                        # (E, C, d)
+    # this rank's experts [lo, lo + n) (all of them outside a region)
+    region = getattr(p, "tp", None)
+    n = p.wi.shape[0]
+    lo = 0 if region is None else region.rank * n
+    xt_e = TP.copy_to(xt, region)
+    xpad = torch.cat([xt_e, xt_e.new_zeros((1, d))], dim=0)
+    xe = xpad[slot_token[lo:lo + n]]                             # (n, C, d)
 
     # ---- expert GEMMs --------------------------------------------------------
     h = torch.bmm(xe, p.wi)
     g = torch.bmm(xe, p.wg)
     h = F.silu(g.to(torch.float32)).to(h.dtype) * h
-    ye = torch.bmm(h, p.wo)                                      # (E, C, d)
+    ye = TP.gather(torch.bmm(h, p.wo), region)                   # (E, C, d)
 
     # ---- combine -------------------------------------------------------------
     # the k-th choice of a token sits at (expert top_e, slot); slot C (a row

@@ -36,15 +36,21 @@ the reference's spec with the stacked axis dropped. Weights keep the
 reference's (d_in, d_out) layout, so the rules' axes apply as they are.
 
 What a spec means here: the sharded trainer (``training.trainer``) stores
-parameters and optimizer state as DTensors with these placements and
-gathers them to whole tensors for compute, so the 'model' axis shards
-storage, not compute (no tensor parallelism). Activations are each rank's
-local tensors: :func:`constrain` is a no-op.
+parameters and optimizer state as DTensors with these placements. For
+compute it fills the weights that a 'model'-parallel region splits
+(:func:`model_split`: the vocab-parallel embedding and head, the column-
+and row-parallel FFN, the experts) over the other axes only, each rank
+keeping its 'model' block, and the rest whole (attention, Mamba and xLSTM
+projections, norms). The optimizer updates the stored blocks in place
+(:func:`block_layout` tells it where a block lies). Activations are each
+rank's local tensors, whole over 'model' between regions: :func:`constrain`
+is a no-op.
 """
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Sequence, Tuple, Union
+from typing import (Dict, Mapping, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 
@@ -95,8 +101,9 @@ def best_dp_prefix(mesh, dim: int, full_dp: bool) -> Axis:
 
 def constrain(x, *axes):
     """The reference's activation sharding constraint: a no-op. Each
-    rank's activations are its local tensors (the 'model' axis shards
-    storage, gathered for compute), so there is nothing to constrain."""
+    rank's activations are its local tensors (the 'model'-parallel regions
+    of ``models.tensor_parallel`` reduce or gather what they split), so
+    there is nothing to constrain."""
     return x
 
 
@@ -292,6 +299,73 @@ def spec_from_json(j) -> Spec:
     return tuple(tuple(a) if isinstance(a, list) else a for a in j)
 
 
+def model_split(model, mesh) -> Dict[str, Dict[str, int]]:
+    """The 'model'-parallel regions of ``model`` (an ``lm.LM``) on
+    ``mesh``: {module name: {parameter name: the dimension a rank holds
+    its 'model' block of}} for each module whose ``SPLIT`` dimensions the
+    'model' axis divides (the LM's embedding and head over the
+    vocabulary, a dense FFN's wi / wg columns and wo rows, a MoE's
+    experts). The blocks are those of compute, not of storage: the
+    reference's rules store a MoE's wi / wg with the experts over 'data'
+    and d over 'model' (the generic column rule matches first), so a
+    rank's experts are gathered from other ranks' blocks
+    (:func:`fill_placements`)."""
+    n = axis_sizes(mesh).get("model", 0)
+    out = {}
+    for mname, mod in model.named_modules():
+        dims = {f"{mname}.{k}" if mname else k: (getattr(mod, k), d)
+                for k, d in getattr(mod, "SPLIT", {}).items()
+                if getattr(mod, k) is not None}
+        if n and dims and all(p.shape[d] % n == 0
+                              for p, d in dims.values()):
+            out[mname] = {k: d for k, (_, d) in dims.items()}
+    return out
+
+
+def fill_placements(device_mesh, dim: Optional[int] = None):
+    """The DTensor placements of a weight filled as this rank's 'model'
+    block along ``dim``: split over 'model', whole over the other axes;
+    whole over every axis without ``dim``."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [Shard(dim) if name == "model" and dim is not None
+            else Replicate() for name in device_mesh.mesh_dim_names]
+
+
+class BlockLayout(NamedTuple):
+    """Where one rank's block lies in the whole tensor: per axis the
+    process groups of the mesh dimensions that split it (major first;
+    none for a whole axis), the whole size, and the block's first index
+    along it."""
+    groups: Tuple[tuple, ...]
+    whole: Tuple[int, ...]
+    offset: Tuple[int, ...]
+
+    @staticmethod
+    def whole_of(shape) -> "BlockLayout":
+        """The layout of a whole tensor of ``shape`` (no group)."""
+        return BlockLayout(((),) * len(shape), tuple(shape),
+                           (0,) * len(shape))
+
+
+def block_layout(device_mesh, spec: Spec, shape) -> BlockLayout:
+    """This rank's :class:`BlockLayout` of a tensor of ``shape`` (whole)
+    under ``spec`` (a dimension split over several axes: the first the
+    major one, as :func:`to_placements` orders them)."""
+    from torch.distributed.tensor import Shard
+    coord = device_mesh.get_coordinate()
+    groups = [[] for _ in shape]
+    index, count = [0] * len(shape), [1] * len(shape)
+    for i, pl in enumerate(to_placements(device_mesh, spec)):
+        if not isinstance(pl, Shard):
+            continue
+        dim, n = pl.dim, device_mesh.size(i)
+        groups[dim].append(device_mesh.get_group(i))
+        index[dim], count[dim] = index[dim] * n + coord[i], count[dim] * n
+    return BlockLayout(tuple(map(tuple, groups)), tuple(shape),
+                       tuple(d // c * j for d, c, j in zip(shape, count,
+                                                            index)))
+
+
 def local_block(tensor: torch.Tensor, device_mesh, spec: Spec
                 ) -> torch.Tensor:
     """This rank's block of ``tensor`` (whole, the same on every rank)
@@ -302,32 +376,28 @@ def local_block(tensor: torch.Tensor, device_mesh, spec: Spec
                              src_data_rank=None).to_local()
 
 
+def _dtensor(local: torch.Tensor, device_mesh, spec: Spec):
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, device_mesh,
+                              to_placements(device_mesh, spec),
+                              run_check=False)
+
+
 def shard(tensor: torch.Tensor, device_mesh, spec: Spec):
     """``tensor`` (whole, the same on every rank) as a DTensor with
     ``spec``'s placements, each rank keeping a copy of its own block (no
     communication)."""
-    from torch.distributed.tensor import DTensor
-    return DTensor.from_local(local_block(tensor, device_mesh, spec).clone(),
-                              device_mesh, to_placements(device_mesh, spec),
-                              run_check=False)
+    return _dtensor(local_block(tensor, device_mesh, spec).clone(),
+                    device_mesh, spec)
 
 
-def shard_tree(tree, specs, device_mesh):
-    """A dict tree of whole tensors as DTensors (:func:`shard`), each leaf
-    with the spec at the same place in ``specs``."""
+def from_local_tree(tree, specs, device_mesh):
+    """A dict tree of this rank's blocks as DTensors, each leaf with the
+    spec at the same place in ``specs`` (no communication)."""
     if isinstance(tree, dict):
-        return {k: shard_tree(v, specs[k], device_mesh)
+        return {k: from_local_tree(v, specs[k], device_mesh)
                 for k, v in tree.items()}
-    return shard(tree, device_mesh, specs)
-
-
-def gather_tree(tree):
-    """A dict tree with every DTensor gathered to its whole tensor (a
-    collective: every rank of its mesh calls it)."""
-    from torch.distributed.tensor import DTensor
-    if isinstance(tree, dict):
-        return {k: gather_tree(v) for k, v in tree.items()}
-    return tree.full_tensor() if isinstance(tree, DTensor) else tree
+    return _dtensor(tree, device_mesh, specs)
 
 
 def local_shape(shape, mesh, spec: Spec) -> Tuple[int, ...]:

@@ -25,6 +25,19 @@ either way. ``adafactor`` does not (its second moment is factored over a
 leaf's last two axes, and its update clip is one RMS over the leaf), so it
 takes the stacks (``lm.param_stacks``) and updates each as the reference's
 one leaf.
+
+**On blocks.** ``init`` and ``update`` take ``layouts``: {parameter name:
+``sharding.BlockLayout``}, when each tensor is one rank's block of a leaf
+split over process groups (the sharded trainer's). The arithmetic is then
+that of the whole leaf, no rank holding it: a reduction over a split axis
+is a local sum, all-reduced over the groups that split the axis and
+divided by the whole count (adafactor's row and column means, the mean of
+its row factor, its update RMS over the whole stacked leaf); adamw8bit's
+quantization blocks are those of the whole last axis, so a block that
+straddles ranks takes its scale as the max all-reduced over them, and
+every rank holds a row's scales whole (their spec drops the last axis).
+Without ``layouts`` each tensor is its whole leaf: the same code with no
+group.
 """
 from __future__ import annotations
 
@@ -32,7 +45,11 @@ import dataclasses
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from ..models.sharding import BlockLayout
+from ..models.tensor_parallel import all_reduce
 
 QBLOCK = 256  # int8 quantization block
 
@@ -41,12 +58,46 @@ Tensors = Dict[str, torch.Tensor]
 Stacks = Callable[[List[str]], Dict[str, List[str]]]
 
 
+#: parameter names -> the ``BlockLayout`` of each one's block
+Layouts = Optional[Dict[str, BlockLayout]]
+
+
 class Optimizer(NamedTuple):
-    init: Callable     # params -> state
-    # (grads, state, params, gnorm=None) -> (params, state), in place;
-    # ``gnorm`` the global gradient norm when ``grads`` is a part
+    init: Callable     # (params, layouts=None) -> state
+    # (grads, state, params, gnorm=None, layouts=None) -> (params, state),
+    # in place; ``gnorm`` the global gradient norm when ``grads`` is a part
     update: Callable
     name: str
+
+
+def _axes(layouts: Layouts, name: str, shape) -> BlockLayout:
+    """``layouts[name]``, or the whole leaf of ``shape``."""
+    if layouts is None:
+        return BlockLayout.whole_of(shape)
+    return layouts[name]
+
+
+def _stacked(ax: BlockLayout, n: int) -> BlockLayout:
+    """The layout of a stack of ``n`` blocks laid out as ``ax`` (the stack
+    axis is never split)."""
+    return BlockLayout(((),) + ax.groups, (n,) + ax.whole, (0,) + ax.offset)
+
+
+def _mean(x: torch.Tensor, dim: int, groups, whole: int,
+          keepdim: bool = False) -> torch.Tensor:
+    """The mean over axis ``dim`` of the whole tensor whose block is
+    ``x``: the local sum, summed over ``groups``, over ``whole``."""
+    return all_reduce(torch.sum(x, dim=dim, keepdim=keepdim),
+                       groups) / whole
+
+
+def _mean_all(x: torch.Tensor, ax: BlockLayout) -> torch.Tensor:
+    """The mean of every entry of the whole leaf whose block is ``x``."""
+    numel = 1
+    for n in ax.whole:
+        numel *= n
+    groups = [g for gs in ax.groups for g in gs]
+    return all_reduce(torch.sum(x), groups) / numel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,7 +120,7 @@ def _clip_scale(grads: Tensors, clip: float,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(scale, global norm): gradients times ``scale`` have norm <= clip.
     ``gnorm``, when given, is the global norm (of more gradients than
-    ``grads``: a sharded trainer updates a group at a time)."""
+    ``grads``: a sharded trainer updates its blocks)."""
     if gnorm is None:
         gnorm = _tree_norm(grads)
     scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-9), max=1.0)
@@ -99,7 +150,7 @@ def _scalars(params: Tensors) -> Tensors:
 # ---------------------------------------------------------------------------
 
 def adamw(cfg: OptConfig = OptConfig()) -> Optimizer:
-    def init(params: Tensors):
+    def init(params: Tensors, layouts: Layouts = None):
         zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa
                                       device=p.device)
         return {"m": {k: zeros(p) for k, p in params.items()},
@@ -107,7 +158,8 @@ def adamw(cfg: OptConfig = OptConfig()) -> Optimizer:
                 **_scalars(params)}
 
     @torch.no_grad()
-    def update(grads: Tensors, state, params: Tensors, gnorm=None):
+    def update(grads: Tensors, state, params: Tensors, gnorm=None,
+               layouts: Layouts = None):
         scale, gnorm = _clip_scale(grads, cfg.grad_clip, gnorm)
         step = state["step"] + 1
         b1c, b2c = _bias_corrections(cfg, step)
@@ -133,61 +185,94 @@ def adamw(cfg: OptConfig = OptConfig()) -> Optimizer:
 # 8-bit AdamW (block-wise dynamic quantization)
 # ---------------------------------------------------------------------------
 
-def _q8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Quantize f32 in blocks along the LAST axis -> (int8 of x's shape,
-    f32 scales (..., n_blocks)); round half to even, as ``jnp.round``."""
-    last = x.shape[-1]
+def _blocks(ax: BlockLayout, w: int) -> Tuple[int, int, int, int, int]:
+    """The quantization blocks that a block of ``w`` columns at
+    ``ax.offset[-1]`` of the whole last axis touches: (block size, columns
+    of its first block before it, index of that block, blocks touched,
+    blocks of the whole axis)."""
+    last = ax.whole[-1]
     block = min(QBLOCK, last)
-    pad = (-last) % block
-    xp = F.pad(x, (0, pad))
-    nb = xp.shape[-1] // block
-    xb = xp.reshape(x.shape[:-1] + (nb, block))
-    s = torch.amax(torch.abs(xb), dim=-1) / 127.0
+    lead = ax.offset[-1] % block
+    return (block, lead, ax.offset[-1] // block, -(-(lead + w) // block),
+            -(-last // block))
+
+
+def _q8(x: torch.Tensor, ax: Optional[BlockLayout] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantize f32 in blocks along the LAST axis -> (int8 of x's shape,
+    f32 scales (..., n_blocks)); round half to even, as ``jnp.round``.
+    With ``ax`` (``x`` a block of the leaf) the blocks are the whole
+    axis's, each scale the max over every rank holding part of its block,
+    and the scales are those of the whole axis."""
+    ax = ax or BlockLayout.whole_of(x.shape)
+    w = x.shape[-1]
+    block, lead, first, n, nb = _blocks(ax, w)
+    xp = F.pad(x, (lead, n * block - lead - w))
+    xb = xp.reshape(x.shape[:-1] + (n, block))
+    amax = torch.amax(torch.abs(xb), dim=-1)
+    if ax.groups[-1]:       # the axis is split: scales from every part
+        whole = amax.new_zeros(x.shape[:-1] + (nb,))
+        whole[..., first:first + n] = amax
+        amax = all_reduce(whole, ax.groups[-1], dist.ReduceOp.MAX)
+    s = amax / 127.0
     s = torch.where(s == 0, 1.0, s)
-    q = torch.clamp(torch.round(xb / s[..., None]), -127, 127).to(torch.int8)
-    q = q.reshape(xp.shape)[..., :last]
+    q = (xb / s[..., first:first + n, None]).round_().clamp_(-127, 127)
+    q = q.to(torch.int8).reshape(xp.shape)[..., lead:lead + w]
     return q, s
 
 
-def _dq8(q: torch.Tensor, s: torch.Tensor, shape) -> torch.Tensor:
-    last = shape[-1]
-    block = min(QBLOCK, last)
-    pad = (-last) % block
-    qp = F.pad(q, (0, pad))
-    nb = qp.shape[-1] // block
-    xb = qp.reshape(tuple(shape[:-1]) + (nb, block)).to(torch.float32)
-    xf = xb * s[..., None]
-    return xf.reshape(qp.shape)[..., :last]
+def _dq8(q: torch.Tensor, s: torch.Tensor, shape,
+         ax: Optional[BlockLayout] = None) -> torch.Tensor:
+    ax = ax or BlockLayout.whole_of(shape)
+    w = shape[-1]
+    block, lead, first, n, _ = _blocks(ax, w)
+    qp = F.pad(q, (lead, n * block - lead - w))
+    xb = qp.reshape(tuple(shape[:-1]) + (n, block)).to(torch.float32)
+    xf = xb.mul_(s[..., first:first + n, None])
+    return xf.reshape(qp.shape)[..., lead:lead + w]
 
 
 def adamw8bit(cfg: OptConfig = OptConfig()) -> Optimizer:
-    def init(params: Tensors):
-        def zq(p):
-            q, s = _q8(torch.zeros(p.shape, dtype=torch.float32,
-                                   device=p.device))
-            return {"q": q, "s": s}
-        return {"m": {k: zq(p) for k, p in params.items()},
-                "v": {k: zq(p) for k, p in params.items()},
+    def init(params: Tensors, layouts: Layouts = None):
+        """Zero codes and unit scales (what quantizing zeros gives), the
+        scales over the whole last axis."""
+        def zq(k, p):
+            nb = _blocks(_axes(layouts, k, p.shape), p.shape[-1])[-1]
+            return {"q": torch.zeros(p.shape, dtype=torch.int8,
+                                     device=p.device),
+                    "s": torch.ones(p.shape[:-1] + (nb,),
+                                    dtype=torch.float32, device=p.device)}
+        return {"m": {k: zq(k, p) for k, p in params.items()},
+                "v": {k: zq(k, p) for k, p in params.items()},
                 **_scalars(params)}
 
     @torch.no_grad()
-    def update(grads: Tensors, state, params: Tensors, gnorm=None):
+    def update(grads: Tensors, state, params: Tensors, gnorm=None,
+               layouts: Layouts = None):
         scale, gnorm = _clip_scale(grads, cfg.grad_clip, gnorm)
         step = state["step"] + 1
         b1c, b2c = _bias_corrections(cfg, step)
         for k, p in params.items():
+            ax = _axes(layouts, k, p.shape)
+            # the reference's expressions, evaluated in place where a
+            # temporary is fresh (the same roundings; an expert leaf's f32
+            # temporaries are GBs)
             g = grads[k].to(torch.float32) * scale
             mq, vq = state["m"][k], state["v"][k]
-            m = cfg.b1 * _dq8(mq["q"], mq["s"], p.shape) + (1 - cfg.b1) * g
-            v = (cfg.b2 * _dq8(vq["q"], vq["s"], p.shape)
-                 + (1 - cfg.b2) * g * g)
-            v = torch.clamp(v, min=0.0)
+            m = _dq8(mq["q"], mq["s"], p.shape, ax).mul_(cfg.b1).add_(
+                (1 - cfg.b1) * g)
+            v = _dq8(vq["q"], vq["s"], p.shape, ax).mul_(cfg.b2).add_(
+                ((1 - cfg.b2) * g).mul_(g)).clamp_(min=0.0)
+            del g
             pf = p.to(torch.float32)
-            new_p = pf - cfg.lr * ((m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-                                   + cfg.weight_decay * pf)
-            p.copy_(new_p)
-            mq["q"], mq["s"] = _q8(m)
-            vq["q"], vq["s"] = _q8(v)
+            u = (m / b1c).div_(torch.sqrt(v / b2c).add_(cfg.eps))
+            u = u.add_(cfg.weight_decay * pf).mul_(cfg.lr)
+            p.copy_(pf - u)
+            del pf, u
+            for mom, x in ((mq, m), (vq, v)):
+                q, sc = _q8(x, ax)
+                mom["q"].copy_(q)
+                mom["s"].copy_(sc)
         return params, {"m": state["m"], "v": state["v"], "step": step,
                         "gnorm": gnorm}
 
@@ -207,7 +292,9 @@ def adafactor(cfg: OptConfig = OptConfig(),
     over the stacked shape (so a layer's 1-D gain is a row of a matrix)
     and the relative-update clip taken over the whole stack; its state
     ``f[stack name]`` has the reference's stacked shapes. Without
-    ``stacks`` every parameter is a leaf of its own."""
+    ``stacks`` every parameter is a leaf of its own. A stack's members
+    share one layout (``layouts`` of its first), and its blocks stack
+    into the block of the stacked leaf."""
     def leaves(params: Tensors):
         """(state key, member names, stacked) of every leaf."""
         groups = stacks(list(params)) if stacks is not None else {}
@@ -215,7 +302,7 @@ def adafactor(cfg: OptConfig = OptConfig(),
         return ([(k, [k], False) for k in params if k not in grouped]
                 + [(k, members, True) for k, members in groups.items()])
 
-    def init(params: Tensors):
+    def init(params: Tensors, layouts: Layouts = None):
         def fac(shape, device):
             z = lambda shape: torch.zeros(shape, dtype=torch.float32,  # noqa
                                           device=device)
@@ -231,12 +318,15 @@ def adafactor(cfg: OptConfig = OptConfig(),
         return {"f": f, **_scalars(params)}
 
     @torch.no_grad()
-    def update(grads: Tensors, state, params: Tensors, gnorm=None):
+    def update(grads: Tensors, state, params: Tensors, gnorm=None,
+               layouts: Layouts = None):
         scale, gnorm = _clip_scale(grads, cfg.grad_clip, gnorm)
         step = state["step"] + 1
         decay = 1.0 - step.to(torch.float32) ** -0.8
         for key, members, stacked in leaves(params):
+            ax = _axes(layouts, members[0], params[members[0]].shape)
             if stacked:
+                ax = _stacked(ax, len(members))
                 g = torch.stack([grads[n].to(torch.float32)
                                  for n in members]) * scale
                 pf = torch.stack([params[n].to(torch.float32)
@@ -247,19 +337,21 @@ def adafactor(cfg: OptConfig = OptConfig(),
             f = state["f"][key]
             g2 = g * g + 1e-30
             if g.dim() >= 2:
-                vr = decay * f["vr"] + (1 - decay) * torch.mean(g2, dim=-1)
-                vc = decay * f["vc"] + (1 - decay) * torch.mean(g2, dim=-2)
+                rows, cols = ((ax.groups[i], ax.whole[i]) for i in (-2, -1))
+                vr = decay * f["vr"] + (1 - decay) * _mean(g2, -1, *cols)
+                vc = decay * f["vc"] + (1 - decay) * _mean(g2, -2, *rows)
                 denom = (vr[..., None] * vc[..., None, :]
-                         / torch.clamp(torch.mean(vr, dim=-1, keepdim=True)
+                         / torch.clamp(_mean(vr, -1, *rows, keepdim=True)
                                        [..., None], min=1e-30))
                 upd_ = g * torch.rsqrt(denom + 1e-30)
-                f["vr"], f["vc"] = vr, vc
+                f["vr"].copy_(vr)
+                f["vc"].copy_(vc)
             else:
                 v = decay * f["v"] + (1 - decay) * g2
                 upd_ = g * torch.rsqrt(v + 1e-30)
-                f["v"] = v
+                f["v"].copy_(v)
             # relative update clipping (Adafactor's d = 1.0)
-            rms = torch.sqrt(torch.mean(upd_ * upd_) + 1e-30)
+            rms = torch.sqrt(_mean_all(upd_ * upd_, ax) + 1e-30)
             upd_ = upd_ / torch.clamp(rms, min=1.0)
             new_p = (pf - cfg.lr * upd_
                      - cfg.lr * cfg.weight_decay * pf)

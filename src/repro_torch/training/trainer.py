@@ -17,26 +17,29 @@ initialized process group): parameters and optimizer state are stored as
 DTensors with the placements of ``sharding.param_specs(mode="train")`` and
 ``dryrun.opt_state_specs`` (``self.params``, the optimizer state), each
 rank holding its blocks. The model's own parameters hold no storage
-between steps. A step fills them FSDP-style over both axes: the embedding,
-head, final norm and encoder for the whole step, and each period of the
-block pattern (``full_tensor()``) just before it runs, again before its
-recompute in the backward, and frees it when the next one is filled (with
-``remat``; without it every period stays filled to the step's end). The
-model then runs on plain local tensors as without a mesh (the hand-written
-flash kernels on the card). Each data-parallel rank (the coordinate over
+between steps. A step fills them FSDP-style: the embedding, head, final
+norm and encoder for the whole step, and each period of the block pattern
+just before it runs, again before its recompute in the backward, and frees
+it when the next one is filled (with ``remat``; without it every period
+stays filled to the step's end). The weights of the 'model'-parallel
+regions (``sharding.model_split``: the vocab-parallel embedding and head,
+the column- / row-parallel FFN, the experts) are filled over the other
+axes only, so a rank holds and computes on its 'model' blocks of them
+(``models.tensor_parallel``, whose ``Region`` the step sets on those
+modules); the rest (attention, Mamba and xLSTM projections, norms) is
+filled whole, and the hand-written flash kernels run on plain local
+tensors as without a mesh. Each data-parallel rank (the coordinate over
 the DP axes) trains on its rows of the global batch
 (``SyntheticLMData(host_index=, n_hosts=)``), the DP axes those of the
-reference's input specs (the whole mesh for ``tp_friendly=False`` archs).
-As each parameter's gradient is complete it is summed over the DP axes'
-process groups in f32, divided by their count, and only this rank's block
-of it is kept. The global gradient norm is summed from the blocks. adamw
-then updates each rank's blocks in place, element by element; adamw8bit
-and adafactor, whose quantization blocks and factored moments run along
-whole axes, update a group at a time (a parameter; for adafactor a stack,
-the reference's leaf), gathered whole and stored again as blocks. The
-'model' axis shards storage only: its ranks compute alike (no tensor
-parallelism). Checkpoints record the specs and restore onto the current
-mesh.
+reference's input specs (the whole mesh for ``tp_friendly=False`` archs,
+which then have no region). As each parameter's gradient is complete it
+is summed over the DP axes' process groups in f32, divided by their
+count, and only this rank's block of it is kept. The global gradient norm
+is summed from the blocks. Every optimizer then updates this rank's
+blocks in place (``optim``'s ``layouts``: its reductions over split axes
+run as collectives), so no rank ever holds a whole expert stack,
+vocabulary table or optimizer leaf. Checkpoints record the specs and
+restore onto the current mesh.
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ from ..checkpoint import CheckpointManager
 from ..data import DataConfig, SyntheticLMData
 from ..models import lm
 from ..models import sharding as shard
+from ..models import tensor_parallel as TP
 from ..models.config import ModelConfig
 from .optim import OptConfig, make_optimizer, optimizer_for_arch
 
@@ -83,6 +87,14 @@ def _nbytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(_nbytes(v) for v in tree.values())
     return tree.nbytes
+
+
+def _local(tree):
+    """A dict tree of DTensors as this rank's blocks (views: writing them
+    writes the DTensors)."""
+    if isinstance(tree, dict):
+        return {k: _local(v) for k, v in tree.items()}
+    return tree.to_local()
 
 
 class Trainer:
@@ -124,6 +136,11 @@ class Trainer:
         self.pspecs = self.sspecs = None
         #: the stored parameters on a mesh: {name: DTensor}
         self.params: Optional[Dict[str, torch.Tensor]] = None
+        #: on a mesh, each parameter's ``sharding.BlockLayout``
+        self.layouts: Optional[Dict[str, shard.BlockLayout]] = None
+        #: the 'model'-parallel regions: {module name: {parameter: dim}}
+        self.split: Dict[str, Dict[str, int]] = {}
+        self.region: Optional[TP.Region] = None
         if mesh is not None:
             from ..launch.dryrun import opt_state_specs
             model = lm.LM(cfg, "meta")
@@ -131,11 +148,28 @@ class Trainer:
             shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
             self.sspecs = opt_state_specs(self.opt_name, shapes, self.pspecs,
                                           stacks)
-        #: on a mesh, the most bytes a step has held at once of: whole
-        #: parameters filled into the model ("filled"), one update group's
-        #: parameters, gradients and state gathered whole ("update"; none
-        #: for adamw, which updates the blocks in place), and the f32
-        #: gradient blocks kept from the backward to the update ("grads")
+            self.layouts = {k: shard.block_layout(mesh, self.pspecs[k], shp)
+                            for k, shp in shapes.items()}
+            if (cfg.tp_friendly and "model" in mesh.mesh_dim_names
+                    and "model" not in self.dp):
+                self.split = shard.model_split(model, mesh)
+                self.region = TP.Region(mesh.get_group("model"),
+                                        mesh.size(mesh.mesh_dim_names.index(
+                                            "model")),
+                                        mesh.get_local_rank("model"))
+        #: on a mesh, the placements each parameter is filled at: a
+        #: region's weights split over 'model', the rest whole
+        self.fills = {}
+        if mesh is not None:
+            dims = {k: d for ds in self.split.values() for k, d in ds.items()}
+            self.fills = {k: shard.fill_placements(mesh, dims.get(k))
+                          for k in shapes}
+        #: on a mesh, the most bytes a step has held at once of: parameters
+        #: filled into the model ("filled": whole, or their 'model' blocks
+        #: in a region), parameters, gradients and state that the update
+        #: gathers whole ("update": none, every optimizer updates the
+        #: blocks in place), and the f32 gradient blocks kept from the
+        #: backward to the update ("grads")
         self.peak_bytes = {"filled": 0, "update": 0, "grads": 0}
         self.ckpt = (CheckpointManager(tcfg.checkpoint_dir,
                                        keep=tcfg.keep_checkpoints,
@@ -191,19 +225,54 @@ class Trainer:
 
     # ------------------------------------------------------------------
     # on a mesh
-    def _fill(self, params, names) -> None:
-        """Give the model's parameters ``names`` their stored whole values
-        (a collective: every rank calls it)."""
+    def _fill(self, params, names, whole: bool = False) -> None:
+        """Give the model's parameters ``names`` their stored values at
+        their fill placements (``self.fills``: a region's weights their
+        'model' blocks, gathered over the other axes, the rest whole), or
+        all whole with ``whole`` (a collective: every rank calls it)."""
+        everywhere = shard.fill_placements(self.mesh)
         with torch.no_grad():
             for k in names:
-                p, whole = params[k], self.params[k].full_tensor()
+                p = params[k]
+                value = self._model_block(
+                    k, everywhere if whole else self.fills[k])
+                if p.shape != value.shape:   # first fill, or after a
+                    p.data = value.clone()   # gather_model
+                    continue
                 # the recompute refills a tensor that autograd saved: its
                 # values come back unchanged, so its version stays
                 with torch.autograd._unsafe_preserve_version_counter(p):
-                    p.untyped_storage().resize_(whole.nbytes)
-                    p.copy_(whole)
+                    p.untyped_storage().resize_(value.nbytes)
+                    p.copy_(value)
         self._peak("filled", sum(p.untyped_storage().nbytes()
                                  for p in params.values()))
+
+    def _moved(self, k: str, placements):
+        """For a weight ``k`` filled at ``placements`` split over 'model'
+        along another dimension than its storage is (a MoE's wi / wg: d
+        stored, experts computed): (storage's dimension, the fill's, the
+        fill's placements with storage's 'model' split); else None."""
+        from torch.distributed.tensor import Shard
+        if "model" not in self.mesh.mesh_dim_names:
+            return None
+        m = self.mesh.mesh_dim_names.index("model")
+        src, fill = self.params[k].placements[m], placements[m]
+        if not (isinstance(src, Shard) and isinstance(fill, Shard)) \
+                or src.dim == fill.dim:
+            return None
+        return src.dim, fill.dim, placements[:m] + [src] + placements[m + 1:]
+
+    def _model_block(self, k: str, placements) -> torch.Tensor:
+        """This rank's block of the stored weight ``k`` at ``placements``
+        (gathered over the axes they do not split); a weight stored split
+        along another dimension over 'model' is moved by an all-to-all (no
+        rank holds it whole)."""
+        t, moved = self.params[k], self._moved(k, placements)
+        if moved is None:
+            return t.redistribute(self.mesh, placements).to_local()
+        src, dst, keep = moved
+        return TP.all_to_all(t.redistribute(self.mesh, keep).to_local(),
+                             self.region, split=dst, cat=src)
 
     def _peak(self, what: str, nbytes: int) -> None:
         self.peak_bytes[what] = max(self.peak_bytes[what], nbytes)
@@ -226,40 +295,23 @@ class Trainer:
         """``model`` with every parameter filled with its stored whole
         value (a collective); on a mesh the trainer leaves them empty
         between steps."""
-        self._fill(dict(model.named_parameters()), self.params)
+        self._fill(dict(model.named_parameters()), self.params, whole=True)
         return model
-
-    def _groups(self, names) -> list:
-        """The parameter groups the update takes at a time: adafactor's
-        stacks (each the reference's one leaf) and lone parameters, else
-        each parameter alone."""
-        if self.opt_name != "adafactor":
-            return [[k] for k in names]
-        stacks = lm.param_stacks(self.cfg, names)
-        stacked = {n for members in stacks.values() for n in members}
-        return ([[k] for k in names if k not in stacked]
-                + list(stacks.values()))
-
-    def _init_opt_state(self, params):
-        """The optimizer's initial state, stored as blocks, made a group
-        at a time (no rank holds the whole state)."""
-        state = {}
-        for group in self._groups(list(params)):
-            part = self.opt.init({k: params[k] for k in group})
-            for top, v in part.items():
-                if isinstance(v, dict):
-                    state.setdefault(top, {}).update(shard.shard_tree(
-                        v, self.sspecs[top], self.mesh))
-                else:
-                    state[top] = shard.shard(v, self.mesh, self.sspecs[top])
-        return state
 
     def _reduce_grad(self, grads, k: str, p: torch.Tensor) -> None:
         """Hook run when ``p``'s gradient is complete: the gradient
-        averaged over the data-parallel ranks, this rank's block of it
-        added to ``grads[k]`` (f32), the whole one dropped."""
-        block = shard.local_block(self._dp_mean(p.grad), self.mesh,
-                                  self.pspecs[k])
+        averaged over the data-parallel ranks, moved from its fill
+        placements to storage's, this rank's block of it added to
+        ``grads[k]`` (f32), the filled one dropped."""
+        from torch.distributed.tensor import DTensor
+        g = self._dp_mean(p.grad)
+        placements, moved = self.fills[k], self._moved(k, self.fills[k])
+        if moved is not None:         # back to storage's 'model' split
+            src, dst, placements = moved
+            g = TP.all_to_all(g, self.region, split=src, cat=dst)
+        block = DTensor.from_local(
+            g, self.mesh, placements, run_check=False).redistribute(
+                self.mesh, self.params[k].placements).to_local()
         p.grad = None
         if k in grads:
             grads[k].add_(block)
@@ -312,8 +364,12 @@ class Trainer:
         n = self.tcfg.microbatches
         mb = batch["tokens"].shape[0] // n
         losses, nlls = [], []
-        self._fill(params, [k for k in params if not k.startswith("blocks.")])
+        regions = [model.get_submodule(m) for m in self.split]
+        for mod in regions:
+            mod.tp = self.region
         try:
+            self._fill(params, [k for k in params
+                                if not k.startswith("blocks.")])
             for i in range(n):
                 part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
                 loss, aux = lm.loss_fn(model, self.cfg, part,
@@ -326,6 +382,8 @@ class Trainer:
         finally:
             for h in hooks:
                 h.remove()
+            for mod in regions:
+                mod.tp = None
             self._release(params, params)
         grads = {k: (grads[k].div_(n) if n > 1 else grads[k]) if k in grads
                  else torch.zeros(self.params[k].to_local().shape,
@@ -338,53 +396,15 @@ class Trainer:
         self._peak("grads", _nbytes(grads))
         scalars = {t: v.full_tensor() for t, v in opt_state.items()
                    if not isinstance(v, dict)}
-        state = {t: dict(v) for t, v in opt_state.items()
-                 if isinstance(v, dict)}
-        update = (self._update_blocks if self.opt_name == "adamw"
-                  else self._update_groups)
-        new = update(grads, state, scalars, gnorm)
+        state = {t: v for t, v in opt_state.items() if isinstance(v, dict)}
+        # each rank updates its blocks of the parameters and the state in
+        # place; the optimizer's reductions over split axes are collectives
+        _, new = self.opt.update(grads, {**_local(state), **scalars},
+                                 _local(self.params), gnorm=gnorm,
+                                 layouts=self.layouts)
         for t in scalars:
             state[t] = shard.shard(new[t], self.mesh, self.sspecs[t])
         return state, {"loss": loss, "nll": nll, "gnorm": new["gnorm"]}
-
-    def _update_blocks(self, grads, state, scalars, gnorm):
-        """adamw's update, element by element: each rank updates its own
-        blocks of the parameters and moments in place. Returns the
-        optimizer's new state (its scalars are read from it)."""
-        def local(tree):
-            return {k: v.to_local() for k, v in tree.items()}
-        params = local(self.params)
-        part = {t: local(v) for t, v in state.items()}
-        _, new = self.opt.update(grads, {**part, **scalars}, params,
-                                 gnorm=gnorm)
-        return new
-
-    def _update_groups(self, grads, state, scalars, gnorm):
-        """The update a group at a time (``_groups``): the group's
-        parameters, gradient blocks and state gathered whole, updated, and
-        stored again as blocks (adamw8bit's blocks and adafactor's factored
-        moments run along whole axes). Returns the optimizer's last new
-        state (its scalars are read from it)."""
-        from torch.distributed.tensor import DTensor
-        for group in self._groups(list(self.params)):
-            part = shard.gather_tree({t: {k: v[k] for k in group if k in v}
-                                      for t, v in state.items()})
-            whole = {k: self.params[k].full_tensor() for k in group}
-            g = {k: DTensor.from_local(grads.pop(k), self.mesh,
-                                       self.params[k].placements,
-                                       run_check=False).full_tensor()
-                 for k in group}
-            self._peak("update", _nbytes(part) + _nbytes(whole) + _nbytes(g))
-            _, new = self.opt.update(g, {**part, **scalars}, whole,
-                                     gnorm=gnorm)
-            for k in group:
-                self.params[k] = shard.shard(whole[k], self.mesh,
-                                             self.pspecs[k])
-            for t in state:
-                state[t].update(shard.shard_tree(new[t], self.sspecs[t],
-                                                 self.mesh))
-            del part, whole, g
-        return new
 
     def _dp_mean(self, t: torch.Tensor) -> torch.Tensor:
         """The mean of ``t`` (in f32) over the data-parallel ranks: summed
@@ -411,8 +431,10 @@ class Trainer:
         if self.mesh is None:
             opt_state = self.opt.init(params)
         else:
-            opt_state = self._init_opt_state(params)
             self._store(model)
+            opt_state = shard.from_local_tree(
+                self.opt.init(_local(self.params), self.layouts),
+                self.sspecs, self.mesh)
         start = 0
         if self.ckpt and resume and self.ckpt.latest_step() is not None:
             if self.mesh is None:

@@ -3,7 +3,9 @@
 One dry-run cell of each kind for qwen3-1.7b on the (16, 16) production
 mesh (a fake process group of 256 ranks, fake tensors): train_4k,
 prefill_32k, decode_32k, and long_500k skipped with the reference's
-reason. Held per rank:
+reason; and the train_4k cells of llama4-maverick (adafactor) and
+dbrx-132b (adamw8bit), each in a process of its own (the dry run's own
+CLI) while the qwen3 cells run. Held per rank:
 
 * the parameters' local blocks, summed over each parameter's distinct
   shards, give the model's whole bytes: bf16 weights at 2 bytes and f32
@@ -12,22 +14,33 @@ reason. Held per rank:
 * adamw's state is 8 bytes for each parameter of the rank's blocks, the
   batch 8-byte tokens (and labels) of the rank's rows; the train step,
   run by the sharded trainer itself, keeps 4-byte gradient blocks,
-  updates the blocks in place and fills at most the embedding, the head,
-  the final norm and one period; its collectives are counted, and a
-  serving cell's are null (the port serves on one card);
+  updates the blocks in place for every optimizer (gathers nothing) and
+  fills exactly the embedding, the head and the final norm plus its
+  largest period, the 'model'-parallel weights (embedding, head, dense
+  FFN, experts) as 1/16 blocks and the rest whole; its collectives are
+  counted, and a serving cell's are null (the port serves on one card);
+  llama4's fill is under 3 GB and its step under 15 GB a rank (37.11 GB
+  and 782.6 GB when every weight was filled whole and adafactor gathered
+  its stacks);
 * FLOPs against ``model_flops_per_token()`` x the rank's tokens, within
   the factor the step's structure gives. Train runs the forward, the remat
   recompute of every period (not the head) and the backward: at least
-  (8 N - 2 head) / 6 N of 6 N (N the active parameters less the
-  embedding), and at most 4/3 plus the attention scores, which the plain
-  attention computes over the whole S x S square (4 L S q_dim a token
-  forward). Prefill reads the head at one row; decode reads the S-deep
-  cache.
+  (8 N - 2 head) / 6 N of 6 N, and at most 4/3 plus the attention
+  scores, which the plain attention computes over the whole S x S square
+  (4 L S q_dim a token forward); N is the active parameters less the
+  embedding, with the FFN's and the head's at 1/16 (the rank computes on
+  its 'model' blocks of them). Prefill reads the head at one row; decode
+  reads the S-deep cache.
 * ``card()``'s fields equal the reference's when ``make_card`` gets the
   reference's own chip constants (197 TFLOP/s, 819 GB/s).
 """
 import dataclasses
 import importlib.util
+import json
+import os
+import re
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -51,12 +64,59 @@ _spec.loader.exec_module(chip_smoke)
 
 ARCH = "qwen3-1.7b"
 SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+#: train_4k cells of the archs whose experts and vocabulary dominated the
+#: fill, and their optimizers (``optimizer_for_arch``)
+MOE_TRAIN = {"llama4-maverick-400b-a17b": "adafactor",
+             "dbrx-132b": "adamw8bit"}
+SRC = Path(__file__).resolve().parent.parent / "src"
+#: parameters that a 'model'-parallel region fills as 1/16 blocks
+REGION = re.compile(r"embed|head|blocks\.\d+\.ffn\.(wi|wg|wo)")
 
 
 @pytest.fixture(scope="module")
 def cells(tmp_path_factory):
     out = tmp_path_factory.mktemp("dryrun")
-    return {s: dryrun.run_cell(ARCH, s, "single", out) for s in SHAPES}
+    env = {**os.environ, "PYTHONPATH": f"{SRC}{os.pathsep}"
+           f"{os.environ.get('PYTHONPATH', '')}", "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", "train_4k", "--mesh", "single", "--out", str(out)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for arch in MOE_TRAIN]
+    try:
+        got = {s: dryrun.run_cell(ARCH, s, "single", out) for s in SHAPES}
+        for p in procs:
+            log, _ = p.communicate(timeout=600)
+            assert p.returncode == 0, log[-4000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for arch in MOE_TRAIN:
+        got[arch] = json.loads(
+            (out / f"{arch}__train_4k__single.json").read_text())
+    return got
+
+
+def _fill_reckoning(cfg):
+    """The most bytes a train step fills at once: the parameters outside
+    the blocks (for the step) and the largest period, a region's weights
+    at 1/16 of their bytes and the rest whole."""
+    named = list(lm.LM(cfg, "meta").named_parameters())
+
+    def nbytes(n, p):
+        b = p.numel() * p.element_size()
+        return b // 16 if REGION.fullmatch(n) else b
+
+    outside = sum(nbytes(n, p) for n, p in named
+                  if not n.startswith("blocks."))
+    P = len(cfg.pattern)
+    periods = [0] * cfg.n_periods
+    for n, p in named:
+        if n.startswith("blocks."):
+            periods[int(n.split(".")[1]) // P] += nbytes(n, p)
+    return outside + max(periods)
 
 
 def test_dryrun_records_each_kind(cells):
@@ -113,18 +173,33 @@ def test_dryrun_bytes_per_rank(cells, shape):
         assert rec["opt_state_bytes_per_rank"] == 8 * n_local + 8
         # the step: f32 gradient blocks; adamw updates the blocks in
         # place (gathers nothing); the filled parameters are the
-        # embedding, the head, the final norm and one period at most
+        # embedding, the head, the final norm and one period, the
+        # vocabulary and the FFN as 'model' blocks
         assert rec["grad_bytes_per_rank"] == 4 * n_local
         assert rec["update_group_bytes_peak"] == 0
-        outside = sum(p.numel() * p.element_size()
-                      for n, p in model.named_parameters()
-                      if not n.startswith("blocks."))
-        layer = sum(p.numel() * p.element_size()
-                    for p in model.blocks[0].parameters())
-        assert outside < rec["filled_param_bytes_peak"] <= outside + layer
+        assert rec["filled_param_bytes_peak"] == _fill_reckoning(cfg)
         assert rec["step_bytes_per_rank"] == (
             rec["param_bytes_per_rank"] + rec["opt_state_bytes_per_rank"]
             + rec["grad_bytes_per_rank"] + rec["filled_param_bytes_peak"])
+
+
+@pytest.mark.parametrize("arch", MOE_TRAIN)
+def test_dryrun_train_fills_model_blocks(cells, arch):
+    """The experts' and the vocabulary's cells: nothing gathered for the
+    update, the fill of 'model' blocks as reckoned, the step's bytes."""
+    rec = cells[arch]
+    assert rec["status"] == "ok", rec.get("trace")
+    assert rec["optimizer"] == MOE_TRAIN[arch]
+    assert rec["update_group_bytes_peak"] == 0
+    assert rec["filled_param_bytes_peak"] == _fill_reckoning(
+        get(arch).config())
+    assert rec["step_bytes_per_rank"] == (
+        rec["param_bytes_per_rank"] + rec["opt_state_bytes_per_rank"]
+        + rec["grad_bytes_per_rank"] + rec["filled_param_bytes_peak"])
+    if arch.startswith("llama4"):
+        assert rec["filled_param_bytes_peak"] <= 3e9
+        assert rec["step_bytes_per_rank"] <= 15e9
+    assert rec["collectives"]["bytes"]["c10d.alltoall_base_"] > 0
 
 
 @pytest.mark.parametrize("shape", SHAPES[:3])
@@ -137,7 +212,10 @@ def test_dryrun_flops_against_model_flops(cells, shape):
     S = 4096 if shape == "train_4k" else 32768
     attn = 4 * cfg.n_layers * S * cfg.q_dim           # a token, forward
     ratio = rec["flops_per_rank"] / rec["model_flops_per_rank"]
-    if shape == "train_4k":
+    if shape == "train_4k":   # the FFN and head on 'model' blocks
+        split = 3 * cfg.d_model * cfg.d_ff * cfg.n_layers + head
+        ratio *= N / (N - split * 15 / 16)
+        N, head = N - split * 15 / 16, head / 16
         lo, hi = (8 * N - 2 * head) / (6 * N), 4 / 3 + 4 * attn / (6 * N)
     elif shape == "prefill_32k":
         lo, hi = (N - head) / N, 1 + attn / (2 * N)

@@ -1,21 +1,37 @@
 """The port's mesh tail on CPU process groups (gloo): the sharded trainer,
 its checkpoints, ``psum_compressed`` and the population-sharded fitness.
 
-Multi-rank runs are 2 processes started by ``torch_mesh_workers.launch``
-(a ``file://`` rendezvous under ``tmp_path``, a timeout on every rank);
+Multi-rank runs are 2 (or 4) processes started by
+``torch_mesh_workers.launch`` (a ``file://`` rendezvous under
+``tmp_path``, a timeout on every rank);
 world-of-one runs join a 1-rank gloo group in this process. Every group is
 destroyed after its test.
 
 Held:
 * the train step (adamw, the stablelm-3b smoke config in f32, global batch
   4) on a (2, 1) mesh (2 data-parallel ranks of 2 rows) and on (1, 2) (the
-  'model' axis sharding storage) against one rank without a mesh on the
-  whole batch: loss within 1e-5 relative; the gradients, through adamw's
-  first moment m = 0.1 g of the clipped gradient, within 1e-5 x max|g|;
+  FFN, the embedding and the head split over 'model') against one rank
+  without a mesh on the whole batch: loss within 1e-5 relative; the
+  gradients, through adamw's first moment m = 0.1 g of the clipped
+  gradient, within 1e-5 x max|g|;
   v within 1e-5 x max|v|; each run's parameters equal to adamw's step
   recomputed from its own moments within 1e-6 x max|delta p|. (A missing
   mean over the DP ranks doubles g on (2, 1).) A world of one equals
   ``Trainer()`` bit for bit;
+* the 'model'-parallel regions on (1, 2): one adamw step of the llama4
+  (top-1 experts, dense FFN every other layer) and dbrx (top-2 experts)
+  smoke configs against one rank at the same tolerances, every MoE call's
+  routing and drops exactly; llama4 on (2, 2) against one rank taking the
+  data-parallel ranks' rows as microbatches; no rank ever fills a whole
+  expert stack, embedding, head or dense FFN; a world of one with a
+  region equals ``Trainer()`` bit for bit for MoE configs too;
+* adamw8bit and adafactor updated on (1, 2) from each rank's blocks
+  (``optim``'s ``layouts``), gathered: against the reference's update of
+  the whole arrays at the one-rank twins' tolerances (parameters and
+  state within 1e-6 relative; adamw8bit's int8 codes and scales exactly,
+  the gradients under the clip), and against the port's own whole-array
+  update (adamw8bit bit for bit), with quantization blocks straddling the
+  ranks;
 * a checkpoint saved on 2 ranks restores on 1 rank (no mesh) and on (1, 2)
   bit for bit; the twin of ``tests/test_training.py::
   test_checkpoint_elastic_reshard``;
@@ -44,12 +60,15 @@ from repro.cluster.spec import paper_testbed as ref_testbed
 from repro.core.fitness import EvalConfig as RefEvalConfig
 from repro.core.fitness import TraceEvaluator as RefEvaluator
 from repro.training import grad_compress as rgc
+from repro.training import optim as ropt
 from repro.workload.slo import attach_slos as ref_attach_slos
 from repro.workload.trace import build_trace as ref_build_trace
 from repro_torch.checkpoint.manager import (_flatten, load_checkpoint,
                                             save_checkpoint)
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.training.optim import OptConfig, _bias_corrections
+from repro_torch.models import moe
+from repro_torch.training.optim import (OptConfig, _bias_corrections,
+                                        make_optimizer)
 from repro_torch.training.trainer import TrainConfig, Trainer
 
 
@@ -83,6 +102,12 @@ def train_runs(tmp_path_factory):
     one = {"hist": hist, "m": state["m"], "v": state["v"],
            "params": {k: p.detach() for k, p in model.named_parameters()}}
     return ranks, one
+
+
+@pytest.fixture(scope="module")
+def moe_runs(tmp_path_factory):
+    return workers.launch("train_moe", 2,
+                          tmp_path_factory.mktemp("train_moe"))
 
 
 def _rel(a, b):
@@ -154,10 +179,10 @@ def test_world_of_one_trainer_bit_equal(world_of_one, tmp_path):
     ("adafactor", 2, True)])
 def test_world_of_one_mesh_step_variants_bit_equal(world_of_one, optimizer,
                                                    microbatches, remat):
-    """The other optimizers (updated a group at a time: adafactor a
-    stack), microbatches and no remat on a world of one: metrics,
-    parameters and every optimizer-state leaf bit for bit against
-    Trainer()."""
+    """The other optimizers (updated on the blocks in place, their
+    reductions over split axes as collectives of one rank), microbatches
+    and no remat on a world of one: metrics, parameters and every
+    optimizer-state leaf bit for bit against Trainer()."""
     cfg = workers._train_cfg()
     tcfg = TrainConfig(**{**workers.TRAIN, "steps": 2,
                           "optimizer": optimizer,
@@ -170,8 +195,8 @@ def test_world_of_one_mesh_step_variants_bit_equal(world_of_one, optimizer,
         [(h["loss"], h["nll"], h["gnorm"]) for h in hist_m]
     for k, p in model.named_parameters():
         assert torch.equal(p.detach(), tr.params[k].full_tensor()), k
-    # adamw updates the blocks in place; the others gather a group
-    assert (tr.peak_bytes["update"] > 0) == (optimizer != "adamw")
+    # every optimizer updates the blocks in place: nothing gathered
+    assert tr.peak_bytes["update"] == 0
     want = dict(_flatten(state))
     got = {k: t.full_tensor() for k, t in _flatten(state_m)}
     assert set(got) == set(want)
@@ -204,6 +229,190 @@ def test_mesh_step_fills_one_period_at_a_time(world_of_one, monkeypatch):
     assert periods == [[0], [1], [2], [3], [2], [1], [0]]
     assert all(len(filled) <= 1 for _, filled in events)
     assert all(p.untyped_storage().nbytes() == 0 for p in model.parameters())
+
+
+def _one_rank(cfg):
+    """One adamw step of ``cfg`` without a mesh: (history, m, routing)."""
+    moe.ROUTING = []
+    try:
+        _, state, hist = Trainer(cfg, TrainConfig(**workers.TRAIN),
+                                 device="cpu").run(model=workers._model(cfg),
+                                                   resume=False)
+        return hist, state["m"], [(e, int(d)) for e, d in moe.ROUTING]
+    finally:
+        moe.ROUTING = None
+
+
+@pytest.mark.parametrize("arch", workers.MOE_ARCHS)
+def test_model_parallel_moe_step_matches_one_rank(moe_runs, arch):
+    """(1, 2): the experts, the dense FFN, the embedding and the head
+    split over 'model' (each rank's blocks), the step against one rank on
+    the whole batch: loss 1e-5 relative, each gradient (m = 0.1 g) within
+    1e-5 x max|g|, every MoE call's expert choices and drop count
+    equal."""
+    cfg = workers._train_cfg(arch)
+    hist, m, routing = _one_rank(cfg)
+    for r in moe_runs:
+        run = r[arch]
+        assert run["n_dp"] == 1
+        assert abs(run["hist"][0]["loss"] - hist[0]["loss"]) \
+            <= 1e-5 * abs(hist[0]["loss"])
+        for k, want in m.items():
+            assert _rel(run["m"][k], want) <= 1e-5, k
+        assert len(run["routing"]) == len(routing) > 0
+        for (e, d), (we, wd) in zip(run["routing"], routing):
+            assert torch.equal(e, we) and d == wd
+    assert torch.equal(moe_runs[0][arch]["m"]["embed"],
+                       moe_runs[1][arch]["m"]["embed"])
+
+
+def test_model_parallel_step_on_2x2_matches_microbatches(tmp_path):
+    """llama4's smoke config on (2, 2): 2 data-parallel ranks of 2 rows,
+    each with its regions over 2 'model' ranks, against one rank that
+    takes the same rows as 2 microbatches (a MoE call sees the same
+    tokens, so capacity and drops are alike): loss 1e-5 relative, each
+    gradient (m) within 1e-5 x max|g|, each rank's routing and drops
+    those of its microbatch."""
+    ranks = workers.launch("train4", 4, tmp_path)
+    cfg = workers._train_cfg(workers.MOE_ARCHS[0])
+    moe.ROUTING = []
+    try:
+        _, state, hist = Trainer(cfg, TrainConfig(**{
+            **workers.TRAIN, "microbatches": 2}), device="cpu").run(
+                model=workers._model(cfg), resume=False)
+        routing = [(e, int(d)) for e, d in moe.ROUTING]
+    finally:
+        moe.ROUTING = None
+    half = len(routing) // 2
+    for rank, run in enumerate(ranks):
+        assert run["n_dp"] == 2
+        assert abs(run["hist"][0]["loss"] - hist[0]["loss"]) \
+            <= 1e-5 * abs(hist[0]["loss"])
+        for k, want in state["m"].items():
+            assert _rel(run["m"][k], want) <= 1e-5, k
+        mine = routing[half * (rank // 2):half * (rank // 2 + 1)]
+        assert len(run["routing"]) == len(mine) > 0
+        for (e, d), (we, wd) in zip(run["routing"], mine):
+            assert torch.equal(e, we) and d == wd
+
+
+@pytest.mark.parametrize("arch", (workers.TRAIN_ARCH,) + workers.MOE_ARCHS)
+def test_model_parallel_fills_blocks_only(request, arch):
+    """On (1, 2) no rank fills a whole expert stack, embedding, head or
+    dense FFN: each is filled, at every fill of the step, as the rank's
+    half along the dimension 'model' splits."""
+    if arch == workers.TRAIN_ARCH:
+        runs = [r["1x2"] for r in request.getfixturevalue("train_runs")[0]]
+    else:
+        runs = [r[arch] for r in request.getfixturevalue("moe_runs")]
+    cfg = workers._train_cfg(arch)
+    whole = {k: tuple(p.shape)
+             for k, p in workers._model(cfg).named_parameters()}
+    for run in runs:
+        split = {k: d for dims in run["split"].values()
+                 for k, d in dims.items()}
+        want = {"embed", "head"}
+        for li in range(cfg.n_layers):
+            names = ("wi", "wg", "wo") if cfg.block_at(li)[1] != "none" \
+                else ()
+            want |= {f"blocks.{li}.ffn.{n}" for n in names}
+        assert set(split) == want
+        for k, d in split.items():
+            half = list(whole[k])
+            half[d] //= 2
+            assert run["filled_shapes"][k] == {tuple(half)}, k
+        for k, shapes in run["filled_shapes"].items():
+            if k not in split:   # attention, router, norms: whole
+                assert shapes == {whole[k]}, k
+
+
+@pytest.fixture(scope="module")
+def optim_runs(tmp_path_factory):
+    return workers.launch("optim", 2, tmp_path_factory.mktemp("optim"))
+
+
+def _ref_tree(tree):
+    return {k: _ref_tree(v) if isinstance(v, dict) else jnp.asarray(v)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("name", ["adamw8bit", "adafactor"])
+def test_optimizer_blocks_match_whole_array_update(optim_runs, name):
+    params, grads, state = workers.optim_case(name)
+    stacks = workers.OPT_STACKS
+    rp, rg = dict(params), dict(grads)
+    if name == "adafactor":     # the reference's stacked leaves
+        for key, members in stacks.items():
+            for t in (rp, rg):
+                t[key] = np.stack([t.pop(n) for n in members])
+    ref_p, ref_s = ropt.make_optimizer(name, ropt.OptConfig(lr=1e-2)).update(
+        _ref_tree(rg), _ref_tree(state), _ref_tree(rp))
+    own_p = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    own_s = workers._tree_torch(state)
+    _, own_s = make_optimizer(name, OptConfig(lr=1e-2),
+                              workers.opt_stacks).update(
+        {k: torch.from_numpy(v) for k, v in grads.items()}, own_s, own_p)
+    for r in optim_runs:
+        got = r[name]["whole"]
+        for k, (shape, spec) in workers.OPT_LEAVES.items():
+            local = list(shape)
+            local[spec.index("model")] //= 2
+            assert r[name]["local_shapes"][k] == tuple(local)
+            want = next((ref_p[key][members.index(k)]
+                         for key, members in stacks.items()
+                         if name == "adafactor" and k in members), None)
+            want = ref_p[k] if want is None else want
+            _close(got["params"][k], want)
+            if name == "adamw8bit":
+                assert torch.equal(got["params"][k], own_p[k]), k
+        assert int(got["state"]["step"]) == int(ref_s["step"])
+        if name == "adamw8bit":
+            for mom in ("m", "v"):
+                for k in params:
+                    for f in ("q", "s"):
+                        t = got["state"][mom][k][f]
+                        np.testing.assert_array_equal(
+                            t.numpy(), np.asarray(ref_s[mom][k][f]))
+                        assert torch.equal(t, own_s[mom][k][f])
+        else:
+            for k, fac in ref_s["f"].items():
+                for f, v in fac.items():
+                    _close(got["state"]["f"][k][f], v)
+                    _close(got["state"]["f"][k][f], own_s["f"][k][f])
+
+
+def _close(got, want, rtol=1e-6):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(
+        got, want, rtol=rtol, atol=rtol * max(float(np.abs(want).max()),
+                                              1e-30))
+
+
+@pytest.mark.parametrize("arch,optimizer", [
+    ("llama4-maverick-400b-a17b", "adafactor"), ("dbrx-132b", "adamw8bit")])
+def test_world_of_one_moe_bit_equal(world_of_one, arch, optimizer):
+    """A MoE config on a world of one, its regions of one rank (experts,
+    dense FFN, vocabulary) run, not skipped: 2 steps' metrics, parameters
+    and optimizer state bit for bit against Trainer()."""
+    cfg = workers._train_cfg(arch)
+    tcfg = TrainConfig(**{**workers.TRAIN, "steps": 2,
+                          "optimizer": optimizer})
+    model, state, hist = Trainer(cfg, tcfg, device="cpu").run(resume=False)
+    tr = Trainer(cfg, tcfg, device="cpu",
+                 mesh=make_host_mesh(model=1, device="cpu"))
+    assert tr.region is not None and tr.region.size == 1
+    assert {"", "blocks.0.ffn"} <= set(tr.split)
+    _, state_m, hist_m = tr.run(resume=False)
+    assert [(h["loss"], h["nll"], h["gnorm"]) for h in hist] == \
+        [(h["loss"], h["nll"], h["gnorm"]) for h in hist_m]
+    for k, p in model.named_parameters():
+        assert torch.equal(p.detach(), tr.params[k].full_tensor()), k
+    want = dict(_flatten(state))
+    got = {k: t.full_tensor() for k, t in _flatten(state_m)}
+    assert set(got) == set(want)
+    for k, t in want.items():
+        assert torch.equal(t, got[k]), k
 
 
 def test_checkpoint_saved_on_2_ranks_restores_on_1_and_1x2(train_runs):

@@ -23,6 +23,9 @@ TIMEOUT_S = 120
 TRAIN_ARCH = "stablelm-3b"
 TRAIN = dict(seq_len=16, global_batch=4, steps=1, log_every=1,
              optimizer="adamw")
+#: the MoE smoke configs trained on (1, 2): top-1 experts with a dense FFN
+#: every other layer, and top-2 experts in every layer
+MOE_ARCHS = ("llama4-maverick-400b-a17b", "dbrx-132b")
 
 
 def launch(job: str, world: int, tmp: Path) -> list:
@@ -56,9 +59,9 @@ def launch(job: str, world: int, tmp: Path) -> list:
             for r in range(world)]
 
 
-def _train_cfg():
+def _train_cfg(arch=TRAIN_ARCH):
     from repro_torch.configs import get
-    return dataclasses.replace(get(TRAIN_ARCH).smoke(), dtype="float32")
+    return dataclasses.replace(get(arch).smoke(), dtype="float32")
 
 
 def _model(cfg, seed=0):
@@ -78,19 +81,36 @@ def _gathered(trainer, model):
             for k, p in trainer.gather_model(model).named_parameters()}
 
 
-def _train(mesh_shape, ckpt_dir=None):
-    """One adamw step of the smoke config on a ('data', 'model') mesh of
-    ``mesh_shape``: the whole parameters, moments and metrics after it."""
+def _train(mesh_shape, ckpt_dir=None, arch=TRAIN_ARCH):
+    """One adamw step of ``arch``'s smoke config on a ('data', 'model')
+    mesh of ``mesh_shape``: the whole parameters, moments and metrics
+    after it, the shapes each parameter was filled at during the step,
+    and every MoE call's routing and drops."""
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
     from repro_torch.training.trainer import TrainConfig, Trainer
-    cfg = _train_cfg()
+    cfg = _train_cfg(arch)
     mesh = make_host_mesh(model=mesh_shape[1], data=mesh_shape[0],
                           device="cpu")
     kw = dict(checkpoint_dir=str(ckpt_dir), checkpoint_every=100) \
         if ckpt_dir else {}
     trainer = Trainer(cfg, TrainConfig(**TRAIN, **kw), device="cpu",
                       mesh=mesh)
-    model, state, hist = trainer.run(model=_model(cfg), resume=False)
+    filled, fill = {}, trainer._fill
+
+    def recording_fill(params, names, whole=False):
+        fill(params, names, whole)
+        for k in names:
+            filled.setdefault(k, set()).add(tuple(params[k].shape))
+
+    trainer._fill = recording_fill
+    moe.ROUTING = []
+    try:
+        model, state, hist = trainer.run(model=_model(cfg), resume=False)
+        routing = moe.ROUTING
+    finally:
+        moe.ROUTING = None
+        del trainer._fill
     whole = lambda t: t.full_tensor()  # noqa: E731
     return {"hist": hist, "n_dp": trainer.n_dp,
             "params": {k: whole(p) for k, p in trainer.params.items()},
@@ -101,7 +121,9 @@ def _train(mesh_shape, ckpt_dir=None):
             "local_shapes": {k: tuple(p.to_local().shape)
                              for k, p in trainer.params.items()},
             "placements": {k: [str(x) for x in p.placements]
-                           for k, p in trainer.params.items()}}
+                           for k, p in trainer.params.items()},
+            "filled_shapes": filled, "split": trainer.split,
+            "routing": [(e, int(d)) for e, d in routing]}
 
 
 def job_train(rank, world, tmp):
@@ -127,6 +149,132 @@ def job_train(rank, world, tmp):
         "model_empty": _empty(model),
         "model": _gathered(trainer, model)}
     return out
+
+
+def job_train_moe(rank, world, tmp):
+    """One step of each MoE smoke config on (1, 2)."""
+    return {arch: _train((1, 2), arch=arch) for arch in MOE_ARCHS}
+
+
+def job_train4(rank, world, tmp):
+    """One step of the llama4 smoke config on (2, 2): the regions' weights
+    gathered over 'data' (a MoE's wi / wg moved over 'model' too) and the
+    gradients averaged over it."""
+    return _train((2, 2), arch=MOE_ARCHS[0])
+
+
+#: the optimizer job's leaves on (1, 2): {name: (shape, spec)}. "w" and
+#: "c" split their last axis so that a quantization block straddles the
+#: two ranks (300 = 150 + 150 in blocks of 256, 64 = 32 + 32 in one
+#: block); "r" splits rows (adafactor's column means and the mean of its
+#: row factor span ranks), "e" experts, "g" a 1-D gain; "s0" and "s1"
+#: stack into adafactor's one leaf, rows split
+OPT_LEAVES = {"w": ((6, 300), (None, "model")),
+              "e": ((4, 8, 96), ("model", None, None)),
+              "r": ((64, 40), ("model", None)),
+              "c": ((40, 64), (None, "model")),
+              "g": ((40,), ("model",)),
+              "s0": ((16, 48), ("model", None)),
+              "s1": ((16, 48), ("model", None))}
+OPT_STACKS = {"s0": ["s0", "s1"]}
+
+
+def opt_stacks(names):
+    return {k: v for k, v in OPT_STACKS.items() if set(v) <= set(names)}
+
+
+def optim_case(name, seed=7):
+    """numpy (params, grads, state) of the optimizer job for ``name``
+    (adamw8bit or adafactor), the state in the port's structure (adafactor
+    keyed by stack) some steps in; gradients kept under the clip."""
+    import numpy as np
+    from repro_torch.training.optim import QBLOCK
+    rng = np.random.RandomState(seed)
+    f32 = np.float32
+    params = {k: rng.randn(*shp).astype(f32)
+              for k, (shp, _) in OPT_LEAVES.items()}
+    grads = {k: (1e-3 * rng.randn(*shp)).astype(f32)
+             for k, (shp, _) in OPT_LEAVES.items()}
+    if name == "adamw8bit":
+        def q(shp):
+            nb = -(-shp[-1] // min(QBLOCK, shp[-1]))
+            return {"q": rng.randint(-127, 128, shp).astype(np.int8),
+                    "s": (1e-4 * (0.5 + rng.rand(*shp[:-1], nb))).astype(f32)}
+        state = {m: {k: q(shp) for k, (shp, _) in OPT_LEAVES.items()}
+                 for m in ("m", "v")}
+        for k, (shp, _) in OPT_LEAVES.items():   # v >= 0
+            state["v"][k]["q"] = np.abs(state["v"][k]["q"])
+        step = 2
+    else:
+        def fac(shp):
+            pos = lambda s: (0.5 + rng.rand(*s)).astype(f32)  # noqa: E731
+            if len(shp) >= 2:
+                return {"vr": 1e-6 * pos(shp[:-1]),
+                        "vc": 1e-6 * pos(shp[:-2] + shp[-1:])}
+            return {"v": 1e-6 * pos(shp)}
+        stacked = {n for v in OPT_STACKS.values() for n in v}
+        state = {"f": {k: fac(shp) for k, (shp, _) in OPT_LEAVES.items()
+                       if k not in stacked}}
+        for key, members in OPT_STACKS.items():
+            state["f"][key] = fac((len(members),) + OPT_LEAVES[key][0])
+        step = 3
+    state["step"] = np.asarray(step, np.int32)
+    state["gnorm"] = np.asarray(0.0, f32)
+    return params, grads, state
+
+
+def job_optim(rank, world, tmp):
+    """adamw8bit and adafactor updated once on (1, 2) from this rank's
+    blocks of ``optim_case``'s arrays: the whole results (gathered) and
+    the shapes of the blocks each rank updated."""
+    import numpy as np
+    from repro_torch.launch.dryrun import opt_state_specs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import sharding as shard
+    from repro_torch.training.optim import (OptConfig, _tree_norm,
+                                            make_optimizer)
+    mesh = make_host_mesh(model=2, data=1, device="cpu")
+    specs = {k: spec for k, (_, spec) in OPT_LEAVES.items()}
+    shapes = {k: shp for k, (shp, _) in OPT_LEAVES.items()}
+    layouts = {k: shard.block_layout(mesh, specs[k], shapes[k])
+               for k in specs}
+
+    def blocks(tree, sp):
+        if isinstance(tree, dict):
+            return {k: blocks(v, sp[k]) for k, v in tree.items()}
+        return shard.local_block(tree, mesh, sp).clone()
+
+    out = {}
+    for name in ("adamw8bit", "adafactor"):
+        params, grads, state = optim_case(name)
+        sspecs = opt_state_specs(name, shapes, specs, opt_stacks)
+        params, grads, state = map(_tree_torch, (params, grads, state))
+        p, g, st = (blocks(params, specs), blocks(grads, specs),
+                    blocks(state, sspecs))
+        gnorm = _tree_norm(grads)
+        opt = make_optimizer(name, OptConfig(lr=1e-2), opt_stacks)
+        _, st = opt.update(g, st, p, gnorm=gnorm, layouts=layouts)
+        whole = shard.from_local_tree({"params": p, "state": st},
+                                      {"params": specs, "state": sspecs},
+                                      mesh)
+        out[name] = {"whole": _full(whole),
+                     "local_shapes": {k: tuple(t.shape)
+                                      for k, t in p.items()}}
+    return out
+
+
+def _tree_torch(tree):
+    """A dict tree of numpy arrays as tensors (copies)."""
+    import numpy as np
+    if isinstance(tree, dict):
+        return {k: _tree_torch(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree))
+
+
+def _full(tree):
+    if isinstance(tree, dict):
+        return {k: _full(v) for k, v in tree.items()}
+    return tree.full_tensor()
 
 
 def _grads(rank):
