@@ -202,9 +202,15 @@ that each print one JSON line (run in the order 1-5, 9, 13, 14, 6, 10, 7,
    backward (with the dq and dk/dv kernels' device times apart) and
    forward + backward timed at the training shape and at B 1, S 1,024
    beside the plain version, SDPA's forward + backward and the bound.
-18. mesh: a world of one on NCCL (a ``file://`` rendezvous under build/,
+18. mesh: first the flash forward and backward kernels at the heads one
+   rank holds when attention splits over a 16-wide 'model' axis ((H_r,
+   Hkv_r) = (1, 1), (2, 1), (3, 1); bf16, causal, B 4, S 128, hd 128)
+   against their plain versions. Then a world of one on NCCL (a
+   ``file://`` rendezvous under build/,
    ``make_host_mesh(model=1)``; no fallback: a failure to init NCCL or
-   build the mesh fails the phase). ``Trainer(mesh=)`` at qwen3-1.7b's
+   build the mesh fails the phase), every attention layer a region of one
+   rank (its heads, KV heads and qk-norm gradients through the region's
+   fills and reductions). ``Trainer(mesh=)`` at qwen3-1.7b's
    published widths cut to 4 of 28 layers (``reduced``: depth, to keep the
    comparison short), 2 steps of TRAIN_RUN's batch under each of adamw,
    adamw8bit and adafactor (updated on the blocks in place), held bit for
@@ -311,6 +317,13 @@ MESH_MOE_LAYERS = 1
 MESH_MOE_TRAIN = dict(seq_len=128, global_batch=8, microbatches=1, steps=2,
                       optimizer="adamw8bit", log_every=1)
 MESH_FITNESS = dict(pop_size=100, n_generations=5)
+# the flash kernels at the heads one rank holds when attention splits over
+# a 16-wide 'model' axis, (H_r, Hkv_r): qwen3-1.7b's (1, 1); 2 heads on one
+# KV head (qwen3-4b, stablelm-12b, jamba, the vision model, llama4's
+# smaller share); dbrx-132b's and llama4's larger share (3, 1); bf16,
+# causal, at this (B, S, D)
+MESH_LOCAL_HEADS = ((1, 1), (2, 1), (3, 1))
+MESH_LOCAL_SHAPE = (4, 128, 128)
 # the backward kernel against its plain version: gradients within this
 # times max|g| of each of dq, dk, dv
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -3767,6 +3780,42 @@ def mesh_trainer_vs_plain(mesh, tmp):
     return out
 
 
+def mesh_local_heads():
+    """The flash forward and backward kernels at MESH_LOCAL_HEADS (bf16,
+    causal, MESH_LOCAL_SHAPE), shapes that no other phase runs, against
+    their plain versions: the output within TOL, each gradient within
+    BWD_TOL x max|g|, the lse within 1e-4 of the plain log-sum-exp."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator().manual_seed(25)
+    B, S, D = MESH_LOCAL_SHAPE
+    out = {}
+    for Hq, Hkv in MESH_LOCAL_HEADS:
+        case = ("bfloat16", B, Hq, Hkv, D, S)
+        q, k, v, do = _bwd_inputs(B, Hq, Hkv, D, S, torch.bfloat16, gen)
+        o, lse = fa.flash_attention_lse_cuda(q, k, v, True)
+        grads = fa.flash_attention_backward_cuda(q, k, v, o, lse, do, True)
+        torch.cuda.synchronize()
+        fwd = _check_close("flash at local heads", o,
+                           ref.mha_prefill(q, k, v, causal=True),
+                           "bfloat16", case)
+        bwd, rel = _bwd_errors(grads, ref.flash_attention_backward_ref(
+            q, k, v, o, do, True), "bfloat16", case)
+        sc = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()
+                          .repeat_interleave(Hq // Hkv, 1)) * D ** -0.5
+        sc = sc.masked_fill(~torch.ones(S, S, dtype=torch.bool,
+                                        device="cuda").tril(), float("-inf"))
+        lse_err = _err(lse, torch.logsumexp(sc, -1))
+        assert lse_err < 1e-4, (case, lse_err)
+        out[f"{Hq}/{Hkv}"] = {"forward_max_abs_err": fwd,
+                              "backward_max_abs_err": bwd,
+                              "backward_err_over_max_g": rel,
+                              "lse_max_abs_err": lse_err}
+    return {"shape": {"B": B, "S": S, "D": D, "dtype": "bfloat16",
+                      "causal": True}, "heads": out}
+
+
 def mesh_launches(train, kernel):
     """``kernel``'s launches in phase 18's mesh runs, by run."""
     return {**{opt: train[opt]["launches_mesh"][kernel]
@@ -3846,13 +3895,14 @@ def mesh_fitness():
 
 
 def phase_mesh():
-    """Phase 18: the mesh tail on a world of one (NCCL, a ``file://``
-    rendezvous under build/): the sharded trainer, its 'model'-parallel
-    regions of one rank (vocabulary, FFN, experts) and its block updates,
-    bit for bit against the plain one under each optimizer and for
-    dbrx-132b's experts at full width, its checkpoint restored onto the
-    mesh, psum_compressed, and the population-sharded fitness with
-    NSGA-II on it."""
+    """Phase 18: the flash kernels at the heads a rank holds when
+    attention splits over 'model'; the mesh tail on a world of one (NCCL,
+    a ``file://`` rendezvous under build/): the sharded trainer, its
+    'model'-parallel regions of one rank (vocabulary, FFN, experts,
+    attention) and its block updates, bit for bit against the plain one
+    under each optimizer and for dbrx-132b's experts at full width, its
+    checkpoint restored onto the mesh, psum_compressed, and the
+    population-sharded fitness with NSGA-II on it."""
     import datetime
     import shutil
     import tempfile
@@ -3863,6 +3913,9 @@ def phase_mesh():
     root.mkdir(exist_ok=True)
     tmp = Path(tempfile.mkdtemp(dir=root, prefix="chip_smoke_mesh_"))
     t0 = time.perf_counter()
+    local = mesh_local_heads()
+    local["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"mesh_local_heads": local}), flush=True)
     dist.init_process_group(
         "nccl", init_method=f"file://{tmp / 'rdv'}", rank=0, world_size=1,
         timeout=datetime.timedelta(seconds=300),
@@ -3879,7 +3932,8 @@ def phase_mesh():
         shutil.rmtree(tmp, ignore_errors=True)
         _free_cuda()
     row = {"phase": "mesh", "world": 1, "backend": "nccl",
-           "mesh": {"data": 1, "model": 1}, "train": train,
+           "mesh": {"data": 1, "model": 1}, "local_heads": local,
+           "train": train,
            "psum_compressed_equal_local": psum, "fitness": fitness,
            "seconds": time.perf_counter() - t0}
     emit(row)
@@ -3899,6 +3953,10 @@ def phase_mesh():
                              r["launches_plain"]))
         if r["region_size"] != 1 or "" not in r["regions"]:
             failures.append((run, "no region of one rank", r["regions"]))
+        attention = {f"blocks.{i}.mixer" for i in range(r["layers"])}
+        if not attention <= set(r["regions"]):
+            failures.append((run, "attention outside the regions",
+                             r["regions"]))
     if not all(psum.values()):
         failures.append(("psum_compressed", psum))
     if not (fitness["F_bit_equal"] and fitness["violation_bit_equal"]):
@@ -4022,6 +4080,7 @@ def main():
         "launches_cluster": clu["launches"]["flash_attention"],
         "launches_families": fam["launches"]["flash_attention"],
         "launches_mesh": mesh_launches(msh["train"], "flash_attention"),
+        "mesh_local_heads": msh["local_heads"],
         "cases": fa["cases"] + attn["flash_extend"]["cases"],
         "max_abs_err": max(list(fa["max_abs_err"].values())
                            + list(attn["flash_extend"]["max_abs_err"]
@@ -4066,6 +4125,7 @@ def main():
         "launches_per_step": trn["main_path"]["launches_per_step"],
         "launches_mesh": mesh_launches(msh["train"],
                                        "flash_attention_backward"),
+        "mesh_local_heads": msh["local_heads"],
         "kernels_a_backward": BWD_KERNELS,
         "cases": trn["backward_checks"]["cases"],
         "max_abs_err": max(trn["backward_checks"]["max_abs_err"].values()),

@@ -12,12 +12,13 @@ memory allocated. As rank 0 of that mesh it records
     (the placements of ``sharding.param_specs`` and
     :func:`opt_state_specs`), the f32 gradient blocks it keeps, the most
     parameter bytes it fills into the model at once (the 'model'-parallel
-    weights as the rank's blocks) and what the update gathers whole
-    (nothing; ``Trainer.peak_bytes``); the step's FLOPs
-    (``torch.utils.flop_counter``: the forward, the remat recompute and
-    the backward, the regions' products on the rank's blocks); its
-    collectives as ``CommDebugMode`` counts them, with the bytes each op
-    writes;
+    weights as the rank's blocks: attention at its heads, Mamba at its
+    channels) and what the update gathers whole (nothing;
+    ``Trainer.peak_bytes``); how attention's heads and Mamba's channels
+    split over the ranks; the step's FLOPs (``torch.utils.flop_counter``:
+    the forward, the remat recompute and the backward, the regions'
+    products on the rank's blocks); its collectives as ``CommDebugMode``
+    counts them, with the bytes each op writes;
   * prefill and decode: the serve placements' local blocks (the port's
     server runs on one card, so they are what a sharded server would
     store), the FLOPs of ``lm.prefill`` or one ``lm.decode_step`` on the
@@ -199,6 +200,23 @@ class _CollectiveBytes(TorchDispatchMode):
         return out
 
 
+def split_record(trainer, cfg: ModelConfig) -> dict:
+    """How the trainer's regions split attention and Mamba over 'model':
+    for a rank's query heads, KV heads and Mamba channels, the least and
+    the most over the ranks and rank 0's (the dry run's rank); None where
+    no region splits them."""
+    out = {}
+    for what, leaf, unit in (("query_heads", "mixer.wq", cfg.hd),
+                             ("kv_heads", "mixer.wk", cfg.hd),
+                             ("mamba_channels", "mixer.D", 1)):
+        sp = next((sp for k, sp in trainer.splits.items()
+                   if k.endswith(leaf)), None)
+        sizes = sp and [sum(b - a for a, b in r) // unit for r in sp.ranges]
+        out[what] = sizes and {"min": min(sizes), "max": max(sizes),
+                               "rank_0": sizes[0]}
+    return out
+
+
 def _train_record(cfg: ModelConfig, shape_name: str, mesh, batch) -> dict:
     """Run one step of the sharded trainer (``Trainer(mesh=)``) on fake
     tensors with the rank's rows ``batch``: what it stores, what it holds
@@ -233,10 +251,12 @@ def _train_record(cfg: ModelConfig, shape_name: str, mesh, batch) -> dict:
             "the trainer's stored parameter and optimizer-state blocks, "
             "its f32 gradient blocks, and the larger of the parameters "
             "filled into the model at once (embedding, head, norms, one "
-            "period; the vocabulary, dense FFNs and experts as 'model' "
-            "blocks) and what the update gathers whole (nothing: every "
-            "optimizer updates the blocks in place); activations and "
-            "temporaries not counted"),
+            "period; the vocabulary, dense FFNs, experts, attention at "
+            "the rank's query heads and the KV heads they read, and "
+            "Mamba at its channels as 'model' blocks) and what the update "
+            "gathers whole (nothing: every optimizer updates the blocks "
+            "in place); activations and temporaries not counted"),
+        "split": split_record(trainer, cfg),
         "flops_per_rank": float(flops.get_total_flops()),
         "collectives": {
             "count": {str(op): n

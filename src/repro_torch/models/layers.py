@@ -10,8 +10,10 @@ Cross-attention over cached encoder / patch K/V is plain torch on both, as
 the reference computes it outside its kernels (``_xla_attention`` with
 ``causal=False``), casts included. The reference's sharding constraints
 (``constrain``) are not called: activations are each rank's local tensors
-(``models.sharding``); the FFN runs column- then row-parallel when its
-module carries a ``tensor_parallel.Region`` (``tp``).
+(``models.sharding``); the FFN runs column- then row-parallel, and
+attention on the rank's heads, when its module carries a
+``tensor_parallel.Region`` (``tp``): the head counts are read from the
+weights' widths.
 """
 from __future__ import annotations
 
@@ -93,13 +95,18 @@ def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 # attention
 # ---------------------------------------------------------------------------
 
+def _heads(x: torch.Tensor, w: torch.Tensor, hd: int) -> torch.Tensor:
+    """(B, S, d) @ (d, H hd) as (B, S, H, hd)."""
+    return (x @ w).unflatten(-1, (-1, hd))
+
+
 def _qkv(p, cfg: ModelConfig, x: torch.Tensor, kv_x: torch.Tensor):
     """Projections of the ``models.lm.Attention`` ``p``: q (B, S, Hq, D),
-    k and v (B, S, Hkv, D), with qk-norm where the config has it."""
-    B = x.shape[0]
-    q = (x @ p.wq).reshape(B, -1, cfg.n_heads, cfg.hd)
-    k = (kv_x @ p.wk).reshape(B, -1, cfg.n_kv_heads, cfg.hd)
-    v = (kv_x @ p.wv).reshape(B, -1, cfg.n_kv_heads, cfg.hd)
+    k and v (B, S, Hkv, D) (in a region the rank's heads), with qk-norm
+    where the config has it."""
+    q = _heads(x, p.wq, cfg.hd)
+    k = _heads(kv_x, p.wk, cfg.hd)
+    v = _heads(kv_x, p.wv, cfg.hd)
     if cfg.qk_norm:
         q = rms_norm(p.qnorm, q, cfg.norm_eps)
         k = rms_norm(p.knorm, k, cfg.norm_eps)
@@ -116,13 +123,16 @@ def _self_attention(q, k, v, causal: bool) -> torch.Tensor:
 
 def attention(p, cfg: ModelConfig, x: torch.Tensor, *,
               positions: torch.Tensor, causal: bool = True) -> torch.Tensor:
-    """Full-sequence self-attention (``train_logits``)."""
+    """Full-sequence self-attention (``train_logits``); in a region
+    (``p.tp``) over the rank's heads, the output summed over the
+    region."""
+    region = getattr(p, "tp", None)
+    x = TP.copy_to(x, region)
     q, k, v = _qkv(p, cfg, x, x)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     out = _self_attention(q, k, v, causal)
-    B, S = x.shape[:2]
-    return out.reshape(B, S, cfg.q_dim) @ p.wo
+    return TP.reduce_from(out.flatten(2) @ p.wo, region)
 
 
 def attention_prefill_cache(p, cfg: ModelConfig, x: torch.Tensor,
@@ -226,13 +236,13 @@ def _plain_attention(q: torch.Tensor, k: torch.Tensor,
 
 def cross_kv(p, cfg: ModelConfig, kv_x: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Cross-attention K/V, each (B, T, Hkv, D), from encoder output or
-    patch embeddings (B, T, d). bf16 patches into an f32 model are widened
-    first (exact), as JAX promotes them."""
-    B, T = kv_x.shape[:2]
-    kv_x = kv_x.to(p.wk.dtype)
-    k = (kv_x @ p.wk).reshape(B, T, cfg.n_kv_heads, cfg.hd)
-    v = (kv_x @ p.wv).reshape(B, T, cfg.n_kv_heads, cfg.hd)
+    """Cross-attention K/V, each (B, T, Hkv, D) (in a region the rank's KV
+    heads), from encoder output or patch embeddings (B, T, d). bf16
+    patches into an f32 model are widened first (exact), as JAX promotes
+    them."""
+    kv_x = TP.copy_to(kv_x.to(p.wk.dtype), getattr(p, "tp", None))
+    k = _heads(kv_x, p.wk, cfg.hd)
+    v = _heads(kv_x, p.wv, cfg.hd)
     if cfg.qk_norm:
         k = rms_norm(p.knorm, k, cfg.norm_eps)
     return k, v
@@ -242,13 +252,14 @@ def cross_attention_cached(p, cfg: ModelConfig, x: torch.Tensor,
                            kv: Tuple[torch.Tensor, torch.Tensor]
                            ) -> torch.Tensor:
     """x (B, S, d) attends all of the cached (k, v), each (B, T, Hkv, D);
-    no rope. Returns (B, S, d)."""
-    B, S = x.shape[:2]
-    q = (x @ p.wq).reshape(B, S, cfg.n_heads, cfg.hd)
+    no rope. Returns (B, S, d); in a region over the rank's heads (``kv``
+    from ``cross_kv`` in the same region), summed over it."""
+    region = getattr(p, "tp", None)
+    q = _heads(TP.copy_to(x, region), p.wq, cfg.hd)
     if cfg.qk_norm:
         q = rms_norm(p.qnorm, q, cfg.norm_eps)
     out = _plain_attention(q, *kv)
-    return out.reshape(B, S, cfg.q_dim) @ p.wo
+    return TP.reduce_from(out.flatten(2) @ p.wo, region)
 
 
 # ---------------------------------------------------------------------------

@@ -35,10 +35,12 @@ pattern in activation checkpointing (``torch.utils.checkpoint``), as the
 reference wraps its scan body in ``jax.checkpoint``, with the reference's
 remat policies (``REMAT_POLICIES``).
 
-The modules with ``SPLIT`` (the LM's embedding and head, ``FFN``, ``MoE``)
-are the 'model'-parallel regions of ``tensor_parallel``: a sharded trainer
-sets their ``tp`` for a step, and ``SPLIT`` names the dimension of each
-weight that a rank then holds a block of.
+The modules with ``SPLIT`` (the LM's embedding and head, ``FFN``, ``MoE``,
+``Attention``, ``Mamba``) are the 'model'-parallel regions of
+``tensor_parallel``: a sharded trainer sets their ``tp`` for a step, and
+``SPLIT`` names the dimension of each weight that a rank then holds a
+block of (``split_ranges``, where a module has it, which ranges of it:
+attention's heads, Mamba's channels).
 """
 from __future__ import annotations
 
@@ -55,6 +57,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from .._device import Device, resolve
 from . import layers as L
 from . import moe as M
+from . import sharding as SH
 from . import ssm as S
 from . import tensor_parallel as TP
 from . import xlstm as X
@@ -151,14 +154,21 @@ def _norm(cfg: ModelConfig, device) -> Norm:
 
 class Attention(nn.Module):
     """Self- or cross-attention projections (the reference's
-    ``attn_init``, the same for both)."""
+    ``attn_init``, the same for both). In a region a rank holds the
+    columns of its query heads (``wq``), of the KV heads they read
+    (``wk``, ``wv``) and the rows of its query heads (``wo``); the
+    qk-norm gains act on its heads."""
     RANDOM = ("wq", "wk", "wv", "wo")
     REF = {"wq": ("wq", "w"), "wk": ("wk", "w"), "wv": ("wv", "w"),
            "wo": ("wo", "w"), "qnorm": ("qnorm", "g"),
            "knorm": ("knorm", "g")}
+    SPLIT = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}     # by heads
+    PARTIAL = ("qnorm", "knorm")
+    tp: Optional[TP.Region] = None
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
+        self.heads = (cfg.n_heads, cfg.n_kv_heads, cfg.hd)
         dt, d = L.dtype_of(cfg), cfg.d_model
         self.wq = _param((d, cfg.q_dim), dt, device)
         self.wk = _param((d, cfg.kv_dim), dt, device)
@@ -173,6 +183,16 @@ class Attention(nn.Module):
         for g in (self.qnorm, self.knorm):
             if g is not None:
                 g.fill_(1.0)
+
+    def split_ranges(self, n: int):
+        """Each rank's columns of wq / wk / wv and rows of wo over n
+        ranks (``sharding.head_split``), or None (kept whole)."""
+        H, Hkv, hd = self.heads
+        heads = SH.head_split(H, Hkv, n)
+        if heads is None:
+            return None
+        q, kv = ([((a * hd, b * hd),) for a, b in part] for part in heads)
+        return {"wq": q, "wk": kv, "wv": kv, "wo": q}
 
 
 class FFN(nn.Module):
@@ -210,11 +230,18 @@ class MoE(nn.Module):
 
 
 class Mamba(nn.Module):
+    """In a region a rank holds d_inner / n channels: its columns of both
+    halves of ``in_proj``, of the conv, ``dt_proj`` and its bias, its rows
+    of ``A_log``, ``D``, ``x_proj`` and ``out_proj``."""
     RANDOM = ("in_proj", "conv_w", "x_proj", "dt_proj_w", "out_proj")
     REF = {"in_proj": ("in_proj", "w"), "conv_w": ("conv", "w"),
            "conv_b": ("conv", "b"), "x_proj": ("x_proj", "w"),
            "dt_proj_w": ("dt_proj", "w"), "dt_proj_b": ("dt_proj", "b"),
            "A_log": ("A_log",), "D": ("D",), "out_proj": ("out_proj", "w")}
+    SPLIT = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "x_proj": 0,
+             "dt_proj_w": 1, "dt_proj_b": 0, "A_log": 0, "D": 0,
+             "out_proj": 0}                          # by channels
+    tp: Optional[TP.Region] = None
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -240,6 +267,17 @@ class Mamba(nn.Module):
                          device=self.A_log.device)
         self.A_log.copy_(torch.log(a)[None, :].expand_as(self.A_log))
         self.D.fill_(1.0)
+
+    def split_ranges(self, n: int):
+        """Each rank's channels over n ranks (both halves of in_proj's
+        columns), or None (kept whole) where n does not divide them."""
+        di = self.D.shape[0]
+        if di % n:
+            return None
+        ch = SH.even_ranges(di, n)
+        out = {k: ch for k in self.SPLIT}
+        out["in_proj"] = tuple(((a, b), (di + a, di + b)) for (a, b), in ch)
+        return out
 
 
 class MLSTM(nn.Module):

@@ -39,12 +39,12 @@ What a spec means here: the sharded trainer (``training.trainer``) stores
 parameters and optimizer state as DTensors with these placements. For
 compute it fills the weights that a 'model'-parallel region splits
 (:func:`model_split`: the vocab-parallel embedding and head, the column-
-and row-parallel FFN, the experts) over the other axes only, each rank
-keeping its 'model' block, and the rest whole (attention, Mamba and xLSTM
-projections, norms). The optimizer updates the stored blocks in place
-(:func:`block_layout` tells it where a block lies). Activations are each
-rank's local tensors, whole over 'model' between regions: :func:`constrain`
-is a no-op.
+and row-parallel FFN, the experts, attention's heads, Mamba's channels)
+over the other axes only, each rank keeping its compute block (a
+:class:`Split`), and the rest whole (xLSTM, norms, routers). The optimizer
+updates the stored blocks in place (:func:`block_layout` tells it where a
+block lies). Activations are each rank's local tensors, whole over 'model'
+between regions: :func:`constrain` is a no-op.
 """
 from __future__ import annotations
 
@@ -299,36 +299,97 @@ def spec_from_json(j) -> Spec:
     return tuple(tuple(a) if isinstance(a, list) else a for a in j)
 
 
-def model_split(model, mesh) -> Dict[str, Dict[str, int]]:
+class Split(NamedTuple):
+    """How a 'model'-parallel region fills one of its weights: along
+    ``dim``, rank r holds the index ranges ``ranges[r]`` of the whole
+    tensor, concatenated in order (ranks may share a range: the KV heads
+    that several ranks' query heads read). ``dim`` None: the weight is
+    filled whole and acts on the rank's part of the work (qk-norm's gains
+    on its heads), so each rank's gradient of it is a partial sum over the
+    region."""
+    dim: Optional[int]
+    ranges: Tuple[Tuple[Tuple[int, int], ...], ...] = ()
+
+
+def even_ranges(size: int, n: int) -> Tuple[Tuple[Tuple[int, int], ...],
+                                             ...]:
+    """Rank r's range [r size / n, (r + 1) size / n) of each of n ranks."""
+    return tuple(((r * size // n, (r + 1) * size // n),) for r in range(n))
+
+
+class HeadSplit(NamedTuple):
+    """Each rank's query heads and the KV heads they read, as [lo, hi)."""
+    q: Tuple[Tuple[int, int], ...]
+    kv: Tuple[Tuple[int, int], ...]
+
+
+def head_split(n_heads: int, n_kv_heads: int, n: int
+               ) -> Optional[HeadSplit]:
+    """Attention's heads over n 'model' ranks, or None (kept whole): a
+    split when n <= n_heads and either n_kv_heads % n == 0 or n %
+    n_kv_heads == 0. Rank r takes the contiguous query heads [r H / n, (r
+    + 1) H / n) (rounded down; a head is never cut) and reads the KV heads
+    of their groups: n_kv_heads / n of them, or one that n / n_kv_heads
+    ranks share."""
+    H, Hkv = n_heads, n_kv_heads
+    if not (n <= H and (Hkv % n == 0 or n % Hkv == 0)):
+        return None
+    G = H // Hkv
+    q = tuple((r * H // n, (r + 1) * H // n) for r in range(n))
+    kv = tuple((lo // G, (hi - 1) // G + 1) for lo, hi in q)
+    for (lo, hi), (a, b) in zip(q, kv):
+        # no rank's heads straddle two KV heads: whole groups, or one
+        assert b - a == max(1, Hkv // n), (H, Hkv, n, lo, hi)
+        assert b - a == 1 or (lo, hi) == (a * G, b * G), (H, Hkv, n, lo, hi)
+    return HeadSplit(q, kv)
+
+
+def model_split(model, mesh) -> Dict[str, Dict[str, Split]]:
     """The 'model'-parallel regions of ``model`` (an ``lm.LM``) on
-    ``mesh``: {module name: {parameter name: the dimension a rank holds
-    its 'model' block of}} for each module whose ``SPLIT`` dimensions the
-    'model' axis divides (the LM's embedding and head over the
-    vocabulary, a dense FFN's wi / wg columns and wo rows, a MoE's
-    experts). The blocks are those of compute, not of storage: the
-    reference's rules store a MoE's wi / wg with the experts over 'data'
-    and d over 'model' (the generic column rule matches first), so a
-    rank's experts are gathered from other ranks' blocks
-    (:func:`fill_placements`)."""
+    ``mesh``: {module name: {parameter name: its :class:`Split`}} for each
+    module with ``SPLIT`` dimensions that the 'model' axis splits: the
+    LM's embedding and head over the vocabulary, a dense FFN's wi / wg
+    columns and wo rows, a MoE's experts (each when the axis divides its
+    dimension), and the modules whose ``split_ranges(n)`` gives each
+    rank's ranges (attention's heads, Mamba's channels; None keeps the
+    module whole); a module's ``PARTIAL`` weights are filled whole. The
+    blocks are those of compute, not of storage: the reference's rules
+    store a MoE's wi / wg with d over 'model' (the generic column rule
+    matches first), and attention's columns where heads do not line up
+    with them, so the trainer moves a rank's blocks between other ranks'
+    storage (``tensor_parallel.fill_block``)."""
     n = axis_sizes(mesh).get("model", 0)
     out = {}
     for mname, mod in model.named_modules():
-        dims = {f"{mname}.{k}" if mname else k: (getattr(mod, k), d)
-                for k, d in getattr(mod, "SPLIT", {}).items()
+        dims = {k: d for k, d in getattr(mod, "SPLIT", {}).items()
                 if getattr(mod, k) is not None}
-        if n and dims and all(p.shape[d] % n == 0
-                              for p, d in dims.values()):
-            out[mname] = {k: d for k, (_, d) in dims.items()}
+        if not (n and dims):
+            continue
+        if hasattr(mod, "split_ranges"):
+            ranges = mod.split_ranges(n)
+        elif all(getattr(mod, k).shape[d] % n == 0 for k, d in dims.items()):
+            ranges = {k: even_ranges(getattr(mod, k).shape[d], n)
+                      for k, d in dims.items()}
+        else:
+            ranges = None
+        if ranges is None:
+            continue
+        pre = f"{mname}." if mname else ""
+        out[mname] = {pre + k: Split(d, ranges[k]) for k, d in dims.items()}
+        out[mname].update({pre + k: Split(None)
+                           for k in getattr(mod, "PARTIAL", ())
+                           if getattr(mod, k) is not None})
     return out
 
 
-def fill_placements(device_mesh, dim: Optional[int] = None):
-    """The DTensor placements of a weight filled as this rank's 'model'
-    block along ``dim``: split over 'model', whole over the other axes;
-    whole over every axis without ``dim``."""
-    from torch.distributed.tensor import Replicate, Shard
-    return [Shard(dim) if name == "model" and dim is not None
-            else Replicate() for name in device_mesh.mesh_dim_names]
+def fill_placements(device_mesh, model=None):
+    """The DTensor placements of a weight filled whole over every mesh
+    axis but 'model', over which it keeps the placement ``model`` (its
+    storage's 'model' split, which a region's fill starts from); whole
+    over every axis without it."""
+    from torch.distributed.tensor import Replicate
+    return [model if name == "model" and model is not None else Replicate()
+            for name in device_mesh.mesh_dim_names]
 
 
 class BlockLayout(NamedTuple):

@@ -11,6 +11,12 @@ steps (Δt = 0, so a = 1 and b = 0), which leaves the state exact at its
 last real position. Decode is the same forward at L = 1 on the state
 (h, conv window). Plain torch on both devices: the reference has no kernel
 here.
+
+In a region (``p.tp``, a ``tensor_parallel.Region``) the module's weights
+are the rank's d_inner / n channels: every per-channel step (in_proj's
+two halves, the conv, Δt, the scan and its state) runs on them locally;
+``x_proj``'s rows are the rank's, its outputs summed over the region;
+``out_proj``'s rows too, the block's output summed over the region.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from typing import Callable, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import tensor_parallel as TP
 from .config import ModelConfig
 
 State = Tuple[torch.Tensor, torch.Tensor]
@@ -89,9 +96,13 @@ def _scan_chunked(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
 
 
 def _ssm_params(p, cfg: ModelConfig, xc: torch.Tensor):
-    """xc: (B, L, di) post-conv activations -> (dtv, Bv, Cv) f32."""
+    """xc: (B, L, di) post-conv activations -> (dtv, Bv, Cv) f32 (in a
+    region: xc and dtv the rank's channels; the x_proj sums over every
+    channel)."""
     ds, dr = cfg.ssm.d_state, dt_rank(cfg)
-    proj = (xc @ p.x_proj).to(torch.float32)
+    region = getattr(p, "tp", None)
+    proj = TP.copy_to(TP.reduce_from((xc @ p.x_proj).to(torch.float32),
+                                     region), region)
     dt_in, Bv, Cv = torch.split(proj, [dr, ds, ds], dim=-1)
     pre = dt_in @ p.dt_proj_w.to(torch.float32) + p.dt_proj_b
     dtv = torch.logaddexp(pre, torch.zeros_like(pre))     # jax's softplus
@@ -104,6 +115,8 @@ def mamba_forward(p, cfg: ModelConfig, x: torch.Tensor,
     d); ``state`` (h (B, di, ds) f32, conv window (B, d_conv - 1, di)) to
     continue from, or None. Returns (y, (h, conv window)) at position L."""
     s = cfg.ssm
+    region = getattr(p, "tp", None)
+    x = TP.copy_to(x, region)
     B, L0, _ = x.shape
     chunk0 = min(s.chunk, L0)
     pad = (-L0) % chunk0
@@ -132,13 +145,13 @@ def mamba_forward(p, cfg: ModelConfig, x: torch.Tensor,
     bterm = (dtv * xc.to(torch.float32))[..., None] * Bv[:, :, None, :]
 
     h0 = (state[0] if state is not None else
-          torch.zeros((B, d_inner(cfg), s.d_state), dtype=torch.float32,
+          torch.zeros((B, xc.shape[-1], s.d_state), dtype=torch.float32,
                       device=x.device))
     h_last, hs = _scan_chunked(a, bterm, h0, min(s.chunk, L))
 
     y = torch.einsum("blds,bls->bld", hs, Cv) + p.D * xc.to(torch.float32)
     y = (y * F.silu(z.to(torch.float32))).to(x.dtype)
-    out = y @ p.out_proj
+    out = TP.reduce_from(y @ p.out_proj, region)
     if pad:
         out = out[:, :L0]
     return out, (h_last, new_conv_win)

@@ -22,17 +22,33 @@ the group (the rows of one data-parallel rank):
 * the vocabulary: ``layers.embed`` (rows outside the rank's slice masked
   to zero, then :func:`reduce_from`), :func:`copy_to` at the head's input,
   and :func:`nll` over the rank's logits (max and sum of exponentials
-  all-reduced, the label's logit from the rank that holds it).
+  all-reduced, the label's logit from the rank that holds it);
+* attention: :func:`copy_to` at the input (and at the cross-attention's
+  encoder or patch input), the rank's query heads and the KV heads they
+  read, the flash kernels on those local heads, its rows of ``wo`` and
+  :func:`reduce_from`;
+* Mamba: :func:`copy_to`, the rank's channels through in_proj, the conv,
+  the Δt path and the scan, ``x_proj``'s partial sums through
+  :func:`reduce_from` then :func:`copy_to` (every rank reads all of Δt's,
+  B's and C's inputs), and ``out_proj``'s rows into :func:`reduce_from`.
+
+A region's weights are stored in the reference's blocks and computed in
+the blocks of its ``sharding.Split``: :func:`fill_block` moves a rank's
+compute block out of the ranks' storage blocks, :func:`storage_grad` its
+gradient back (summed where ranks share a block).
 
 On a region of one rank every collective is the identity, so the result
 is the plain computation's bit for bit.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+import math
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from .sharding import Split, even_ranges
 
 
 class Region(NamedTuple):
@@ -87,16 +103,134 @@ class _Gather(torch.autograd.Function):
         return g[lo:lo + ctx.n], None
 
 
-def all_to_all(x: torch.Tensor, region: Region, split: int, cat: int
-               ) -> torch.Tensor:
-    """``x`` cut into ``region.size`` chunks along ``split``, chunk j sent
-    to rank j; the chunks received, one from each rank in rank order,
-    concatenated along ``cat`` (no gradient: it moves a weight between
-    the blocks of storage and those of compute)."""
-    inp = torch.stack(x.chunk(region.size, split))
-    out = torch.empty_like(inp)
-    dist.all_to_all_single(out, inp, group=region.group)
-    return torch.cat(out.unbind(0), dim=cat)
+def _exchange(pieces: Sequence[List[torch.Tensor]], shapes, region: Region,
+              like: torch.Tensor) -> List[Optional[torch.Tensor]]:
+    """The tensors ``pieces[q]`` sent to rank q (flattened, in order);
+    returns what each rank q sent here as a tensor of ``shapes[q]``, None
+    where it sent nothing (one ``all_to_all_single`` with split sizes; no
+    gradient). ``like`` gives the type of an empty send."""
+    sizes = [math.prod(s) for s in shapes]
+    flat = [p.reshape(-1) for parts in pieces for p in parts]
+    send = torch.cat(flat) if flat else like.new_empty(0)
+    recv = send.new_empty(sum(sizes))
+    dist.all_to_all_single(recv, send, sizes,
+                           [sum(p.numel() for p in parts) for parts in pieces],
+                           group=region.group)
+    return [t.view(s) if size else None
+            for t, s, size in zip(recv.split(sizes), shapes, sizes)]
+
+
+def _clip(ranges, lo: int, hi: int) -> List[Tuple[int, int]]:
+    """The parts of ``ranges`` inside [lo, hi), in order."""
+    return [(max(a, lo), min(b, hi)) for a, b in ranges
+            if max(a, lo) < min(b, hi)]
+
+
+def _parts(t: torch.Tensor, dim: int, ranges, at: int = 0
+           ) -> List[torch.Tensor]:
+    """``t``'s ranges (shifted by -``at``) along ``dim``."""
+    return [t.narrow(dim, a - at, b - a) for a, b in ranges]
+
+
+def _cat(tensors, dim: int) -> torch.Tensor:
+    """``tensors`` (None where a rank sent nothing) concatenated."""
+    return torch.cat([t for t in tensors if t is not None], dim)
+
+
+def _resized(shape, dim: int, n: int) -> tuple:
+    return tuple(n if i == dim else s for i, s in enumerate(shape))
+
+
+def _length(ranges) -> int:
+    return sum(b - a for a, b in ranges)
+
+
+def _is_storage(split: Split, src: int, C: int, n: int) -> bool:
+    """Whether each rank's compute block is its storage block (of ``C``
+    along ``src``)."""
+    return n == 1 or (src == split.dim
+                      and split.ranges == even_ranges(C * n, n))
+
+
+def fill_block(local: torch.Tensor, src: Optional[int], split: Split,
+               region: Region) -> torch.Tensor:
+    """This rank's compute block of a weight (along ``split.dim``, its
+    ``split.ranges``) from its storage block ``local``: whole over every
+    axis but 'model', split evenly over it along ``src`` (None: whole).
+    Ranges that other ranks store are moved by an all-to-all; no rank
+    holds the weight whole."""
+    n, r, dim, ranges = region.size, region.rank, split.dim, split.ranges
+    if src is None:
+        return torch.cat(_parts(local, dim, ranges[r]), dim)
+    C = local.shape[src]
+    if _is_storage(split, src, C, n):
+        return local
+    if src == dim:              # the ranges cut storage's blocks
+        lo = r * C
+        pieces = [_parts(local, dim, _clip(ranges[q], lo, lo + C), lo)
+                  for q in range(n)]
+        shapes = [_resized(local.shape, dim, _length(
+            _clip(ranges[r], q * C, (q + 1) * C))) for q in range(n)]
+        return _cat(_exchange(pieces, shapes, region, local), dim)
+    # stored split along another dimension (a MoE's wi / wg: d stored,
+    # experts computed; Mamba's x_proj: its outputs stored, rows computed)
+    pieces = [_parts(local, dim, ranges[q]) for q in range(n)]
+    shapes = [_resized(local.shape, dim, _length(ranges[r]))] * n
+    return _cat(_exchange(pieces, shapes, region, local), src)
+
+
+def _within(t: torch.Tensor, dim: int, ranges, lo: int, hi: int
+            ) -> List[torch.Tensor]:
+    """Of ``t``, ``ranges`` concatenated along ``dim``, the parts that lie
+    in [lo, hi)."""
+    parts, o = [], 0
+    for a, b in ranges:
+        parts += [t.narrow(dim, o + x - a, y - x)
+                  for x, y in _clip([(a, b)], lo, hi)]
+        o += b - a
+    return parts
+
+
+def storage_grad(g: torch.Tensor, src: Optional[int], split: Split,
+                 region: Region, whole) -> torch.Tensor:
+    """The gradient of this rank's storage block of a weight of shape
+    ``whole`` (whole over every axis but 'model', split evenly over it
+    along ``src``; None: whole) from each rank's gradient ``g`` of its
+    compute block: :func:`fill_block`'s inverse, the parts that ranks
+    share (a KV head that several ranks' query heads read) summed in rank
+    order."""
+    n, r, dim, ranges = region.size, region.rank, split.dim, split.ranges
+    shape = list(whole)
+    if src is not None:
+        shape[src] //= n
+        if _is_storage(split, src, shape[src], n):
+            return g
+    out = g.new_zeros(shape)
+
+    def add(piece, parts, at=0):
+        o = 0
+        for a, b in parts:
+            out.narrow(dim, a - at, b - a).add_(piece.narrow(dim, o, b - a))
+            o += b - a
+
+    if src is None:             # stored whole over 'model'
+        add(g, ranges[r])
+        return all_reduce(out, (region.group,))
+    C = shape[src]
+    if src == dim:
+        pieces = [_within(g, dim, ranges[r], q * C, (q + 1) * C)
+                  for q in range(n)]
+        mine = [_clip(ranges[q], r * C, (r + 1) * C) for q in range(n)]
+        shapes = [_resized(shape, dim, _length(m)) for m in mine]
+        for m, piece in zip(mine, _exchange(pieces, shapes, region, g)):
+            if piece is not None:
+                add(piece, m, r * C)
+        return out
+    pieces = [[g.narrow(src, q * C, C)] for q in range(n)]
+    shapes = [_resized(shape, dim, _length(ranges[q])) for q in range(n)]
+    for q, piece in enumerate(_exchange(pieces, shapes, region, g)):
+        add(piece, ranges[q])
+    return out
 
 
 def copy_to(x: torch.Tensor, region: Optional[Region]) -> torch.Tensor:

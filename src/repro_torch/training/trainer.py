@@ -23,18 +23,23 @@ just before it runs, again before its recompute in the backward, and frees
 it when the next one is filled (with ``remat``; without it every period
 stays filled to the step's end). The weights of the 'model'-parallel
 regions (``sharding.model_split``: the vocab-parallel embedding and head,
-the column- / row-parallel FFN, the experts) are filled over the other
-axes only, so a rank holds and computes on its 'model' blocks of them
+the column- / row-parallel FFN, the experts, attention's query heads and
+the KV heads they read, Mamba's channels) are filled over the other axes
+only, so a rank holds and computes on its compute blocks of them
 (``models.tensor_parallel``, whose ``Region`` the step sets on those
-modules); the rest (attention, Mamba and xLSTM projections, norms) is
-filled whole, and the hand-written flash kernels run on plain local
-tensors as without a mesh. Each data-parallel rank (the coordinate over
+modules; blocks that storage cuts elsewhere are moved by an all-to-all),
+and the hand-written flash kernels run on each rank's local heads; the
+rest (xLSTM, attention with fewer heads than the axis, norms, routers) is
+filled whole. Each data-parallel rank (the coordinate over
 the DP axes) trains on its rows of the global batch
 (``SyntheticLMData(host_index=, n_hosts=)``), the DP axes those of the
 reference's input specs (the whole mesh for ``tp_friendly=False`` archs,
 which then have no region). As each parameter's gradient is complete it
 is summed over the DP axes' process groups in f32, divided by their
-count, and only this rank's block of it is kept. The global gradient norm
+count, moved back to storage's blocks (a KV head's gradient summed over
+the ranks that read it; qk-norm's gains, filled whole but acting on the
+rank's heads, summed over 'model'), and only this rank's block of it is
+kept. The global gradient norm
 is summed from the blocks. Every optimizer then updates this rank's
 blocks in place (``optim``'s ``layouts``: its reductions over split axes
 run as collectives), so no rank ever holds a whole expert stack,
@@ -138,8 +143,9 @@ class Trainer:
         self.params: Optional[Dict[str, torch.Tensor]] = None
         #: on a mesh, each parameter's ``sharding.BlockLayout``
         self.layouts: Optional[Dict[str, shard.BlockLayout]] = None
-        #: the 'model'-parallel regions: {module name: {parameter: dim}}
-        self.split: Dict[str, Dict[str, int]] = {}
+        #: the 'model'-parallel regions: {module name: {parameter: its
+        #: sharding.Split}}
+        self.split: Dict[str, Dict[str, shard.Split]] = {}
         self.region: Optional[TP.Region] = None
         if mesh is not None:
             from ..launch.dryrun import opt_state_specs
@@ -157,13 +163,9 @@ class Trainer:
                                         mesh.size(mesh.mesh_dim_names.index(
                                             "model")),
                                         mesh.get_local_rank("model"))
-        #: on a mesh, the placements each parameter is filled at: a
-        #: region's weights split over 'model', the rest whole
-        self.fills = {}
-        if mesh is not None:
-            dims = {k: d for ds in self.split.values() for k, d in ds.items()}
-            self.fills = {k: shard.fill_placements(mesh, dims.get(k))
-                          for k in shapes}
+        #: each region parameter's sharding.Split (the rest is whole)
+        self.splits = {k: sp for ds in self.split.values()
+                       for k, sp in ds.items()}
         #: on a mesh, the most bytes a step has held at once of: parameters
         #: filled into the model ("filled": whole, or their 'model' blocks
         #: in a region), parameters, gradients and state that the update
@@ -226,16 +228,14 @@ class Trainer:
     # ------------------------------------------------------------------
     # on a mesh
     def _fill(self, params, names, whole: bool = False) -> None:
-        """Give the model's parameters ``names`` their stored values at
-        their fill placements (``self.fills``: a region's weights their
-        'model' blocks, gathered over the other axes, the rest whole), or
-        all whole with ``whole`` (a collective: every rank calls it)."""
-        everywhere = shard.fill_placements(self.mesh)
+        """Give the model's parameters ``names`` their stored values as
+        computed (a region's weights their compute blocks, gathered over
+        the other axes, the rest whole), or all whole with ``whole`` (a
+        collective: every rank calls it)."""
         with torch.no_grad():
             for k in names:
                 p = params[k]
-                value = self._model_block(
-                    k, everywhere if whole else self.fills[k])
+                value = self._model_block(k, whole)
                 if p.shape != value.shape:   # first fill, or after a
                     p.data = value.clone()   # gather_model
                     continue
@@ -247,32 +247,28 @@ class Trainer:
         self._peak("filled", sum(p.untyped_storage().nbytes()
                                  for p in params.values()))
 
-    def _moved(self, k: str, placements):
-        """For a weight ``k`` filled at ``placements`` split over 'model'
-        along another dimension than its storage is (a MoE's wi / wg: d
-        stored, experts computed): (storage's dimension, the fill's, the
-        fill's placements with storage's 'model' split); else None."""
+    def _storage(self, k: str):
+        """(placements of ``k``'s storage block over 'model', whole over
+        the other axes; the dimension storage splits over 'model', or
+        None)."""
         from torch.distributed.tensor import Shard
-        if "model" not in self.mesh.mesh_dim_names:
-            return None
-        m = self.mesh.mesh_dim_names.index("model")
-        src, fill = self.params[k].placements[m], placements[m]
-        if not (isinstance(src, Shard) and isinstance(fill, Shard)) \
-                or src.dim == fill.dim:
-            return None
-        return src.dim, fill.dim, placements[:m] + [src] + placements[m + 1:]
+        pl = self.params[k].placements[self.mesh.mesh_dim_names.index(
+            "model")]
+        return (shard.fill_placements(self.mesh, pl),
+                pl.dim if isinstance(pl, Shard) else None)
 
-    def _model_block(self, k: str, placements) -> torch.Tensor:
-        """This rank's block of the stored weight ``k`` at ``placements``
-        (gathered over the axes they do not split); a weight stored split
-        along another dimension over 'model' is moved by an all-to-all (no
-        rank holds it whole)."""
-        t, moved = self.params[k], self._moved(k, placements)
-        if moved is None:
-            return t.redistribute(self.mesh, placements).to_local()
-        src, dst, keep = moved
-        return TP.all_to_all(t.redistribute(self.mesh, keep).to_local(),
-                             self.region, split=dst, cat=src)
+    def _model_block(self, k: str, whole: bool = False) -> torch.Tensor:
+        """This rank's block of the stored weight ``k`` as computed: its
+        region's compute block (``tensor_parallel.fill_block``: ranges
+        that other ranks store moved by an all-to-all, so no rank holds
+        the weight whole), or whole."""
+        t, sp = self.params[k], None if whole else self.splits.get(k)
+        if sp is None or sp.dim is None:
+            return t.redistribute(self.mesh,
+                                  shard.fill_placements(self.mesh)).to_local()
+        keep, src = self._storage(k)
+        return TP.fill_block(t.redistribute(self.mesh, keep).to_local(), src,
+                             sp, self.region)
 
     def _peak(self, what: str, nbytes: int) -> None:
         self.peak_bytes[what] = max(self.peak_bytes[what], nbytes)
@@ -300,15 +296,20 @@ class Trainer:
 
     def _reduce_grad(self, grads, k: str, p: torch.Tensor) -> None:
         """Hook run when ``p``'s gradient is complete: the gradient
-        averaged over the data-parallel ranks, moved from its fill
-        placements to storage's, this rank's block of it added to
-        ``grads[k]`` (f32), the filled one dropped."""
+        averaged over the data-parallel ranks, moved from its compute
+        block to storage's (``tensor_parallel.storage_grad``: ranges that
+        ranks share summed over 'model'; a weight filled whole in a region
+        holds each rank's partial sum, summed over 'model' too), this
+        rank's block of it added to ``grads[k]`` (f32), the filled one
+        dropped."""
         from torch.distributed.tensor import DTensor
         g = self._dp_mean(p.grad)
-        placements, moved = self.fills[k], self._moved(k, self.fills[k])
-        if moved is not None:         # back to storage's 'model' split
-            src, dst, placements = moved
-            g = TP.all_to_all(g, self.region, split=src, cat=dst)
+        placements, sp = shard.fill_placements(self.mesh), self.splits.get(k)
+        if sp is not None and sp.dim is None:   # partial sums: the rank's
+            TP.all_reduce(g, (self.region.group,))   # heads' share
+        elif sp is not None:
+            placements, src = self._storage(k)
+            g = TP.storage_grad(g, src, sp, self.region, self.params[k].shape)
         block = DTensor.from_local(
             g, self.mesh, placements, run_check=False).redistribute(
                 self.mesh, self.params[k].placements).to_local()

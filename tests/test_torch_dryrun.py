@@ -17,20 +17,25 @@ CLI) while the qwen3 cells run. Held per rank:
   updates the blocks in place for every optimizer (gathers nothing) and
   fills exactly the embedding, the head and the final norm plus its
   largest period, the 'model'-parallel weights (embedding, head, dense
-  FFN, experts) as 1/16 blocks and the rest whole; its collectives are
-  counted, and a serving cell's are null (the port serves on one card);
-  llama4's fill is under 3 GB and its step under 15 GB a rank (37.11 GB
-  and 782.6 GB when every weight was filled whole and adafactor gathered
-  its stacks);
+  FFN, experts) as 1/16 blocks, attention at rank 0's query heads (wq's
+  columns, wo's rows: 1 of qwen3's 16, 2 of llama4's 40, 3 of dbrx's 48)
+  and the one KV head they read (1 of 8), and the rest whole; the record
+  gives those heads a rank; its collectives are counted, and a serving
+  cell's are null (the port serves on one card); llama4's fill is under
+  2.5 GB and its step under 15 GB a rank (37.11 GB and 782.6 GB when
+  every weight was filled whole and adafactor gathered its stacks);
 * FLOPs against ``model_flops_per_token()`` x the rank's tokens, within
   the factor the step's structure gives. Train runs the forward, the remat
   recompute of every period (not the head) and the backward: at least
   (8 N - 2 head) / 6 N of 6 N, and at most 4/3 plus the attention
   scores, which the plain attention computes over the whole S x S square
-  (4 L S q_dim a token forward); N is the active parameters less the
-  embedding, with the FFN's and the head's at 1/16 (the rank computes on
-  its 'model' blocks of them). Prefill reads the head at one row; decode
-  reads the S-deep cache.
+  (4 L S q_dim a token forward, at the rank's share of the query heads);
+  N is the active parameters less the embedding, with the FFN's and the
+  head's at 1/16 and attention's at the rank's heads (the rank computes
+  on its 'model' blocks of them); qwen3's train step is at most 1.0e14
+  FLOPs a rank (4.704e14 with attention whole on every rank), llama4's
+  0.8e15. Prefill reads the head at one row; decode reads the S-deep
+  cache.
 * ``card()``'s fields equal the reference's when ``make_card`` gets the
   reference's own chip constants (197 TFLOP/s, 819 GB/s).
 """
@@ -71,6 +76,18 @@ MOE_TRAIN = {"llama4-maverick-400b-a17b": "adafactor",
 SRC = Path(__file__).resolve().parent.parent / "src"
 #: parameters that a 'model'-parallel region fills as 1/16 blocks
 REGION = re.compile(r"embed|head|blocks\.\d+\.ffn\.(wi|wg|wo)")
+#: attention's weights, which it fills at the rank's heads
+HEADS = re.compile(r"blocks\.\d+\.mixer2?\.(wq|wk|wv|wo)")
+N_MODEL = 16
+
+
+def _rank0_heads(cfg):
+    """(query heads, KV heads) of rank 0 of the 16-wide 'model' axis: the
+    query heads [0, H / 16) rounded down, and the one KV head they read
+    (or Hkv / 16 of them)."""
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    assert N_MODEL <= H and (Hkv % N_MODEL == 0 or N_MODEL % Hkv == 0)
+    return H // N_MODEL, max(1, Hkv // N_MODEL)
 
 
 @pytest.fixture(scope="module")
@@ -102,11 +119,17 @@ def cells(tmp_path_factory):
 def _fill_reckoning(cfg):
     """The most bytes a train step fills at once: the parameters outside
     the blocks (for the step) and the largest period, a region's weights
-    at 1/16 of their bytes and the rest whole."""
+    at 1/16 of their bytes, attention's at rank 0's heads and the rest
+    whole."""
     named = list(lm.LM(cfg, "meta").named_parameters())
+    Hq, Hkv = _rank0_heads(cfg)
 
     def nbytes(n, p):
         b = p.numel() * p.element_size()
+        if HEADS.fullmatch(n):
+            kv = n[-2:] in ("wk", "wv")
+            return b // (cfg.n_kv_heads if kv else cfg.n_heads) * (
+                Hkv if kv else Hq)
         return b // 16 if REGION.fullmatch(n) else b
 
     outside = sum(nbytes(n, p) for n, p in named
@@ -129,8 +152,11 @@ def test_dryrun_records_each_kind(cells):
         assert "no torch counterpart" in rec["null_because"]
     train = cells["train_4k"]["collectives"]
     assert train["total_count"] > 0
+    # qwen3's wk / wv are stored at half a KV head a rank: the fill moves
+    # the rank's head by an all-to-all (and its gradient back)
     assert set(train["count"]) == set(train["bytes"]) == {
-        "c10d_functional.all_gather_into_tensor", "c10d.allreduce_"}
+        "c10d_functional.all_gather_into_tensor", "c10d.allreduce_",
+        "c10d.alltoall_base_"}
     for s in SHAPES[1:3]:       # the port serves on one card
         assert cells[s]["collectives"] is None
         assert "no sharded serving step" in \
@@ -181,6 +207,11 @@ def test_dryrun_bytes_per_rank(cells, shape):
         assert rec["step_bytes_per_rank"] == (
             rec["param_bytes_per_rank"] + rec["opt_state_bytes_per_rank"]
             + rec["grad_bytes_per_rank"] + rec["filled_param_bytes_peak"])
+        assert rec["split"] == {"query_heads": {"min": 1, "max": 1,
+                                                "rank_0": 1},
+                                "kv_heads": {"min": 1, "max": 1,
+                                             "rank_0": 1},
+                                "mamba_channels": None}
 
 
 @pytest.mark.parametrize("arch", MOE_TRAIN)
@@ -196,9 +227,18 @@ def test_dryrun_train_fills_model_blocks(cells, arch):
     assert rec["step_bytes_per_rank"] == (
         rec["param_bytes_per_rank"] + rec["opt_state_bytes_per_rank"]
         + rec["grad_bytes_per_rank"] + rec["filled_param_bytes_peak"])
-    if arch.startswith("llama4"):
-        assert rec["filled_param_bytes_peak"] <= 3e9
+    cfg = get(arch).config()
+    H = cfg.n_heads
+    sizes = [(r + 1) * H // N_MODEL - r * H // N_MODEL
+             for r in range(N_MODEL)]
+    assert rec["split"]["query_heads"] == {
+        "min": min(sizes), "max": max(sizes), "rank_0": _rank0_heads(cfg)[0]}
+    assert rec["split"]["kv_heads"] == {"min": 1, "max": 1, "rank_0": 1}
+    if arch.startswith("llama4"):    # 40 heads: 2 or 3 a rank
+        assert (min(sizes), max(sizes)) == (2, 3)
+        assert rec["filled_param_bytes_peak"] <= 2.5e9
         assert rec["step_bytes_per_rank"] <= 15e9
+        assert rec["flops_per_rank"] <= 0.8e15
     assert rec["collectives"]["bytes"]["c10d.alltoall_base_"] > 0
 
 
@@ -212,11 +252,16 @@ def test_dryrun_flops_against_model_flops(cells, shape):
     S = 4096 if shape == "train_4k" else 32768
     attn = 4 * cfg.n_layers * S * cfg.q_dim           # a token, forward
     ratio = rec["flops_per_rank"] / rec["model_flops_per_rank"]
-    if shape == "train_4k":   # the FFN and head on 'model' blocks
-        split = 3 * cfg.d_model * cfg.d_ff * cfg.n_layers + head
-        ratio *= N / (N - split * 15 / 16)
-        N, head = N - split * 15 / 16, head / 16
+    if shape == "train_4k":   # the FFN, head and attention on blocks
+        Hq, Hkv = _rank0_heads(cfg)
+        d, L = cfg.d_model, cfg.n_layers
+        dropped = ((3 * d * cfg.d_ff * L + head) * 15 / 16
+                   + 2 * d * cfg.q_dim * L * (1 - Hq / cfg.n_heads)
+                   + 2 * d * cfg.kv_dim * L * (1 - Hkv / cfg.n_kv_heads))
+        ratio *= N / (N - dropped)
+        N, head, attn = N - dropped, head / 16, attn * Hq / cfg.n_heads
         lo, hi = (8 * N - 2 * head) / (6 * N), 4 / 3 + 4 * attn / (6 * N)
+        assert rec["flops_per_rank"] <= 1.0e14
     elif shape == "prefill_32k":
         lo, hi = (N - head) / N, 1 + attn / (2 * N)
     else:

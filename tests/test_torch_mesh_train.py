@@ -25,6 +25,20 @@ Held:
   data-parallel ranks' rows as microbatches; no rank ever fills a whole
   expert stack, embedding, head or dense FFN; a world of one with a
   region equals ``Trainer()`` bit for bit for MoE configs too;
+* attention's heads and Mamba's channels over 'model' on (1, 2): one
+  adamw step of the qwen3-1.7b (qk-norm: partial gain gradients summed),
+  stablelm-12b (one KV head both ranks read), jamba (Mamba channels,
+  attention and experts), llama-3.2-vision (cross-attention) and whisper
+  (bidirectional encoder and cross-attention) smoke configs, and on (1, 4)
+  qwen3's at 6 query heads on 2 KV heads (ranks of 1, 2, 1 and 2 heads,
+  two ranks a KV head, columns that storage cuts mid-head), each against
+  one rank at the tolerances above, MoE drops exactly; the qwen3 run's
+  gathered gradients and loss against ``jax.value_and_grad`` of the
+  reference's ``loss_fn`` from its own initial parameters (1e-4 x
+  max|g|); no rank fills a whole attention or Mamba weight (each at the
+  rank's heads, KV heads or channels); a world of one equals
+  ``Trainer()`` bit for bit for jamba and qwen3 too (with the MoE
+  configs);
 * adamw8bit and adafactor updated on (1, 2) from each rank's blocks
   (``optim``'s ``layouts``), gathered: against the reference's update of
   the whole arrays at the one-rank twins' tolerances (parameters and
@@ -57,14 +71,17 @@ import torch.distributed as dist
 
 import torch_mesh_workers as workers
 from repro.cluster.spec import paper_testbed as ref_testbed
+from repro.configs import get as ref_get
 from repro.core.fitness import EvalConfig as RefEvalConfig
 from repro.core.fitness import TraceEvaluator as RefEvaluator
+from repro.models import lm as rlm
 from repro.training import grad_compress as rgc
 from repro.training import optim as ropt
 from repro.workload.slo import attach_slos as ref_attach_slos
 from repro.workload.trace import build_trace as ref_build_trace
 from repro_torch.checkpoint.manager import (_flatten, load_checkpoint,
                                             save_checkpoint)
+from repro_torch.convert import lm_named_from_numpy, lm_params_from_numpy
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import moe
 from repro_torch.training.optim import (OptConfig, _bias_corrections,
@@ -231,13 +248,16 @@ def test_mesh_step_fills_one_period_at_a_time(world_of_one, monkeypatch):
     assert all(p.untyped_storage().nbytes() == 0 for p in model.parameters())
 
 
-def _one_rank(cfg):
-    """One adamw step of ``cfg`` without a mesh: (history, m, routing)."""
+def _one_rank(cfg, model=None):
+    """One adamw step of ``cfg`` without a mesh, from ``model`` (default
+    ``workers._model``), with the cross inputs the mesh runs get:
+    (history, m, routing)."""
     moe.ROUTING = []
     try:
-        _, state, hist = Trainer(cfg, TrainConfig(**workers.TRAIN),
-                                 device="cpu").run(model=workers._model(cfg),
-                                                   resume=False)
+        trainer = workers.with_cross(Trainer(cfg, TrainConfig(
+            **workers.TRAIN), device="cpu"))
+        _, state, hist = trainer.run(model=model or workers._model(cfg),
+                                     resume=False)
         return hist, state["m"], [(e, int(d)) for e, d in moe.ROUTING]
     finally:
         moe.ROUTING = None
@@ -250,20 +270,27 @@ def test_model_parallel_moe_step_matches_one_rank(moe_runs, arch):
     the whole batch: loss 1e-5 relative, each gradient (m = 0.1 g) within
     1e-5 x max|g|, every MoE call's expert choices and drop count
     equal."""
-    cfg = workers._train_cfg(arch)
-    hist, m, routing = _one_rank(cfg)
-    for r in moe_runs:
-        run = r[arch]
+    assert _held_to_one_rank([r[arch] for r in moe_runs],
+                             workers._train_cfg(arch))
+
+
+def _held_to_one_rank(runs, cfg, model=None):
+    """Each rank's (1, n) run of ``cfg`` against one rank on the whole
+    batch from ``model``: loss 1e-5 relative, each gradient (m = 0.1 g)
+    within 1e-5 x max|g|, every MoE call's expert choices and drop count
+    equal, every rank's m alike. Returns the one rank's routing."""
+    hist, m, routing = _one_rank(cfg, model)
+    for run in runs:
         assert run["n_dp"] == 1
         assert abs(run["hist"][0]["loss"] - hist[0]["loss"]) \
             <= 1e-5 * abs(hist[0]["loss"])
         for k, want in m.items():
             assert _rel(run["m"][k], want) <= 1e-5, k
-        assert len(run["routing"]) == len(routing) > 0
+            assert torch.equal(run["m"][k], runs[0]["m"][k]), k
+        assert len(run["routing"]) == len(routing)
         for (e, d), (we, wd) in zip(run["routing"], routing):
             assert torch.equal(e, we) and d == wd
-    assert torch.equal(moe_runs[0][arch]["m"]["embed"],
-                       moe_runs[1][arch]["m"]["embed"])
+    return routing
 
 
 def test_model_parallel_step_on_2x2_matches_microbatches(tmp_path):
@@ -296,34 +323,166 @@ def test_model_parallel_step_on_2x2_matches_microbatches(tmp_path):
             assert torch.equal(e, we) and d == wd
 
 
-@pytest.mark.parametrize("arch", (workers.TRAIN_ARCH,) + workers.MOE_ARCHS)
-def test_model_parallel_fills_blocks_only(request, arch):
-    """On (1, 2) no rank fills a whole expert stack, embedding, head or
-    dense FFN: each is filled, at every fill of the step, as the rank's
-    half along the dimension 'model' splits."""
+#: Mamba's weights by the dimension of its channels
+_MAMBA = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "x_proj": 0,
+          "dt_proj_w": 1, "dt_proj_b": 0, "A_log": 0, "D": 0,
+          "out_proj": 0}
+
+
+def _compute_shape(cfg, name, shape, r, n):
+    """The shape rank r of n fills ``name`` (whole ``shape``) at, and
+    whether a region splits it: the vocabulary, a dense FFN's wi / wg
+    columns and wo rows and a MoE's experts over n; attention's query
+    heads [r H / n, (r + 1) H / n) (wq's columns, wo's rows) and the
+    max(1, Hkv / n) KV heads they read (wk, wv); Mamba's d_inner / n
+    channels; qk-norm's gains whole, the rest whole."""
+    leaf, H, Hkv, hd = name.split(".")[-1], cfg.n_heads, cfg.n_kv_heads, \
+        cfg.hd
+    out, dim = list(shape), None
+    if name in ("embed", "head"):
+        dim, size = 0, shape[0] // n
+    elif ".ffn." in name and leaf in ("wi", "wg", "wo"):
+        dim = 0 if len(shape) == 3 or leaf == "wo" else 1
+        size = shape[dim] // n
+    elif ".mixer" in name and leaf in ("wq", "wk", "wv", "wo"):
+        assert n <= H and (Hkv % n == 0 or n % Hkv == 0)
+        heads = ((r + 1) * H // n - r * H // n if leaf in ("wq", "wo")
+                 else max(1, Hkv // n))
+        dim, size = (0 if leaf == "wo" else 1), heads * hd
+    elif ".mixer." in name and leaf in _MAMBA:
+        dim = _MAMBA[leaf]
+        size = shape[dim] // n
+    elif leaf in ("qnorm", "knorm"):
+        return tuple(shape), True
+    if dim is not None:
+        out[dim] = size
+    return tuple(out), dim is not None
+
+
+def _runs(request, arch):
+    """Each rank's run of ``arch`` (or "heads4") on (1, n)."""
     if arch == workers.TRAIN_ARCH:
-        runs = [r["1x2"] for r in request.getfixturevalue("train_runs")[0]]
-    else:
-        runs = [r[arch] for r in request.getfixturevalue("moe_runs")]
-    cfg = workers._train_cfg(arch)
+        return [r["1x2"] for r in request.getfixturevalue("train_runs")[0]]
+    if arch == "heads4":
+        return request.getfixturevalue("heads4_runs")
+    fixture = "moe_runs" if arch in workers.MOE_ARCHS else "head_runs"
+    return [r[arch] for r in request.getfixturevalue(fixture)]
+
+
+def _cfg(arch):
+    if arch == "heads4":
+        return workers._train_cfg(workers.HEADS4[0], **workers.HEADS4[1])
+    return workers._train_cfg(arch)
+
+
+@pytest.mark.parametrize("arch", (workers.TRAIN_ARCH,) + workers.MOE_ARCHS
+                         + workers.HEAD_ARCHS + ("heads4",))
+def test_model_parallel_fills_blocks_only(request, arch):
+    """On (1, 2) (and (1, 4)) no rank fills a whole expert stack,
+    embedding, head, dense FFN, attention or Mamba weight: each is filled,
+    at every fill of the step, as the rank's block along the dimension
+    'model' splits (attention's at the rank's query heads or the KV heads
+    they read, Mamba's at its channels; stablelm-12b's one KV head is all
+    of wk and wv); only routers, norms and the qk-norm gains are
+    whole."""
+    runs = _runs(request, arch)
+    cfg = _cfg(arch)
     whole = {k: tuple(p.shape)
              for k, p in workers._model(cfg).named_parameters()}
-    for run in runs:
-        split = {k: d for dims in run["split"].values()
-                 for k, d in dims.items()}
-        want = {"embed", "head"}
-        for li in range(cfg.n_layers):
-            names = ("wi", "wg", "wo") if cfg.block_at(li)[1] != "none" \
-                else ()
-            want |= {f"blocks.{li}.ffn.{n}" for n in names}
-        assert set(split) == want
-        for k, d in split.items():
-            half = list(whole[k])
-            half[d] //= 2
-            assert run["filled_shapes"][k] == {tuple(half)}, k
-        for k, shapes in run["filled_shapes"].items():
-            if k not in split:   # attention, router, norms: whole
-                assert shapes == {whole[k]}, k
+    n = len(runs)
+    for r, run in enumerate(runs):
+        split = {k: sp for dims in run["split"].values()
+                 for k, sp in dims.items()}
+        assert set(split) == {k for k, shp in whole.items()
+                              if _compute_shape(cfg, k, shp, r, n)[1]}
+        for k, shp in whole.items():
+            want, in_region = _compute_shape(cfg, k, shp, r, n)
+            assert run["filled_shapes"][k] == {want}, (k, r)
+            if in_region and split[k].dim is not None:
+                # one KV head is all of wk / wv, and every rank reads it
+                assert want != shp or (k[-2:] in ("wk", "wv")
+                                       and cfg.n_kv_heads == 1), k
+            else:   # routers, norms, qk-norm gains: whole
+                assert k.split(".")[-1] in ("router", "g", "b", "qnorm",
+                                            "knorm", "pos"), k
+
+
+@pytest.fixture(scope="module")
+def head_runs(tmp_path_factory):
+    """The HEAD_JOBS on (1, 2), each rank's runs by arch; qwen3 starts from
+    the reference's initial parameters."""
+    runs = [{} for _ in range(2)]
+    for job in workers.HEAD_JOBS:
+        tmp = tmp_path_factory.mktemp(job)
+        if "qwen3-1.7b" in workers.HEAD_JOBS[job]:
+            torch.save(_ref_init("qwen3-1.7b")[1].state_dict(),
+                       tmp / "init_qwen3-1.7b.pt")
+        for mine, got in zip(runs, workers.launch(job, 2, tmp)):
+            mine.update(got)
+    return runs
+
+
+@pytest.fixture(scope="module")
+def heads4_runs(tmp_path_factory):
+    return workers.launch("train_heads4", 4,
+                          tmp_path_factory.mktemp("train_heads4"))
+
+
+def _mixers(cfg):
+    """The names of ``cfg``'s attention and Mamba modules (not empty)."""
+    out = {n for n, mod in workers._model(cfg).named_modules()
+           if type(mod).__name__ in ("Attention", "Mamba")}
+    assert out
+    return out
+
+
+def _ref_init(arch):
+    """(the reference's f32 smoke config, its ``lm.init`` parameters as
+    numpy, the port's model from them)."""
+    rcfg = dataclasses.replace(ref_get(arch).smoke(), dtype="float32")
+    params = jax.tree.map(np.asarray, rlm.init(jax.random.key(0), rcfg))
+    return rcfg, lm_params_from_numpy(params, workers._train_cfg(arch),
+                                      "cpu"), params
+
+
+@pytest.mark.parametrize("arch", workers.HEAD_ARCHS + ("heads4",))
+def test_heads_and_channels_step_matches_one_rank(request, arch):
+    """Attention (and jamba's Mamba) over 'model': one step on (1, 2), or
+    (1, 4) for uneven heads, against one rank on the whole batch: loss
+    1e-5 relative, each gradient (m = 0.1 g) within 1e-5 x max|g|, every
+    MoE call's choices and drops equal; every attention (and Mamba)
+    module is a region."""
+    runs, cfg = _runs(request, arch), _cfg(arch)
+    model = _ref_init(arch)[1] if arch == "qwen3-1.7b" else None
+    assert all(_mixers(cfg) <= set(run["split"]) for run in runs)
+    routing = _held_to_one_rank(runs, cfg, model)
+    assert bool(routing) == (cfg.moe is not None)
+
+
+def test_heads_split_gradients_match_reference(head_runs):
+    """qwen3-1.7b's smoke config (qk-norm) on (1, 2) from the reference's
+    initial parameters: the step's loss within 1e-5 relative and every
+    gathered gradient within 1e-4 x max|g| of ``jax.value_and_grad`` of
+    the reference's ``loss_fn`` on the same batch."""
+    arch = "qwen3-1.7b"
+    rcfg, model, params = _ref_init(arch)
+    cfg = workers._train_cfg(arch)
+    batch = next(Trainer(cfg, TrainConfig(**workers.TRAIN),
+                         device="cpu").data.iterator(start_step=0))
+    (loss, _), grads = jax.value_and_grad(
+        lambda p: rlm.loss_fn(p, rcfg, {k: jnp.asarray(v)
+                                        for k, v in batch.items()},
+                              remat=True), has_aux=True)(
+        jax.tree.map(jnp.asarray, params))
+    want = lm_named_from_numpy(jax.tree.map(np.asarray, grads), cfg, model)
+    for run in (r[arch] for r in head_runs):
+        assert abs(run["hist"][0]["loss"] - float(loss)) \
+            <= 1e-5 * abs(float(loss))
+        assert set(run["grads"]) == set(want)
+        for k, w in want.items():
+            g = run["grads"][k].numpy()
+            assert g.shape == w.shape, k
+            assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max(), k
 
 
 @pytest.fixture(scope="module")
@@ -390,11 +549,13 @@ def _close(got, want, rtol=1e-6):
 
 
 @pytest.mark.parametrize("arch,optimizer", [
-    ("llama4-maverick-400b-a17b", "adafactor"), ("dbrx-132b", "adamw8bit")])
+    ("llama4-maverick-400b-a17b", "adafactor"), ("dbrx-132b", "adamw8bit"),
+    ("jamba-v0.1-52b", "adamw"), ("qwen3-1.7b", "adafactor")])
 def test_world_of_one_moe_bit_equal(world_of_one, arch, optimizer):
-    """A MoE config on a world of one, its regions of one rank (experts,
-    dense FFN, vocabulary) run, not skipped: 2 steps' metrics, parameters
-    and optimizer state bit for bit against Trainer()."""
+    """A MoE config (and jamba's Mamba channels; qwen3's qk-norm) on a
+    world of one, its regions of one rank (experts, dense FFN, vocabulary,
+    attention, Mamba) run, not skipped: 2 steps' metrics, parameters and
+    optimizer state bit for bit against Trainer()."""
     cfg = workers._train_cfg(arch)
     tcfg = TrainConfig(**{**workers.TRAIN, "steps": 2,
                           "optimizer": optimizer})
@@ -402,7 +563,7 @@ def test_world_of_one_moe_bit_equal(world_of_one, arch, optimizer):
     tr = Trainer(cfg, tcfg, device="cpu",
                  mesh=make_host_mesh(model=1, device="cpu"))
     assert tr.region is not None and tr.region.size == 1
-    assert {"", "blocks.0.ffn"} <= set(tr.split)
+    assert {"", "blocks.0.ffn"} | _mixers(cfg) <= set(tr.split)
     _, state_m, hist_m = tr.run(resume=False)
     assert [(h["loss"], h["nll"], h["gnorm"]) for h in hist] == \
         [(h["loss"], h["nll"], h["gnorm"]) for h in hist_m]

@@ -26,6 +26,19 @@ TRAIN = dict(seq_len=16, global_batch=4, steps=1, log_every=1,
 #: the MoE smoke configs trained on (1, 2): top-1 experts with a dense FFN
 #: every other layer, and top-2 experts in every layer
 MOE_ARCHS = ("llama4-maverick-400b-a17b", "dbrx-132b")
+#: the smoke configs whose attention heads (and Mamba channels) split over
+#: 'model' on (1, 2), at most two to a job: qk-norm (the run starts from
+#: the reference's initial parameters, ``init_<arch>.pt`` beside the
+#: output), one KV head both ranks read, Mamba with attention and experts,
+#: cross-attention, and the bidirectional encoder with cross-attention
+HEAD_JOBS = {"train_heads": ("qwen3-1.7b", "stablelm-12b"),
+             "train_hybrid": ("jamba-v0.1-52b", "llama-3.2-vision-11b"),
+             "train_whisper": ("whisper-tiny",)}
+HEAD_ARCHS = tuple(a for archs in HEAD_JOBS.values() for a in archs)
+#: the (1, 4) run: qwen3's smoke config at 6 query heads on 2 KV heads, so
+#: that the ranks take 1, 2, 1 and 2 heads and two ranks read each KV head
+#: (as llama4's 40 heads on 8 KV heads do on 16)
+HEADS4 = ("qwen3-1.7b", dict(n_heads=6, n_kv_heads=2))
 
 
 def launch(job: str, world: int, tmp: Path) -> list:
@@ -59,14 +72,40 @@ def launch(job: str, world: int, tmp: Path) -> list:
             for r in range(world)]
 
 
-def _train_cfg(arch=TRAIN_ARCH):
+def _train_cfg(arch=TRAIN_ARCH, **changes):
     from repro_torch.configs import get
-    return dataclasses.replace(get(arch).smoke(), dtype="float32")
+    return dataclasses.replace(get(arch).smoke(), dtype="float32",
+                               **changes)
 
 
 def _model(cfg, seed=0):
     from repro_torch.models import lm
     return lm.init(cfg, torch.Generator().manual_seed(seed), "cpu")
+
+
+def cross_inputs(cfg, rows):
+    """The stub-frontend frames (audio) or patches (vision) of ``rows``
+    rows, bf16 from a seed, that the trainer's token batches lack; nothing
+    for the other families."""
+    if cfg.family not in ("audio", "vlm"):
+        return {}
+    audio = cfg.family == "audio"
+    T = cfg.encoder.n_frames if audio else cfg.cross_kv_tokens
+    x = torch.randn((rows, T, cfg.d_model),
+                    generator=torch.Generator().manual_seed(11))
+    return {"frames" if audio else "patches": x.to(torch.bfloat16)}
+
+
+def with_cross(trainer):
+    """``trainer``, each of whose steps also gets ``cross_inputs``."""
+    step = trainer.train_step
+
+    def train_step(model, state, batch):
+        return step(model, state, {**batch, **cross_inputs(
+            trainer.cfg, batch["tokens"].shape[0])})
+
+    trainer.train_step = train_step
+    return trainer
 
 
 def _empty(model) -> bool:
@@ -81,38 +120,53 @@ def _gathered(trainer, model):
             for k, p in trainer.gather_model(model).named_parameters()}
 
 
-def _train(mesh_shape, ckpt_dir=None, arch=TRAIN_ARCH):
-    """One adamw step of ``arch``'s smoke config on a ('data', 'model')
-    mesh of ``mesh_shape``: the whole parameters, moments and metrics
-    after it, the shapes each parameter was filled at during the step,
-    and every MoE call's routing and drops."""
+def _train(mesh_shape, ckpt_dir=None, arch=TRAIN_ARCH, cfg=None,
+           init=None):
+    """One adamw step of ``arch``'s smoke config (or ``cfg``) on a
+    ('data', 'model') mesh of ``mesh_shape``, from ``_model`` (or the
+    parameters saved in the file ``init``): the whole parameters, moments,
+    gradients and metrics after it, the shapes each parameter was filled
+    at during the step, and every MoE call's routing and drops."""
+    from torch.distributed.tensor import DTensor
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import moe
+    from repro_torch.models import lm, moe
     from repro_torch.training.trainer import TrainConfig, Trainer
-    cfg = _train_cfg(arch)
+    cfg = cfg or _train_cfg(arch)
     mesh = make_host_mesh(model=mesh_shape[1], data=mesh_shape[0],
                           device="cpu")
     kw = dict(checkpoint_dir=str(ckpt_dir), checkpoint_every=100) \
         if ckpt_dir else {}
-    trainer = Trainer(cfg, TrainConfig(**TRAIN, **kw), device="cpu",
-                      mesh=mesh)
-    filled, fill = {}, trainer._fill
+    trainer = with_cross(Trainer(cfg, TrainConfig(**TRAIN, **kw),
+                                 device="cpu", mesh=mesh))
+    filled, grads, fill = {}, {}, trainer._fill
+    update = trainer.opt.update
 
     def recording_fill(params, names, whole=False):
         fill(params, names, whole)
         for k in names:
             filled.setdefault(k, set()).add(tuple(params[k].shape))
 
+    def recording_update(g, *args, **kw):
+        grads.update({k: DTensor.from_local(
+            t, mesh, trainer.params[k].placements,
+            run_check=False).full_tensor() for k, t in g.items()})
+        return update(g, *args, **kw)
+
+    model = _model(cfg)
+    if init is not None:
+        model = lm.LM(cfg, "cpu")
+        model.load_state_dict(torch.load(init))
     trainer._fill = recording_fill
+    trainer.opt = trainer.opt._replace(update=recording_update)
     moe.ROUTING = []
     try:
-        model, state, hist = trainer.run(model=_model(cfg), resume=False)
+        model, state, hist = trainer.run(model=model, resume=False)
         routing = moe.ROUTING
     finally:
         moe.ROUTING = None
-        del trainer._fill
+        del trainer._fill, trainer.train_step
     whole = lambda t: t.full_tensor()  # noqa: E731
-    return {"hist": hist, "n_dp": trainer.n_dp,
+    return {"hist": hist, "n_dp": trainer.n_dp, "grads": grads,
             "params": {k: whole(p) for k, p in trainer.params.items()},
             "model_empty": _empty(model),
             "model": _gathered(trainer, model),
@@ -154,6 +208,33 @@ def job_train(rank, world, tmp):
 def job_train_moe(rank, world, tmp):
     """One step of each MoE smoke config on (1, 2)."""
     return {arch: _train((1, 2), arch=arch) for arch in MOE_ARCHS}
+
+
+def _head_job(job, tmp):
+    """One step of each of ``HEAD_JOBS[job]``'s smoke configs on (1, 2)."""
+    return {arch: _train((1, 2), arch=arch,
+                         init=(tmp / f"init_{arch}.pt"
+                               if (tmp / f"init_{arch}.pt").exists()
+                               else None))
+            for arch in HEAD_JOBS[job]}
+
+
+def job_train_heads(rank, world, tmp):
+    return _head_job("train_heads", tmp)
+
+
+def job_train_hybrid(rank, world, tmp):
+    return _head_job("train_hybrid", tmp)
+
+
+def job_train_whisper(rank, world, tmp):
+    return _head_job("train_whisper", tmp)
+
+
+def job_train_heads4(rank, world, tmp):
+    """One step of ``HEADS4``'s config on (1, 4): uneven query heads, KV
+    heads read by two ranks, columns that storage cuts mid-head."""
+    return _train((1, 4), cfg=_train_cfg(HEADS4[0], **HEADS4[1]))
 
 
 def job_train4(rank, world, tmp):
