@@ -225,6 +225,20 @@ that each print one JSON line (run in the order 1-5, 9, 13, 14, 6, 10, 7,
    methods equal to the local formula; the quickstart evaluator's fitness
    on ``population_mesh()`` bit for bit equal to the unsharded one on 101
    genomes, then a 5-generation NSGA-II run on it (6 dominance launches).
+   Then the sharded serve step (``launch.serve_mesh.ShardedServer``) on
+   the same world of one: the decode kernel at the local heads a rank of
+   a 16-wide 'model' axis holds ((1, 1), (2, 1), (3, 1); bf16, hd 128, B
+   8, Smax 4,096, ragged kv_len, over one layer of a stacked cache at
+   those KV heads, as a sharded decode reads it) against its plain
+   version; qwen3-1.7b at its published widths and full depth, a prefill
+   of B 4 x S 128 then 16 greedy decode steps, bit for bit against
+   ``lm.prefill`` + ``lm.decode_step`` on the same weights (logits,
+   tokens, every cache leaf), flash and decode launches equal to the
+   plain run's (28 and 28 x 16), every ``blocks.i.mixer`` and
+   ``blocks.i.ffn`` a region; and dbrx-132b at its published widths cut
+   to 1 of 40 layers, the same check with ``BIG_MODEL_B`` at 0, so that
+   its serve placements split over 'data' (of size 1) and every step
+   fills the weights, a period at a time (the fills counted).
 
 Phase 6 also holds the flash kernel's prefix-extend variant against its
 plain version (bucketed and exact-length, garbage and NaN past prefix_len).
@@ -324,6 +338,14 @@ MESH_FITNESS = dict(pop_size=100, n_generations=5)
 # causal, at this (B, S, D)
 MESH_LOCAL_HEADS = ((1, 1), (2, 1), (3, 1))
 MESH_LOCAL_SHAPE = (4, 128, 128)
+# the decode kernel at those local heads, over layer 1 of a 2-layer stacked
+# (layers, B, Smax, H_r, hd) bf16 cache, B rows of ragged kv_len
+MESH_DECODE_SHAPE = (8, 4096, 128)
+MESH_DECODE_LENS = (4096, 1, 1000, 4095, 17, 2048, 3333, 512)
+# the sharded serve step on the world of one: a prefill of B x S prompt
+# tokens, then greedy decode steps, for qwen3-1.7b whole and dbrx-132b at
+# MESH_MOE_LAYERS layers with its per-period fills forced
+MESH_SERVE = dict(rows=4, prompt=128, steps=16)
 # the backward kernel against its plain version: gradients within this
 # times max|g| of each of dq, dk, dv
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -3813,7 +3835,189 @@ def mesh_local_heads():
                               "backward_err_over_max_g": rel,
                               "lse_max_abs_err": lse_err}
     return {"shape": {"B": B, "S": S, "D": D, "dtype": "bfloat16",
-                      "causal": True}, "heads": out}
+                      "causal": True}, "heads": out,
+            "decode": mesh_local_decode()}
+
+
+def mesh_local_decode():
+    """The decode kernel at MESH_LOCAL_HEADS over layer 1 of a stacked
+    (2, B, Smax, H_r, hd) bf16 cache, viewed (B, H_r, Smax, hd) as
+    ``lm.decode_step`` reads a sharded cache, MESH_DECODE_LENS kv_len,
+    against its plain version (within TOL); the kernel's device time (its
+    profiled name) and wrapper time beside the plain version's and the
+    bound (the cache rows read once, q and the output)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator().manual_seed(26)
+    B, Smax, D = MESH_DECODE_SHAPE
+    lens = torch.tensor(MESH_DECODE_LENS, dtype=torch.int32, device="cuda")
+    out = {}
+    for Hq, Hkv in MESH_LOCAL_HEADS:
+        case = ("bfloat16", B, Hq, Hkv, D, Smax)
+        q = torch.randn((B, Hq, D), generator=gen).to(torch.bfloat16).cuda()
+        k, v = (torch.randn((2, B, Smax, Hkv, D), generator=gen)
+                .to(torch.bfloat16).cuda()[1].permute(0, 2, 1, 3)
+                for _ in range(2))
+        got = ops.gqa_decode_attention(q, k, v, lens)
+        want = ref.gqa_decode(q, k, v, lens)
+        n_read = sum(MESH_DECODE_LENS)
+        nbytes = 2 * (2 * B * Hq * D + 2 * n_read * Hkv * D) + 4 * B
+        ops_n = 4 * n_read * Hq * D
+        out[f"{Hq}/{Hkv}"] = {
+            "max_abs_err": _check_close("decode at local heads", got, want,
+                                        "bfloat16", case),
+            "ms": time_ms(ops.gqa_decode_attention, q, k, v, lens),
+            "device_ms": device_kernel_ms(ops.gqa_decode_attention, q, k,
+                                          v, lens, name=DECODE_KERNEL),
+            "plain_ms": time_ms(ref.gqa_decode, q, k, v, lens),
+            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                  ops_n / BF16_OPS_PER_S),
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= ops_n / BF16_OPS_PER_S else "operations")}
+    return {"shape": {"B": B, "Smax": Smax, "D": D, "dtype": "bfloat16",
+                      "kv_len": list(MESH_DECODE_LENS),
+                      "cache": "layer 1 of (2, B, Smax, H_r, D)"},
+            "heads": out}
+
+
+def _serve_greedy(prefill, decode, tokens):
+    """``prefill(tokens)`` then MESH_SERVE["steps"] greedy decode steps:
+    (stacked logits, tokens (B, steps + 1), the last cache, each step's
+    wall in s, the card synchronized after it)."""
+    import torch
+    t0 = time.perf_counter()
+    logits, cache = prefill(tokens)
+    out, chosen = [logits], [logits.argmax(-1)]
+    torch.cuda.synchronize()
+    walls = [time.perf_counter() - t0]
+    for _ in range(MESH_SERVE["steps"]):
+        t0 = time.perf_counter()
+        logits, cache = decode(chosen[-1][:, None], cache)
+        out.append(logits)
+        chosen.append(logits.argmax(-1))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return torch.stack(out), torch.stack(chosen, 1), cache, walls
+
+
+def _host_ops(fn, top=8):
+    """One call of ``fn`` under torch.profiler's CPU activity: the host
+    ops it ran, their self time in µs, and the ``top`` ops by self time
+    (name, calls, µs)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    worst = sorted(ev, key=lambda e: -e.self_cpu_time_total)[:top]
+    return {"ops": sum(e.count for e in ev),
+            "self_us": sum(e.self_cpu_time_total for e in ev),
+            "top": [(e.key, e.count, e.self_cpu_time_total) for e in worst]}
+
+
+def _serve_vs_plain(cfg, mesh, per_period=False):
+    """``lm.prefill`` + ``lm.decode_step``, then a ``ShardedServer`` on
+    ``mesh`` loaded with the same weights, over MESH_SERVE's prompt: logits,
+    tokens and every cache leaf compared bit for bit, launches, the
+    regions, the fills and walls. ``per_period``: ``BIG_MODEL_B`` at 0,
+    so that the serve placements split over 'data' and every step fills
+    the weights a period at a time."""
+    import torch
+    from repro_torch.launch.serve_mesh import ShardedServer
+    from repro_torch.models import lm
+    from repro_torch.models import sharding
+    t_all = time.perf_counter()
+    _free_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    model = lm.init(cfg, gen, "cuda")
+    B, S, steps = MESH_SERVE["rows"], MESH_SERVE["prompt"], \
+        MESH_SERVE["steps"]
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                           device="cuda")
+    max_seq = S + steps
+    n_attn = lm.n_attn(cfg)
+    want_launches = {"flash_attention": n_attn,
+                     "gqa_decode_attention": n_attn * steps}
+    runs = {}
+    zero_launches()
+    runs["plain"] = _serve_greedy(
+        lambda t: lm.prefill(model, cfg, t, max_seq),
+        lambda t, c: lm.decode_step(model, cfg, t, c), tokens)
+    launches_plain = launch_counts(**want_launches)
+    big = sharding.BIG_MODEL_B
+    if per_period:
+        sharding.BIG_MODEL_B = 0
+    try:
+        server = ShardedServer(cfg, mesh)
+        fills, fill = [], server._fill
+
+        def counting_fill(params, names, whole=False):
+            fill(params, names, whole)
+            fills.append(len(names))
+
+        server._fill = counting_fill
+        t0 = time.perf_counter()
+        server.load(model)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        zero_launches()
+        runs["mesh"] = _serve_greedy(
+            lambda t: server.prefill(server.rows(t), max_seq),
+            server.decode_step, tokens)
+        launches_mesh = launch_counts(**want_launches)
+    finally:
+        sharding.BIG_MODEL_B = big
+    (lp, tp, cp, wp), (lm_, tm, cm, wm) = runs["plain"], runs["mesh"]
+    leaves = {"k": (cp.k, cm.k), "v": (cp.v, cm.v),
+              "kv_len": (cp.kv_len, cm.kv_len),
+              **{k: (t, cm.state[k]) for k, t in cp.state.items()}}
+    cache_equal = {k: _bits_equal(a, b) for k, (a, b) in leaves.items()}
+    if not per_period:
+        # one more decode step each way, profiled on the host (the plain
+        # model's weights are the server's resident blocks: whole on a
+        # world of one); after the comparison, since it writes the caches
+        t = tp[:, -1:]
+        row_ops = {"plain": _host_ops(lambda: lm.decode_step(model, cfg, t,
+                                                              cp)),
+                   "mesh": _host_ops(lambda: server.decode_step(t, cm))}
+    row = {"model": cfg.name, "layers": cfg.n_layers,
+           "prompt": [B, S], "decode_steps": steps,
+           "logits_bit_equal": _bits_equal(lp, lm_),
+           "tokens_bit_equal": _bits_equal(tp, tm),
+           "cache_bit_equal": cache_equal,
+           "cache_leaves_mesh": 3 + len(cm.state),
+           "launches_plain": launches_plain, "launches_mesh": launches_mesh,
+           "regions": sorted(server.split),
+           "region_size": server.region and server.region.size,
+           "tp_cleared": all(getattr(m, "tp", None) is None
+                             for m in model.modules()),
+           "per_period_fills": per_period,
+           "resident_params": len(server.resident),
+           "filled_each_step_params": len(server.params),
+           "fills_at_load": fills[:1], "fills_in_steps": len(fills) - 1,
+           "fill_names_in_steps": sum(fills[1:]),
+           "server_peak_filled_gb": server.peak_bytes["filled"] / 1e9,
+           "load_s": load_s, "wall_s_plain": sum(wp),
+           "wall_s_mesh": sum(wm),
+           # the prefill's wall, then each decode step's
+           "step_walls_s_plain": wp, "step_walls_s_mesh": wm}
+    if not per_period:
+        row["host_ops_one_decode_step"] = row_ops
+    del server, model, runs, lp, tp, cp, lm_, tm, cm, leaves
+    _free_cuda()
+    row["seconds"] = time.perf_counter() - t_all
+    return row
+
+
+def mesh_serve(mesh):
+    """The sharded serve step against the plain one: qwen3-1.7b whole,
+    then dbrx-132b at MESH_MOE_LAYERS layers with its fills forced."""
+    from repro_torch.configs import get
+    moe_cfg = dataclasses.replace(get(MESH_MOE_MODEL).config(),
+                                  n_layers=MESH_MOE_LAYERS)
+    return {"dense": _serve_vs_plain(_train_cfg(), mesh),
+            "moe": _serve_vs_plain(moe_cfg, mesh, per_period=True)}
 
 
 def mesh_launches(train, kernel):
@@ -3927,6 +4131,9 @@ def phase_mesh():
         print(json.dumps({"mesh_train": train}), flush=True)
         psum = mesh_psum()
         fitness = mesh_fitness()
+        t_serve = time.perf_counter()
+        serve = mesh_serve(mesh)
+        serve["seconds"] = time.perf_counter() - t_serve
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3935,7 +4142,7 @@ def phase_mesh():
            "mesh": {"data": 1, "model": 1}, "local_heads": local,
            "train": train,
            "psum_compressed_equal_local": psum, "fitness": fitness,
-           "seconds": time.perf_counter() - t0}
+           "serve": serve, "seconds": time.perf_counter() - t0}
     emit(row)
     failures = []
     for run in (*MESH_OPTIMIZERS, "moe"):
@@ -3957,6 +4164,27 @@ def phase_mesh():
         if not attention <= set(r["regions"]):
             failures.append((run, "attention outside the regions",
                              r["regions"]))
+    for run in ("dense", "moe"):
+        r = serve[run]
+        for key in ("logits_bit_equal", "tokens_bit_equal", "tp_cleared"):
+            if not r[key]:
+                failures.append(("serve", run, key))
+        if not all(r["cache_bit_equal"].values()) \
+                or len(r["cache_bit_equal"]) != r["cache_leaves_mesh"]:
+            failures.append(("serve", run, "cache", r["cache_bit_equal"]))
+        if r["launches_mesh"] != r["launches_plain"] or not (
+                r["launches_mesh"]["flash_attention"] > 0
+                and r["launches_mesh"]["gqa_decode_attention"] > 0):
+            failures.append(("serve", run, "launches", r["launches_mesh"],
+                             r["launches_plain"]))
+        blocks = {f"blocks.{i}.{m}" for i in range(r["layers"])
+                  for m in ("mixer", "ffn")}
+        if r["region_size"] != 1 or not blocks | {""} <= set(r["regions"]):
+            failures.append(("serve", run, "regions", r["regions"]))
+        forced = r["per_period_fills"]
+        if forced != (r["fills_in_steps"] > 0) or forced == (
+                r["filled_each_step_params"] == 0):
+            failures.append(("serve", run, "fills", r["fills_in_steps"]))
     if not all(psum.values()):
         failures.append(("psum_compressed", psum))
     if not (fitness["F_bit_equal"] and fitness["violation_bit_equal"]):
@@ -4061,6 +4289,11 @@ def main():
         "launches_serve_sessions": sess_launches["gqa_decode_attention"],
         "launches_cluster": clu["launches"]["gqa_decode_attention"],
         "launches_families": fam["launches"]["gqa_decode_attention"],
+        "launches_mesh_serve": {
+            msh["serve"][r]["model"]:
+                msh["serve"][r]["launches_mesh"]["gqa_decode_attention"]
+            for r in ("dense", "moe")},
+        "mesh_local_heads": msh["local_heads"]["decode"],
         "cases": dec["cases"] + fam["kernel_shapes"]["cases"],
         "max_abs_err": max(dec["max_abs_err"].values()),
         "max_abs_err_by_dtype": dec["max_abs_err"],
@@ -4080,7 +4313,12 @@ def main():
         "launches_cluster": clu["launches"]["flash_attention"],
         "launches_families": fam["launches"]["flash_attention"],
         "launches_mesh": mesh_launches(msh["train"], "flash_attention"),
-        "mesh_local_heads": msh["local_heads"],
+        "launches_mesh_serve": {
+            msh["serve"][r]["model"]:
+                msh["serve"][r]["launches_mesh"]["flash_attention"]
+            for r in ("dense", "moe")},
+        "mesh_local_heads": {k: v for k, v in msh["local_heads"].items()
+                             if k != "decode"},
         "cases": fa["cases"] + attn["flash_extend"]["cases"],
         "max_abs_err": max(list(fa["max_abs_err"].values())
                            + list(attn["flash_extend"]["max_abs_err"]

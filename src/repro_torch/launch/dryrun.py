@@ -19,10 +19,16 @@ memory allocated. As rank 0 of that mesh it records
     the forward, the remat recompute and the backward, the regions'
     products on the rank's blocks); its collectives as ``CommDebugMode``
     counts them, with the bytes each op writes;
-  * prefill and decode: the serve placements' local blocks (the port's
-    server runs on one card, so they are what a sharded server would
-    store), the FLOPs of ``lm.prefill`` or one ``lm.decode_step`` on the
-    rank's rows, and no collectives (null, with the reason);
+  * prefill and decode: ``lm.prefill``, or one ``lm.decode_step``
+    against an S-deep cache, of the sharded server itself
+    (``launch.serve_mesh.ShardedServer``, the parameters stored in the
+    serve placements) on the rank's rows: the parameter bytes it holds
+    between steps (its resident compute blocks and the blocks it fills
+    from) and the most it fills at once; the cache's bytes at the rank's
+    KV heads and Mamba channels, beside what the reference's
+    ``cache_specs`` (the sequence over 'model') would give the rank; the
+    heads and channels a rank holds; the step's FLOPs on the rank's blocks
+    and its collectives, counted as for train;
   * the batch bytes of the rank's rows (split over the DP axes).
 
 XLA's ``memory_analysis`` and ``cost_analysis`` have no torch
@@ -40,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import time
 import traceback
 from pathlib import Path
@@ -56,9 +63,8 @@ from ..models.config import SHAPES, ModelConfig, cell_applicable
 from .mesh import make_production_mesh, production_world
 
 NO_XLA = ("XLA's compiled-memory and cost analyses have no torch "
-          "counterpart; bytes are the trainer's own (train) or the "
-          "placements' local shapes (serve), FLOPs FlopCounterMode's, and "
-          "activations are not counted")
+          "counterpart; bytes are the trainer's or the server's own, FLOPs "
+          "FlopCounterMode's, and activations are not counted")
 
 
 def opt_state_specs(opt_name: str, shapes: Mapping[str, tuple],
@@ -152,29 +158,6 @@ def _whole_bytes(tree) -> int:
 # a cell
 # ---------------------------------------------------------------------------
 
-def step_flops(cfg: ModelConfig, shape_name: str, model: lm.LM,
-               batch: Dict) -> float:
-    """FLOPs of a serving cell's step on one rank (``FlopCounterMode``)
-    for ``model`` and ``batch`` (the rank's rows; fake tensors): prefill
-    ``lm.prefill``, decode one ``lm.decode_step`` against an S-deep
-    cache."""
-    from torch.utils.flop_counter import FlopCounterMode
-    cell = SHAPES[shape_name]
-    cross = {k: batch[k] for k in ("frames", "patches") if k in batch}
-    with FlopCounterMode(display=False) as flops:
-        if cell.kind == "prefill":
-            with torch.no_grad():
-                lm.prefill(model, cfg, batch["tokens"], **cross)
-        else:
-            B = batch["tokens"].shape[0]
-            cache = lm.make_cache(cfg, B, cell.seq_len, "cpu",
-                                  kv_len=torch.full((B,), cell.seq_len - 1,
-                                                    dtype=torch.int32))
-            with torch.no_grad():
-                lm.decode_step(model, cfg, batch["tokens"], cache)
-    return float(flops.get_total_flops())
-
-
 class _CollectiveBytes(TorchDispatchMode):
     """Adds up, by op, the bytes of the output tensors of every collective
     op it sees (``c10d`` and ``_c10d_functional``, waits left out), or of
@@ -201,7 +184,8 @@ class _CollectiveBytes(TorchDispatchMode):
 
 
 def split_record(trainer, cfg: ModelConfig) -> dict:
-    """How the trainer's regions split attention and Mamba over 'model':
+    """How the regions of ``trainer`` (the sharded trainer or server)
+    split attention and Mamba over 'model':
     for a rank's query heads, KV heads and Mamba channels, the least and
     the most over the ranks and rank 0's (the dry run's rank); None where
     no region splits them."""
@@ -215,6 +199,79 @@ def split_record(trainer, cfg: ModelConfig) -> dict:
         out[what] = sizes and {"min": min(sizes), "max": max(sizes),
                                "rank_0": sizes[0]}
     return out
+
+
+def _collectives(comm, moved, what: str) -> dict:
+    return {"count": {str(op): n for op, n in comm.get_comm_counts().items()},
+            "total_count": comm.get_total_counts(), "bytes": moved.bytes,
+            "what": what}
+
+
+def _cache_bytes(cache, mesh=None, specs=None) -> int:
+    """Bytes of a cache's K/V and state leaves (kv_len, 4 bytes a row,
+    left out), or of a rank's blocks of them under ``specs``."""
+    leaves = {"k": cache.k, "v": cache.v, **cache.state}
+    if specs is None:
+        return sum(t.nbytes for t in leaves.values())
+    spec = {"k": specs.k, "v": specs.v, **specs.state}
+    return sum(math.prod(shard.local_shape(t.shape, mesh, spec[k]))
+               * t.element_size() for k, t in leaves.items())
+
+
+def _serve_record(cfg: ModelConfig, shape_name: str, mesh, batch) -> dict:
+    """Run the sharded serve step (``ShardedServer``) on fake tensors with
+    the rank's rows ``batch``: prefill, or one decode step against a cache
+    filled to S - 1; what it holds and fills, the cache, its FLOPs and its
+    collectives."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.utils.flop_counter import FlopCounterMode
+    from .serve_mesh import ShardedServer
+    cell = SHAPES[shape_name]
+    server = ShardedServer(cfg, mesh, "cpu")
+    server.load(lm.LM(cfg, "cpu"))
+    B = batch["tokens"].shape[0]
+    cross = {k: batch[k] for k in ("frames", "patches") if k in batch}
+    if cell.kind == "decode":
+        cache = server.make_cache(B, cell.seq_len, kv_len=torch.full(
+            (B,), cell.seq_len - 1, dtype=torch.int32))
+    moved = _CollectiveBytes()
+    with CommDebugMode() as comm, moved, \
+            FlopCounterMode(display=False) as flops:
+        if cell.kind == "prefill":
+            _, cache = server.prefill(batch["tokens"], **cross)
+        else:
+            server.decode_step(batch["tokens"], cache)
+    cross_tokens = (cache.state["cross.k"].shape[2]
+                    if "cross.k" in cache.state else None)
+    whole = lm.make_cache(cfg, cell.global_batch, cell.seq_len, "cpu",
+                          cross_tokens=cross_tokens)
+    return {
+        "optimizer": None, "opt_state_bytes_per_rank": 0,
+        "param_bytes_per_rank": server.stored_bytes(),
+        "param_bytes_what": (
+            "the sharded server's bytes between steps: the compute blocks "
+            "of the resident weights (filled once at load: attention at "
+            "the rank's query heads and the KV heads they read, the "
+            "vocabulary, FFN and experts as 'model' blocks, Mamba at its "
+            "channels, the rest whole) and the serve placements' blocks "
+            "of the weights filled for each step"),
+        "resident_params": len(server.resident),
+        "filled_each_step_params": len(server.params),
+        "filled_param_bytes_peak": server.peak_bytes["filled"],
+        "cache_bytes_per_rank": _cache_bytes(cache),
+        "cache_bytes_per_rank_reference_spec": _cache_bytes(
+            whole, mesh, shard.cache_specs(cfg, whole, mesh)),
+        "cache_what": (
+            "the K/V and state leaves of the rank's rows (kv_len's 4 bytes "
+            "a row left out): the port's at the rank's KV heads and Mamba "
+            "channels; the reference spec's with the sequence over "
+            "'model' (sharding.cache_specs on the whole batch)"),
+        "split": split_record(server, cfg),
+        "flops_per_rank": float(flops.get_total_flops()),
+        "collectives": _collectives(
+            comm, moved, f"the collectives of one ShardedServer."
+            f"{'prefill' if cell.kind == 'prefill' else 'decode_step'}, "
+            f"counted by CommDebugMode; bytes are each op's outputs")}
 
 
 def _train_record(cfg: ModelConfig, shape_name: str, mesh, batch) -> dict:
@@ -258,13 +315,9 @@ def _train_record(cfg: ModelConfig, shape_name: str, mesh, batch) -> dict:
             "in place); activations and temporaries not counted"),
         "split": split_record(trainer, cfg),
         "flops_per_rank": float(flops.get_total_flops()),
-        "collectives": {
-            "count": {str(op): n
-                      for op, n in comm.get_comm_counts().items()},
-            "total_count": comm.get_total_counts(),
-            "bytes": moved.bytes,
-            "what": ("the collectives of one Trainer.train_step, counted "
-                     "by CommDebugMode; bytes are each op's outputs")}}
+        "collectives": _collectives(
+            comm, moved, "the collectives of one Trainer.train_step, "
+            "counted by CommDebugMode; bytes are each op's outputs")}
 
 
 def build_cell(cfg: ModelConfig, shape_name: str, mesh) -> dict:
@@ -288,22 +341,8 @@ def build_cell(cfg: ModelConfig, shape_name: str, mesh) -> dict:
                "batch_local": local["tokens"][0][0],
                "batch_bytes_per_rank": sum(t.nbytes
                                            for t in batch.values())}
-        if train:
-            rec.update(_train_record(cfg, shape_name, mesh, batch))
-        else:
-            pspecs = shard.param_specs(cfg, model, mesh, mode="serve")
-            rec.update(
-                optimizer=None, opt_state_bytes_per_rank=0,
-                param_bytes_per_rank=_local_bytes(
-                    {k: shard.shard(p, mesh, pspecs[k])
-                     for k, p in params.items()}),
-                param_bytes_what=(
-                    "the serve placements' local blocks: the port's "
-                    "server runs on one card and stores no shards"),
-                flops_per_rank=step_flops(cfg, shape_name, model, batch),
-                collectives=None,
-                collectives_null_because=(
-                    "the port has no sharded serving step to count"))
+        rec.update((_train_record if train else _serve_record)(
+            cfg, shape_name, mesh, batch))
     tokens = batch["tokens"].shape[0] * batch["tokens"].shape[1]
     rec["model_flops_per_rank"] = cfg.model_flops_per_token(train) * tokens
     return rec

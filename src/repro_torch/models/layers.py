@@ -126,33 +126,28 @@ def attention(p, cfg: ModelConfig, x: torch.Tensor, *,
     """Full-sequence self-attention (``train_logits``); in a region
     (``p.tp``) over the rank's heads, the output summed over the
     region."""
-    region = getattr(p, "tp", None)
-    x = TP.copy_to(x, region)
-    q, k, v = _qkv(p, cfg, x, x)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    out = _self_attention(q, k, v, causal)
-    return TP.reduce_from(out.flatten(2) @ p.wo, region)
+    return attention_prefill_cache(p, cfg, x, positions, causal)[0]
 
 
 def attention_prefill_cache(p, cfg: ModelConfig, x: torch.Tensor,
-                            positions: torch.Tensor
+                            positions: torch.Tensor, causal: bool = True
                             ) -> Tuple[torch.Tensor,
                                        Tuple[torch.Tensor, torch.Tensor]]:
-    """Like ``attention`` (causal), and also returns the (k, v) cache, each
-    (B, S, Hkv, D).
+    """Like ``attention``, and also returns the (k, v) cache, each (B, S,
+    Hkv, D): in a region the rank's KV heads.
 
     The reference computes this with its XLA einsum path
     (``_xla_attention``); the port runs the flash kernel here, the same
     function, since the reference's kernel module itself names prefill as
     the kernel's hot spot. This is the one place the port launches a kernel
     where the reference does not."""
+    region = getattr(p, "tp", None)
+    x = TP.copy_to(x, region)
     q, k, v = _qkv(p, cfg, x, x)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    out = _self_attention(q, k, v, causal=True)
-    B, S = x.shape[:2]
-    return out.reshape(B, S, cfg.q_dim) @ p.wo, (k, v)
+    out = _self_attention(q, k, v, causal)
+    return TP.reduce_from(out.flatten(2) @ p.wo, region), (k, v)
 
 
 def attention_prefill_extend(p, cfg: ModelConfig, x: torch.Tensor,
@@ -191,13 +186,16 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor,
                      cache: Tuple[torch.Tensor, torch.Tensor],
                      pos: torch.Tensor) -> torch.Tensor:
     """One-token decode. x: (B, 1, d); cache: one layer's (k, v), each
-    (B, Smax, Hkv, D); pos: (B,) current lengths. Returns y (B, 1, d).
+    (B, Smax, Hkv, D) (in a region, ``p.tp``, the rank's KV heads); pos:
+    (B,) current lengths. Returns y (B, 1, d), in a region summed over it.
 
     Writes the new k, v **in place** into the cache at ``pos``, clamped to
     Smax - 1: the reference's ``dynamic_update_slice`` clamps the same way,
     which is what an idle slot, whose length grows past Smax, meets. The
     kernel then attends over ``pos + 1`` positions (at most Smax), reading
     the cache through a permuted view in place."""
+    region = getattr(p, "tp", None)
+    x = TP.copy_to(x, region)
     B = x.shape[0]
     q, k_new, v_new = _qkv(p, cfg, x, x)
     q = rope(q, pos[:, None], cfg.rope_theta)
@@ -208,9 +206,9 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor,
     k_cache[rows, at] = k_new[:, 0]
     v_cache[rows, at] = v_new[:, 0]
     out = ops.gqa_decode_attention(
-        q[:, 0].reshape(B, cfg.n_heads, cfg.hd),
-        k_cache.permute(0, 2, 1, 3), v_cache.permute(0, 2, 1, 3), pos + 1)
-    return out.reshape(B, 1, cfg.q_dim) @ p.wo
+        q[:, 0], k_cache.permute(0, 2, 1, 3), v_cache.permute(0, 2, 1, 3),
+        pos + 1)
+    return TP.reduce_from(out.reshape(B, 1, -1) @ p.wo, region)
 
 
 # ---------------------------------------------------------------------------

@@ -15,12 +15,13 @@ Public entry points:
                                                          MoE aux loss)
     loss_fn(model, cfg, batch, remat, aux_weight, remat_policy)
                                                      -> (loss, {nll, aux})
-    prefill(model, cfg, tokens, max_seq, length, frames, patches)
-                                                     -> (last logits, Cache)
+    prefill(model, cfg, tokens, max_seq, length, frames, patches,
+            materialize)                             -> (last logits, Cache)
     prefill_extend(model, cfg, tokens, prefix, max_seq, prefix_len, length)
                                                      -> (last logits, Cache)
-    make_cache(cfg, batch, max_seq, device)          -> empty Cache
-    decode_step(model, cfg, token, cache)            -> (logits, Cache)
+    make_cache(cfg, batch, max_seq, device, tp=)     -> empty Cache
+    decode_step(model, cfg, token, cache, materialize)
+                                                     -> (logits, Cache)
     param_stacks(cfg, names)                         -> {stack: [names]}
 
 ``frames`` (audio: (B, T, d) stub-frontend embeddings through the encoder)
@@ -37,10 +38,14 @@ remat policies (``REMAT_POLICIES``).
 
 The modules with ``SPLIT`` (the LM's embedding and head, ``FFN``, ``MoE``,
 ``Attention``, ``Mamba``) are the 'model'-parallel regions of
-``tensor_parallel``: a sharded trainer sets their ``tp`` for a step, and
-``SPLIT`` names the dimension of each weight that a rank then holds a
-block of (``split_ranges``, where a module has it, which ranges of it:
-attention's heads, Mamba's channels).
+``tensor_parallel``: a sharded trainer or server sets their ``tp`` for a
+step, and ``SPLIT`` names the dimension of each weight that a rank then
+holds a block of (``split_ranges``, where a module has it, which ranges of
+it: attention's heads, Mamba's channels). ``prefill`` and ``decode_step``
+run in those regions too: the cache then holds the rank's KV heads and
+Mamba channels (``make_cache(tp=)``), and the last logits are gathered
+whole over the vocabulary. ``prefill_extend`` (the engine's prefix reuse)
+runs on one card only.
 """
 from __future__ import annotations
 
@@ -272,12 +277,18 @@ class Mamba(nn.Module):
         """Each rank's channels over n ranks (both halves of in_proj's
         columns), or None (kept whole) where n does not divide them."""
         di = self.D.shape[0]
-        if di % n:
+        ch = channel_ranges(di, n)
+        if ch is None:
             return None
-        ch = SH.even_ranges(di, n)
         out = {k: ch for k in self.SPLIT}
         out["in_proj"] = tuple(((a, b), (di + a, di + b)) for (a, b), in ch)
         return out
+
+
+def channel_ranges(di: int, n: int):
+    """Each of n ranks' Mamba channels of ``di``, or None (kept whole)
+    where n does not divide them."""
+    return None if di % n else SH.even_ranges(di, n)
 
 
 class MLSTM(nn.Module):
@@ -488,13 +499,18 @@ def _put_state(cache: Cache, layer: Layer, values) -> None:
 
 def _forward(cfg: ModelConfig, blocks, layers, x: torch.Tensor,
              positions: torch.Tensor, cross_x: Optional[torch.Tensor],
-             cache: Optional[Cache] = None):
+             cache: Optional[Cache] = None,
+             materialize: Optional[Callable] = None):
     """The full-sequence pass of ``blocks`` (``layers`` their layout) over
     x (B, S, d); returns (x, the list of the MoE layers' aux losses). With
     ``cache``, each layer's K/V (at positions 0..S-1), cross K/V and final
-    recurrent state are written into it."""
+    recurrent state are written into it. ``materialize(period's blocks)``,
+    when given, is called before each period of the block pattern runs."""
     aux = []
-    for blk, layer in zip(blocks, layers):
+    P = len(cfg.pattern)
+    for i, (blk, layer) in enumerate(zip(blocks, layers)):
+        if materialize is not None and i % P == 0:
+            materialize(blocks[i:i + P])
         mixer = layer.mixer
         h = L.apply_norm(cfg, blk.norm1, x)
         if mixer in SELF_ATTN:
@@ -562,6 +578,19 @@ def _final_logits(model: LM, cfg: ModelConfig, x: torch.Tensor):
         L.apply_norm(cfg, model.final_norm, x), model.tp))
 
 
+def _last_logits(model: LM, cfg: ModelConfig, x: torch.Tensor):
+    """(B, vocab) f32 logits of x (B, 1, d), whole over the vocabulary
+    (gathered in a region)."""
+    return TP.gather_vocab(_final_logits(model, cfg, x)[:, 0], model.tp)
+
+
+def _step_region(model: LM) -> Optional[TP.Region]:
+    """The region a sharded step set on ``model``'s modules (all of them
+    share one), or None."""
+    return next((m.tp for m in model.modules()
+                 if getattr(m, "tp", None) is not None), None)
+
+
 # ---------------------------------------------------------------------------
 # forward passes
 # ---------------------------------------------------------------------------
@@ -595,13 +624,6 @@ def _save_ffn_hidden(blocks):
     return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
-def _materialized(materialize: Callable, cfg: ModelConfig, blocks, *args):
-    """``_forward`` of one period after ``materialize(blocks)``: inside the
-    checkpointed region, so the recompute calls it again."""
-    materialize(blocks)
-    return _forward(cfg, blocks, *args)
-
-
 def _periods(cfg: ModelConfig, model: LM):
     """(blocks, layers) of each period of the block pattern."""
     P, lay = len(cfg.pattern), layout(cfg)
@@ -627,8 +649,8 @@ def train_logits(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
     it changes nothing.
 
     ``materialize(blocks)``, when given, is called before each period
-    runs, and again before its recompute (the sharded trainer fills the
-    period's parameters there)."""
+    runs, and again before its recompute (inside the checkpointed region;
+    the sharded trainer fills the period's parameters there)."""
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy {remat_policy!r}: one of "
                          f"{REMAT_POLICIES}")
@@ -636,16 +658,16 @@ def train_logits(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
     cross_x = _cross_input(model, cfg, frames, patches)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    run = (_forward if materialize is None
-           else functools.partial(_materialized, materialize))
     for blocks, layers in _periods(cfg, model):
         if remat and torch.is_grad_enabled():
             kw = ({} if remat_policy == "full" else
                   {"context_fn": _save_ffn_hidden(blocks)})
-            x, a = checkpoint(run, cfg, blocks, layers, x, positions,
-                              cross_x, use_reentrant=False, **kw)
+            x, a = checkpoint(_forward, cfg, blocks, layers, x, positions,
+                              cross_x, None, materialize,
+                              use_reentrant=False, **kw)
         else:
-            x, a = run(cfg, blocks, layers, x, positions, cross_x)
+            x, a = _forward(cfg, blocks, layers, x, positions, cross_x,
+                            None, materialize)
         for term in a:
             aux = aux + term
     return _final_logits(model, cfg, x), aux
@@ -675,27 +697,51 @@ def loss_fn(model: LM, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
     return loss + aux_weight * aux, {"nll": loss, "aux": aux}
 
 
+def cache_widths(cfg: ModelConfig, tp: Optional[TP.Region] = None
+                 ) -> Tuple[int, Optional[int]]:
+    """(KV heads, Mamba channels or None) that a cache holds: all of them,
+    or in the region ``tp`` the rank's, as its attention and Mamba modules
+    split them (``sharding.head_split``'s KV ranges, ``channel_ranges``):
+    read from the config, since a sharded step may size a cache while
+    its weights are empty."""
+    Hkv, di = cfg.n_kv_heads, cfg.ssm and S.d_inner(cfg)
+    if tp is not None:
+        heads = SH.head_split(cfg.n_heads, cfg.n_kv_heads, tp.size)
+        if heads is not None:
+            a, b = heads.kv[tp.rank]
+            Hkv = b - a
+        ch = di and channel_ranges(di, tp.size)
+        if ch:
+            (a, b), = ch[tp.rank]
+            di = b - a
+    return Hkv, di
+
+
 def make_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
                device: Device = None,
                kv_len: Optional[torch.Tensor] = None,
-               cross_tokens: Optional[int] = None) -> Cache:
+               cross_tokens: Optional[int] = None,
+               tp: Optional[TP.Region] = None) -> Cache:
     """An empty decode cache (zeros; the stabilizers at the reference's
     -1e30), with ``kv_len`` marking the fill; cross K/V hold
-    ``cross_tokens`` (default ``cfg.cross_kv_tokens``) positions."""
+    ``cross_tokens`` (default ``cfg.cross_kv_tokens``) positions. In the
+    region ``tp`` the K/V (self and cross) hold the rank's KV heads and
+    the Mamba state its channels (``cache_widths``); mLSTM and sLSTM
+    states are whole."""
     dev = resolve(device)
     dt = L.dtype_of(cfg)
     B = batch_size
-    shp = (n_attn(cfg), B, max_seq, cfg.n_kv_heads, cfg.hd)
+    Hkv, di = cache_widths(cfg, tp)
+    shp = (n_attn(cfg), B, max_seq, Hkv, cfg.hd)
     sizes = group_sizes(cfg)
-    init = {"mamba": lambda: S.init_state(cfg, B, dt, dev),
+    init = {"mamba": lambda: S.init_state(cfg, B, dt, dev, di),
             "mlstm": lambda: X.init_mlstm_state(cfg, B, dev),
             "slstm": lambda: X.init_slstm_state(cfg, B, dev)}
     state: Dict[str, torch.Tensor] = {}
     for group, n in sizes.items():
         if group == "cross":
             T = cross_tokens or cfg.cross_kv_tokens
-            one = torch.zeros((B, T, cfg.n_kv_heads, cfg.hd), dtype=dt,
-                              device=dev)
+            one = torch.zeros((B, T, Hkv, cfg.hd), dtype=dt, device=dev)
             leaves = (one, one)
         else:
             leaves = init[group]()
@@ -730,10 +776,14 @@ def prefill(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
             max_seq: Optional[int] = None,
             length: Optional[int] = None,
             frames: Optional[torch.Tensor] = None,
-            patches: Optional[torch.Tensor] = None):
+            patches: Optional[torch.Tensor] = None,
+            materialize: Optional[Callable] = None):
     """Run the prompt (B, S); return (last-token logits (B, vocab) f32,
     Cache allocated at ``max_seq`` (default S) holding the prompt's K/V,
-    cross K/V and recurrent state).
+    cross K/V and recurrent state). In the regions of a sharded step the
+    cache holds the rank's widths (``make_cache(tp=)``) and the logits are
+    gathered whole; ``materialize(blocks)``, when given, is called before
+    each period of the block pattern runs.
 
     ``length`` is **bucketed prefill**: the tokens may be padded past the
     real prompt, logits are read at row ``length - 1`` and ``kv_len`` marks
@@ -751,13 +801,13 @@ def prefill(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
     cache = make_cache(cfg, B, max_seq, tokens.device,
                        kv_len=torch.full((B,), fill, dtype=torch.int32),
                        cross_tokens=(None if cross_x is None
-                                     else cross_x.shape[1]))
-    x = L.embed(model.embed, tokens)
+                                     else cross_x.shape[1]),
+                       tp=_step_region(model))
+    x = L.embed(model.embed, tokens, model.tp)
     positions = torch.arange(Sq, device=tokens.device)[None]
     x, _ = _forward(cfg, model.blocks, layout(cfg), x, positions, cross_x,
-                    cache)
-    logits = _final_logits(model, cfg, x[:, fill - 1:fill])[:, 0]
-    return logits, cache
+                    cache, materialize)
+    return _last_logits(model, cfg, x[:, fill - 1:fill]), cache
 
 
 def prefill_extend(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
@@ -818,18 +868,22 @@ def prefill_extend(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
         cache.k[li, :, at:at + Sn] = k[:, -Sn:]
         cache.v[li, :, at:at + Sn] = v[:, -Sn:]
         x, _ = _ffn(blk, cfg, layer.ffn, x + y)
-    logits = _final_logits(model, cfg, x[:, last - 1:last])[:, 0]
-    return logits, cache
+    return _last_logits(model, cfg, x[:, last - 1:last]), cache
 
 
 def decode_step(model: LM, cfg: ModelConfig, token: torch.Tensor,
-                cache: Cache):
+                cache: Cache, materialize: Optional[Callable] = None):
     """token: (B, 1) -> (logits (B, vocab) f32, Cache). Every row decodes,
     live or not, and every row's kv_len grows by one, as in the reference;
     K/V and recurrent state are updated in place and returned in the new
-    Cache."""
-    x = L.embed(model.embed, token)
-    for blk, layer in zip(model.blocks, layout(cfg)):
+    Cache. In the regions of a sharded step ``cache`` holds the rank's
+    widths and the logits are gathered whole; ``materialize(blocks)``,
+    when given, is called before each period of the block pattern runs."""
+    x = L.embed(model.embed, token, model.tp)
+    P = len(cfg.pattern)
+    for li, (blk, layer) in enumerate(zip(model.blocks, layout(cfg))):
+        if materialize is not None and li % P == 0:
+            materialize(model.blocks[li:li + P])
         mixer = layer.mixer
         h = L.apply_norm(cfg, blk.norm1, x)
         if mixer in SELF_ATTN:
@@ -848,5 +902,5 @@ def decode_step(model: LM, cfg: ModelConfig, token: torch.Tensor,
             _put_state(cache, layer, st)
             x = x + y
         x, _ = _ffn(blk, cfg, layer.ffn, x)
-    logits = _final_logits(model, cfg, x)[:, 0]
-    return logits, cache._replace(kv_len=cache.kv_len + 1)
+    return _last_logits(model, cfg, x), cache._replace(
+        kv_len=cache.kv_len + 1)

@@ -35,22 +35,31 @@ parameter to its reference path through ``convert.lm_ref_paths`` and gives
 the reference's spec with the stacked axis dropped. Weights keep the
 reference's (d_in, d_out) layout, so the rules' axes apply as they are.
 
-What a spec means here: the sharded trainer (``training.trainer``) stores
-parameters and optimizer state as DTensors with these placements. For
-compute it fills the weights that a 'model'-parallel region splits
-(:func:`model_split`: the vocab-parallel embedding and head, the column-
-and row-parallel FFN, the experts, attention's heads, Mamba's channels)
-over the other axes only, each rank keeping its compute block (a
-:class:`Split`), and the rest whole (xLSTM, norms, routers). The optimizer
-updates the stored blocks in place (:func:`block_layout` tells it where a
-block lies). Activations are each rank's local tensors, whole over 'model'
-between regions: :func:`constrain` is a no-op.
+What a spec means here: the sharded trainer (``training.trainer``) and
+the sharded server (``launch.serve_mesh``) store parameters (and the
+trainer its optimizer state) as DTensors with these placements
+(:class:`MeshParams`). For compute they fill the weights that a
+'model'-parallel region splits (:func:`model_split`: the vocab-parallel
+embedding and head, the column- and row-parallel FFN, the experts,
+attention's heads, Mamba's channels) over the other axes only, each rank
+keeping its compute block (a :class:`Split`), and the rest whole (xLSTM,
+norms, routers). The optimizer updates the stored blocks in place
+(:func:`block_layout` tells it where a block lies). Activations are each
+rank's local tensors, whole over 'model' between regions: :func:`constrain`
+is a no-op.
+
+The KV cache of the port's sharded server holds each rank's KV heads (the
+heads its attention region reads), not the sequence slice that
+:func:`cache_specs` gives (the reference's GSPMD layout): attention then
+needs no collective beyond its output's sum, and the kernels run on
+local tensors; ranks that share a KV head each hold it.
 """
 from __future__ import annotations
 
+import contextlib
 import re
-from typing import (Dict, Mapping, NamedTuple, Optional, Sequence, Tuple,
-                    Union)
+from typing import (Dict, Iterable, Mapping, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
 
@@ -97,6 +106,18 @@ def best_dp_prefix(mesh, dim: int, full_dp: bool) -> Axis:
     while axes and dim % _axis_size(mesh, tuple(axes)) != 0:
         axes.pop()
     return tuple(axes) if axes else None
+
+
+def dp_coordinate(mesh, axes) -> Tuple[int, int]:
+    """(this rank's index, the count) over the mesh ``axes`` (major
+    first): its data-parallel rank when they are the DP axes."""
+    names = tuple(mesh.mesh_dim_names)
+    coord = dict(zip(names, mesh.get_coordinate()))
+    index, count = 0, 1
+    for a in axes or ():
+        n = mesh.size(names.index(a))
+        index, count = index * n + coord[a], count * n
+    return index, count
 
 
 def constrain(x, *axes):
@@ -466,3 +487,156 @@ def local_shape(shape, mesh, spec: Spec) -> Tuple[int, ...]:
     ``spec`` (every axis of a fitted spec divides its dimension)."""
     spec = _fit(mesh, spec, shape)
     return tuple(d // _axis_size(mesh, a) for d, a in zip(shape, spec))
+
+
+class MeshParams:
+    """A model's parameters stored on a mesh and filled into the model for
+    compute: the storage-and-fill half of the sharded trainer and the
+    sharded server.
+
+    ``params`` keeps this rank's blocks ({name: DTensor} with the
+    placements of :func:`param_specs` in ``mode``); the model's own
+    parameters hold no storage until :meth:`_fill` gives them their values
+    as computed: a 'model'-parallel region's weights as this rank's
+    compute blocks (``split``, ``region``; ``tensor_parallel.fill_block``
+    moves ranges that other ranks store), gathered over the other axes,
+    the rest whole. ``peak_bytes["filled"]`` is the most bytes the model's
+    parameters have held at once. Without a mesh nothing is stored and
+    there is no region."""
+
+    def __init__(self, cfg: ModelConfig, mesh, mode: str,
+                 peaks: Sequence[str] = ("filled",)):
+        self.mesh = mesh
+        self.pspecs: Optional[Dict[str, Spec]] = None
+        #: the whole shape of each parameter, by name (on a mesh)
+        self.shapes: Optional[Dict[str, tuple]] = None
+        #: the stored parameters on a mesh: {name: DTensor}
+        self.params: Optional[Dict[str, torch.Tensor]] = None
+        #: the 'model'-parallel regions: {module name: {parameter: its
+        #: Split}}
+        self.split: Dict[str, Dict[str, Split]] = {}
+        self.region = None
+        if mesh is not None:
+            from . import lm
+            from . import tensor_parallel as TP
+            model = lm.LM(cfg, "meta")
+            self.pspecs = param_specs(cfg, model, mesh, mode=mode)
+            self.shapes = {n: tuple(p.shape)
+                           for n, p in model.named_parameters()}
+            if cfg.tp_friendly and "model" in mesh.mesh_dim_names:
+                self.split = model_split(model, mesh)
+                self.region = TP.Region(
+                    mesh.get_group("model"),
+                    mesh.size(mesh.mesh_dim_names.index("model")),
+                    mesh.get_local_rank("model"))
+        #: each region parameter's Split (the rest is whole)
+        self.splits = {k: sp for ds in self.split.values()
+                       for k, sp in ds.items()}
+        self.peak_bytes = dict.fromkeys(peaks, 0)
+
+    def _fill(self, params, names, whole: bool = False) -> None:
+        """Give the model's parameters ``names`` their stored values as
+        computed (a region's weights their compute blocks, gathered over
+        the other axes, the rest whole), or all whole with ``whole`` (a
+        collective: every rank calls it)."""
+        with torch.no_grad():
+            for k in names:
+                p = params[k]
+                value = self._model_block(k, whole)
+                if p.shape != value.shape:   # first fill, or after a
+                    p.data = value.clone()   # gather_model
+                    continue
+                # the recompute refills a tensor that autograd saved: its
+                # values come back unchanged, so its version stays
+                with torch.autograd._unsafe_preserve_version_counter(p):
+                    p.untyped_storage().resize_(value.nbytes)
+                    p.copy_(value)
+        self._peak("filled", sum(p.untyped_storage().nbytes()
+                                 for p in params.values()))
+
+    def _storage(self, k: str):
+        """(placements of ``k``'s storage block over 'model', whole over
+        the other axes; the dimension storage splits over 'model', or
+        None)."""
+        from torch.distributed.tensor import Shard
+        pl = self.params[k].placements[self.mesh.mesh_dim_names.index(
+            "model")]
+        return (fill_placements(self.mesh, pl),
+                pl.dim if isinstance(pl, Shard) else None)
+
+    def _model_block(self, k: str, whole: bool = False) -> torch.Tensor:
+        """This rank's block of the stored weight ``k`` as computed: its
+        region's compute block (``tensor_parallel.fill_block``: ranges
+        that other ranks store moved by an all-to-all, so no rank holds
+        the weight whole), or whole."""
+        from . import tensor_parallel as TP
+        t, sp = self.params[k], None if whole else self.splits.get(k)
+        if sp is None or sp.dim is None:
+            return t.redistribute(self.mesh,
+                                  fill_placements(self.mesh)).to_local()
+        keep, src = self._storage(k)
+        return TP.fill_block(t.redistribute(self.mesh, keep).to_local(), src,
+                             sp, self.region)
+
+    def _peak(self, what: str, nbytes: int) -> None:
+        self.peak_bytes[what] = max(self.peak_bytes[what], nbytes)
+
+    @staticmethod
+    def _release(params, names) -> None:
+        """Free the storage of the model's parameters ``names``."""
+        for k in names:
+            params[k].untyped_storage().resize_(0)
+
+    def _store(self, model) -> None:
+        """Keep this rank's blocks of ``model``'s parameters (whole, the
+        same on every rank) in ``self.params`` and free the model's."""
+        params = dict(model.named_parameters())
+        self.params = {k: shard(p, self.mesh, self.pspecs[k])
+                       for k, p in params.items()}
+        self._release(params, params)
+
+    def gather_model(self, model):
+        """``model`` with every parameter filled with its stored whole
+        value (a collective)."""
+        self._fill(dict(model.named_parameters()), self.params, whole=True)
+        return model
+
+    @contextlib.contextmanager
+    def _regions(self, model):
+        """Set the region on ``model``'s region modules for a step;
+        cleared on the way out, whatever happens (the model's single-card
+        paths then take none)."""
+        mods = [model.get_submodule(m) for m in self.split]
+        for mod in mods:
+            mod.tp = self.region
+        try:
+            yield
+        finally:
+            for mod in mods:
+                mod.tp = None
+
+    def _period_filler(self, model, params, skip: Iterable[str] = (),
+                       free_previous: bool = True):
+        """A ``materialize(blocks)`` hook for ``lm``'s passes: it fills the
+        parameters of the period ``blocks`` (but ``skip``), once, and with
+        ``free_previous`` first frees the period filled before it."""
+        skip = set(skip)
+        index = {id(blk): i for i, blk in enumerate(model.blocks)}
+        layer: Dict[int, list] = {}
+        for k in params:
+            if k.startswith("blocks.") and k not in skip:
+                layer.setdefault(int(k.split(".")[1]), []).append(k)
+        live: Dict[int, list] = {}
+
+        def materialize(blocks):
+            key = index[id(blocks[0])]
+            if free_previous:
+                for other in [o for o in live if o != key]:
+                    self._release(params, live.pop(other))
+            if key not in live:
+                live[key] = [k for blk in blocks
+                             for k in layer.get(index[id(blk)], ())]
+                if live[key]:
+                    self._fill(params, live[key])
+
+        return materialize

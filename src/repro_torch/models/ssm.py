@@ -16,11 +16,13 @@ In a region (``p.tp``, a ``tensor_parallel.Region``) the module's weights
 are the rank's d_inner / n channels: every per-channel step (in_proj's
 two halves, the conv, Δt, the scan and its state) runs on them locally;
 ``x_proj``'s rows are the rank's, its outputs summed over the region;
-``out_proj``'s rows too, the block's output summed over the region.
+``out_proj``'s rows too, the block's output summed over the region. A
+decode cache then holds the state of the rank's channels
+(:func:`init_state`).
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -164,9 +166,11 @@ def mamba_decode(p, cfg: ModelConfig, x: torch.Tensor,
 
 
 def init_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
-               device) -> State:
+               device, channels: Optional[int] = None) -> State:
+    """The zero state (h, conv window) of ``channels`` channels (default
+    all d_inner; in a region the rank's)."""
     s = cfg.ssm
-    di = d_inner(cfg)
+    di = d_inner(cfg) if channels is None else channels
     return (torch.zeros((batch, di, s.d_state), dtype=torch.float32,
                         device=device),
             torch.zeros((batch, s.d_conv - 1, di), dtype=dtype,

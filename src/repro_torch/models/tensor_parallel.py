@@ -3,8 +3,9 @@ the mesh's 'model' axis (``repro.models.sharding``'s rules), written out as
 Megatron-style operators on a process group.
 
 A :class:`Region` is the 'model' axis's process group as one rank sees it.
-The sharded trainer (``training.trainer``) sets it as the ``tp`` attribute
-of each module whose weights it filled as this rank's 'model' blocks
+The sharded trainer (``training.trainer``) and the sharded server
+(``launch.serve_mesh``) set it as the ``tp`` attribute of each module whose
+weights they filled as this rank's 'model' blocks
 (``sharding.model_split``), for the length of a step; everywhere else
 ``tp`` is None and each operator below is the plain computation. Tokens
 and activations between regions are whole and the same on every rank of
@@ -22,10 +23,12 @@ the group (the rows of one data-parallel rank):
 * the vocabulary: ``layers.embed`` (rows outside the rank's slice masked
   to zero, then :func:`reduce_from`), :func:`copy_to` at the head's input,
   and :func:`nll` over the rank's logits (max and sum of exponentials
-  all-reduced, the label's logit from the rank that holds it);
+  all-reduced, the label's logit from the rank that holds it); a serving
+  step gathers the ranks' logit slices whole (:func:`gather_vocab`);
 * attention: :func:`copy_to` at the input (and at the cross-attention's
   encoder or patch input), the rank's query heads and the KV heads they
-  read, the flash kernels on those local heads, its rows of ``wo`` and
+  read, the flash kernels (prefill) or the decode kernel (over a cache
+  held at those KV heads) on those local heads, its rows of ``wo`` and
   :func:`reduce_from`;
 * Mamba: :func:`copy_to`, the rank's channels through in_proj, the conv,
   the Δt path and the scan, ``x_proj``'s partial sums through
@@ -243,6 +246,20 @@ def reduce_from(x: torch.Tensor, region: Optional[Region]) -> torch.Tensor:
     """The output of a region: ``x`` summed over the group forward (each
     rank's partial sum); the gradient as it is backward."""
     return x if region is None else _ReduceFrom.apply(x, region)
+
+
+def gather_vocab(logits: torch.Tensor, region: Optional[Region]
+                 ) -> torch.Tensor:
+    """The whole (..., V) logits from each rank's (..., V / size) slice
+    of the vocabulary (rank r's columns the r-th), all-gathered; forward
+    only (a serving step takes no gradient)."""
+    if region is None:
+        return logits
+    out = logits.new_empty((region.size * logits.shape[0],)
+                           + logits.shape[1:])
+    dist.all_gather_into_tensor(out, logits.contiguous(), group=region.group)
+    return torch.movedim(out.unflatten(0, (region.size, -1)), 0,
+                         -2).flatten(-2)
 
 
 def gather(x: torch.Tensor, region: Optional[Region]) -> torch.Tensor:

@@ -102,12 +102,11 @@ def _local(tree):
     return tree.to_local()
 
 
-class Trainer:
+class Trainer(shard.MeshParams):
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig,
                  device: Device = None, mesh=None):
         self.cfg = cfg
         self.tcfg = tcfg
-        self.mesh = mesh
         self.device = resolve(device)
         #: the mesh axes the batch splits over (the reference's input
         #: specs: the whole mesh for tp_friendly=False archs, each axis
@@ -120,10 +119,7 @@ class Trainer:
                                  f"{self.device}")
             self.dp = shard.best_dp_prefix(
                 mesh, tcfg.global_batch, full_dp=not cfg.tp_friendly) or ()
-            coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
-            for a in self.dp:
-                n = mesh.size(mesh.mesh_dim_names.index(a))
-                dp_index, self.n_dp = dp_index * n + coord[a], self.n_dp * n
+            dp_index, self.n_dp = shard.dp_coordinate(mesh, self.dp)
         local = tcfg.global_batch // self.n_dp
         if local % tcfg.microbatches:
             raise ValueError(f"global_batch {tcfg.global_batch} does not "
@@ -138,41 +134,24 @@ class Trainer:
             seq_len=tcfg.seq_len, global_batch=tcfg.global_batch,
             seed=tcfg.seed, n_chains=tcfg.data_chains,
             branch=tcfg.data_branch), host_index=dp_index, n_hosts=self.n_dp)
-        self.pspecs = self.sspecs = None
-        #: the stored parameters on a mesh: {name: DTensor}
-        self.params: Optional[Dict[str, torch.Tensor]] = None
+        # on a mesh, ``peak_bytes`` holds the most bytes a step has held
+        # at once of: parameters filled into the model ("filled": whole,
+        # or their 'model' blocks in a region), parameters, gradients and
+        # state that the update gathers whole ("update": none, every
+        # optimizer updates the blocks in place), and the f32 gradient
+        # blocks kept from the backward to the update ("grads"); a region
+        # exists for tp_friendly archs, whose batch never splits over
+        # 'model'
+        super().__init__(cfg, mesh, "train", ("filled", "update", "grads"))
+        self.sspecs = None
         #: on a mesh, each parameter's ``sharding.BlockLayout``
         self.layouts: Optional[Dict[str, shard.BlockLayout]] = None
-        #: the 'model'-parallel regions: {module name: {parameter: its
-        #: sharding.Split}}
-        self.split: Dict[str, Dict[str, shard.Split]] = {}
-        self.region: Optional[TP.Region] = None
         if mesh is not None:
             from ..launch.dryrun import opt_state_specs
-            model = lm.LM(cfg, "meta")
-            self.pspecs = shard.param_specs(cfg, model, mesh, mode="train")
-            shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
-            self.sspecs = opt_state_specs(self.opt_name, shapes, self.pspecs,
-                                          stacks)
+            self.sspecs = opt_state_specs(self.opt_name, self.shapes,
+                                          self.pspecs, stacks)
             self.layouts = {k: shard.block_layout(mesh, self.pspecs[k], shp)
-                            for k, shp in shapes.items()}
-            if (cfg.tp_friendly and "model" in mesh.mesh_dim_names
-                    and "model" not in self.dp):
-                self.split = shard.model_split(model, mesh)
-                self.region = TP.Region(mesh.get_group("model"),
-                                        mesh.size(mesh.mesh_dim_names.index(
-                                            "model")),
-                                        mesh.get_local_rank("model"))
-        #: each region parameter's sharding.Split (the rest is whole)
-        self.splits = {k: sp for ds in self.split.values()
-                       for k, sp in ds.items()}
-        #: on a mesh, the most bytes a step has held at once of: parameters
-        #: filled into the model ("filled": whole, or their 'model' blocks
-        #: in a region), parameters, gradients and state that the update
-        #: gathers whole ("update": none, every optimizer updates the
-        #: blocks in place), and the f32 gradient blocks kept from the
-        #: backward to the update ("grads")
-        self.peak_bytes = {"filled": 0, "update": 0, "grads": 0}
+                            for k, shp in self.shapes.items()}
         self.ckpt = (CheckpointManager(tcfg.checkpoint_dir,
                                        keep=tcfg.keep_checkpoints,
                                        save_interval_steps=tcfg.checkpoint_every)
@@ -226,74 +205,8 @@ class Trainer:
                            "gnorm": opt_state["gnorm"]}
 
     # ------------------------------------------------------------------
-    # on a mesh
-    def _fill(self, params, names, whole: bool = False) -> None:
-        """Give the model's parameters ``names`` their stored values as
-        computed (a region's weights their compute blocks, gathered over
-        the other axes, the rest whole), or all whole with ``whole`` (a
-        collective: every rank calls it)."""
-        with torch.no_grad():
-            for k in names:
-                p = params[k]
-                value = self._model_block(k, whole)
-                if p.shape != value.shape:   # first fill, or after a
-                    p.data = value.clone()   # gather_model
-                    continue
-                # the recompute refills a tensor that autograd saved: its
-                # values come back unchanged, so its version stays
-                with torch.autograd._unsafe_preserve_version_counter(p):
-                    p.untyped_storage().resize_(value.nbytes)
-                    p.copy_(value)
-        self._peak("filled", sum(p.untyped_storage().nbytes()
-                                 for p in params.values()))
-
-    def _storage(self, k: str):
-        """(placements of ``k``'s storage block over 'model', whole over
-        the other axes; the dimension storage splits over 'model', or
-        None)."""
-        from torch.distributed.tensor import Shard
-        pl = self.params[k].placements[self.mesh.mesh_dim_names.index(
-            "model")]
-        return (shard.fill_placements(self.mesh, pl),
-                pl.dim if isinstance(pl, Shard) else None)
-
-    def _model_block(self, k: str, whole: bool = False) -> torch.Tensor:
-        """This rank's block of the stored weight ``k`` as computed: its
-        region's compute block (``tensor_parallel.fill_block``: ranges
-        that other ranks store moved by an all-to-all, so no rank holds
-        the weight whole), or whole."""
-        t, sp = self.params[k], None if whole else self.splits.get(k)
-        if sp is None or sp.dim is None:
-            return t.redistribute(self.mesh,
-                                  shard.fill_placements(self.mesh)).to_local()
-        keep, src = self._storage(k)
-        return TP.fill_block(t.redistribute(self.mesh, keep).to_local(), src,
-                             sp, self.region)
-
-    def _peak(self, what: str, nbytes: int) -> None:
-        self.peak_bytes[what] = max(self.peak_bytes[what], nbytes)
-
-    @staticmethod
-    def _release(params, names) -> None:
-        """Free the storage of the model's parameters ``names``."""
-        for k in names:
-            params[k].untyped_storage().resize_(0)
-
-    def _store(self, model: lm.LM) -> None:
-        """Keep this rank's blocks of ``model``'s parameters (whole, the
-        same on every rank) in ``self.params`` and free the model's."""
-        params = dict(model.named_parameters())
-        self.params = {k: shard.shard(p, self.mesh, self.pspecs[k])
-                       for k, p in params.items()}
-        self._release(params, params)
-
-    def gather_model(self, model: lm.LM) -> lm.LM:
-        """``model`` with every parameter filled with its stored whole
-        value (a collective); on a mesh the trainer leaves them empty
-        between steps."""
-        self._fill(dict(model.named_parameters()), self.params, whole=True)
-        return model
-
+    # on a mesh (storage and fills: ``sharding.MeshParams``; between steps
+    # the model's parameters are empty, ``gather_model`` fills them whole)
     def _reduce_grad(self, grads, k: str, p: torch.Tensor) -> None:
         """Hook run when ``p``'s gradient is complete: the gradient
         averaged over the data-parallel ranks, moved from its compute
@@ -339,25 +252,10 @@ class Trainer:
     def _mesh_step(self, model: lm.LM, opt_state, batch):
         """``train_step`` on the mesh (the module's docstring)."""
         params = dict(model.named_parameters())
-        index = {id(blk): i for i, blk in enumerate(model.blocks)}
-        layer: Dict[int, list] = {}
-        for k in params:
-            if k.startswith("blocks."):
-                layer.setdefault(int(k.split(".")[1]), []).append(k)
-        live: Dict[int, list] = {}
-
-        def materialize(blocks):
-            """Fill the period ``blocks``; with remat, free the period
-            filled before it (its forward, or its backward, is done)."""
-            key = index[id(blocks[0])]
-            if self.tcfg.remat:
-                for other in [o for o in live if o != key]:
-                    self._release(params, live.pop(other))
-            if key not in live:
-                live[key] = [k for blk in blocks
-                             for k in layer[index[id(blk)]]]
-                self._fill(params, live[key])
-
+        # each period filled before it runs; with remat, the period filled
+        # before it freed (its forward, or its backward, is done)
+        materialize = self._period_filler(model, params,
+                                          free_previous=self.tcfg.remat)
         grads: Dict[str, torch.Tensor] = {}
         hooks = [p.register_post_accumulate_grad_hook(
             functools.partial(self._reduce_grad, grads, k))
@@ -365,27 +263,24 @@ class Trainer:
         n = self.tcfg.microbatches
         mb = batch["tokens"].shape[0] // n
         losses, nlls = [], []
-        regions = [model.get_submodule(m) for m in self.split]
-        for mod in regions:
-            mod.tp = self.region
-        try:
-            self._fill(params, [k for k in params
-                                if not k.startswith("blocks.")])
-            for i in range(n):
-                part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                loss, aux = lm.loss_fn(model, self.cfg, part,
-                                       remat=self.tcfg.remat,
-                                       materialize=materialize)
-                loss.backward()
-                losses.append(loss.detach())
-                nlls.append(aux["nll"].detach())
-                del loss, aux
-        finally:
-            for h in hooks:
-                h.remove()
-            for mod in regions:
-                mod.tp = None
-            self._release(params, params)
+        with self._regions(model):
+            try:
+                self._fill(params, [k for k in params
+                                    if not k.startswith("blocks.")])
+                for i in range(n):
+                    part = {k: v[i * mb:(i + 1) * mb]
+                            for k, v in batch.items()}
+                    loss, aux = lm.loss_fn(model, self.cfg, part,
+                                           remat=self.tcfg.remat,
+                                           materialize=materialize)
+                    loss.backward()
+                    losses.append(loss.detach())
+                    nlls.append(aux["nll"].detach())
+                    del loss, aux
+            finally:
+                for h in hooks:
+                    h.remove()
+                self._release(params, params)
         grads = {k: (grads[k].div_(n) if n > 1 else grads[k]) if k in grads
                  else torch.zeros(self.params[k].to_local().shape,
                                   dtype=torch.float32, device=self.device)

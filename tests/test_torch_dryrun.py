@@ -20,10 +20,18 @@ CLI) while the qwen3 cells run. Held per rank:
   FFN, experts) as 1/16 blocks, attention at rank 0's query heads (wq's
   columns, wo's rows: 1 of qwen3's 16, 2 of llama4's 40, 3 of dbrx's 48)
   and the one KV head they read (1 of 8), and the rest whole; the record
-  gives those heads a rank; its collectives are counted, and a serving
-  cell's are null (the port serves on one card); llama4's fill is under
-  2.5 GB and its step under 15 GB a rank (37.11 GB and 782.6 GB when
+  gives those heads a rank; its collectives are counted; llama4's fill is
+  under 2.5 GB and its step under 15 GB a rank (37.11 GB and 782.6 GB when
   every weight was filled whole and adafactor gathered its stacks);
+* the serving cells run the sharded server itself (``ShardedServer``):
+  it holds every weight as the blocks it computes on (the train fill's
+  blocks, every weight resident, nothing filled in a step, 0.27 GB a
+  rank); its cache holds the rank's KV head, 939,524,096 bytes at
+  prefill_32k and 3,758,096,384 at decode_32k, beside the reference
+  spec's sequence slice (half that); its collectives are the embedding's
+  and each layer's attention and FFN sums (57 all-reduces of the rows'
+  (B, S, 2048) bf16) and one all-gather of the (B, 151,936) f32 logits,
+  no all-to-all;
 * FLOPs against ``model_flops_per_token()`` x the rank's tokens, within
   the factor the step's structure gives. Train runs the forward, the remat
   recompute of every period (not the head) and the backward: at least
@@ -32,10 +40,10 @@ CLI) while the qwen3 cells run. Held per rank:
   (4 L S q_dim a token forward, at the rank's share of the query heads);
   N is the active parameters less the embedding, with the FFN's and the
   head's at 1/16 and attention's at the rank's heads (the rank computes
-  on its 'model' blocks of them); qwen3's train step is at most 1.0e14
-  FLOPs a rank (4.704e14 with attention whole on every rank), llama4's
-  0.8e15. Prefill reads the head at one row; decode reads the S-deep
-  cache.
+  on its 'model' blocks of them, in every cell); qwen3's train step is at
+  most 1.0e14 FLOPs a rank (4.704e14 with attention whole on every rank),
+  llama4's 0.8e15. Prefill reads the head at one row; decode reads the
+  S-deep cache at the rank's query heads.
 * ``card()``'s fields equal the reference's when ``make_card`` gets the
   reference's own chip constants (197 TFLOP/s, 819 GB/s).
 """
@@ -116,21 +124,26 @@ def cells(tmp_path_factory):
     return got
 
 
+def _block_bytes(cfg, n, p):
+    """Bytes of rank 0's compute block of the parameter ``n``: a region's
+    weights at 1/16, attention's at rank 0's heads, the rest whole."""
+    Hq, Hkv = _rank0_heads(cfg)
+    b = p.numel() * p.element_size()
+    if HEADS.fullmatch(n):
+        kv = n[-2:] in ("wk", "wv")
+        return b // (cfg.n_kv_heads if kv else cfg.n_heads) * (
+            Hkv if kv else Hq)
+    return b // 16 if REGION.fullmatch(n) else b
+
+
 def _fill_reckoning(cfg):
     """The most bytes a train step fills at once: the parameters outside
-    the blocks (for the step) and the largest period, a region's weights
-    at 1/16 of their bytes, attention's at rank 0's heads and the rest
-    whole."""
+    the blocks (for the step) and the largest period, each at rank 0's
+    compute block (``_block_bytes``)."""
     named = list(lm.LM(cfg, "meta").named_parameters())
-    Hq, Hkv = _rank0_heads(cfg)
 
     def nbytes(n, p):
-        b = p.numel() * p.element_size()
-        if HEADS.fullmatch(n):
-            kv = n[-2:] in ("wk", "wv")
-            return b // (cfg.n_kv_heads if kv else cfg.n_heads) * (
-                Hkv if kv else Hq)
-        return b // 16 if REGION.fullmatch(n) else b
+        return _block_bytes(cfg, n, p)
 
     outside = sum(nbytes(n, p) for n, p in named
                   if not n.startswith("blocks."))
@@ -157,10 +170,19 @@ def test_dryrun_records_each_kind(cells):
     assert set(train["count"]) == set(train["bytes"]) == {
         "c10d_functional.all_gather_into_tensor", "c10d.allreduce_",
         "c10d.alltoall_base_"}
-    for s in SHAPES[1:3]:       # the port serves on one card
-        assert cells[s]["collectives"] is None
-        assert "no sharded serving step" in \
-            cells[s]["collectives_null_because"]
+    # the serving step: the embedding's and each layer's attention and FFN
+    # sums of the rows' activations, the logits gathered; blocks filled
+    # at load, so no all-to-all
+    cfg = get(ARCH).config()
+    for s, rows, S in (("prefill_32k", 2, 32768), ("decode_32k", 8, 1)):
+        got = cells[s]["collectives"]
+        sums = 1 + 2 * cfg.n_layers
+        assert got["count"] == {"c10d.allreduce_": sums,
+                                "c10d._allgather_base_": 1}
+        assert got["bytes"] == {
+            "c10d.allreduce_": sums * rows * S * cfg.d_model * 2,
+            "c10d._allgather_base_": rows * cfg.vocab * 4}
+        assert got["total_count"] == sums + 1
     skipped = cells["long_500k"]
     assert skipped["status"] == "skipped"
     assert skipped["reason"].startswith("full-attention arch")
@@ -181,7 +203,27 @@ def test_dryrun_bytes_per_rank(cells, shape):
         local += n_local * p.element_size()
         whole += n_local * n_shards * p.element_size()
         numel += p.numel()
-    assert rec["param_bytes_per_rank"] == local
+    if shape == "train_4k":     # the trainer stores the placements' blocks
+        assert rec["param_bytes_per_rank"] == local
+    else:   # the server keeps every weight as its compute block, ~0.27 GB
+        held = sum(_block_bytes(cfg, n, p)
+                   for n, p in model.named_parameters())
+        assert rec["param_bytes_per_rank"] == held
+        assert 0.26e9 < held < 0.28e9
+        assert rec["filled_param_bytes_peak"] == held
+        assert rec["filled_each_step_params"] == 0
+        assert rec["resident_params"] == len(specs)
+        # the cache at rank 0's KV head (1 of 8); the reference spec's
+        # sequence slice (S / 16) is half that
+        cache = {"prefill_32k": 939_524_096,
+                 "decode_32k": 3_758_096_384}[shape]
+        assert rec["cache_bytes_per_rank"] == cache
+        assert rec["cache_bytes_per_rank_reference_spec"] == cache // 2
+        assert rec["split"] == {"query_heads": {"min": 1, "max": 1,
+                                                "rank_0": 1},
+                                "kv_heads": {"min": 1, "max": 1,
+                                             "rank_0": 1},
+                                "mamba_channels": None}
     assert rec["param_bytes_total"] == whole
     assert numel == cfg.param_counts()["total"] + \
         chip_smoke.uncounted_params(cfg)
@@ -252,14 +294,15 @@ def test_dryrun_flops_against_model_flops(cells, shape):
     S = 4096 if shape == "train_4k" else 32768
     attn = 4 * cfg.n_layers * S * cfg.q_dim           # a token, forward
     ratio = rec["flops_per_rank"] / rec["model_flops_per_rank"]
-    if shape == "train_4k":   # the FFN, head and attention on blocks
-        Hq, Hkv = _rank0_heads(cfg)
-        d, L = cfg.d_model, cfg.n_layers
-        dropped = ((3 * d * cfg.d_ff * L + head) * 15 / 16
-                   + 2 * d * cfg.q_dim * L * (1 - Hq / cfg.n_heads)
-                   + 2 * d * cfg.kv_dim * L * (1 - Hkv / cfg.n_kv_heads))
-        ratio *= N / (N - dropped)
-        N, head, attn = N - dropped, head / 16, attn * Hq / cfg.n_heads
+    # every cell: the FFN, head and attention on rank 0's blocks
+    Hq, Hkv = _rank0_heads(cfg)
+    d, L = cfg.d_model, cfg.n_layers
+    dropped = ((3 * d * cfg.d_ff * L + head) * 15 / 16
+               + 2 * d * cfg.q_dim * L * (1 - Hq / cfg.n_heads)
+               + 2 * d * cfg.kv_dim * L * (1 - Hkv / cfg.n_kv_heads))
+    ratio *= N / (N - dropped)
+    N, head, attn = N - dropped, head / 16, attn * Hq / cfg.n_heads
+    if shape == "train_4k":
         lo, hi = (8 * N - 2 * head) / (6 * N), 4 / 3 + 4 * attn / (6 * N)
         assert rec["flops_per_rank"] <= 1.0e14
     elif shape == "prefill_32k":

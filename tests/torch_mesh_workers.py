@@ -1,5 +1,6 @@
 """Rank bodies of the port's multi-rank CPU runs (gloo), for
-``tests/test_torch_mesh_train.py``. Nothing here imports JAX: each rank is
+``tests/test_torch_mesh_train.py`` and ``tests/test_torch_mesh_serve.py``.
+Nothing here imports JAX: each rank is
 a process of its own, started by ``launch`` with
 
     python tests/torch_mesh_workers.py JOB RANK WORLD RENDEZVOUS OUT
@@ -39,6 +40,18 @@ HEAD_ARCHS = tuple(a for archs in HEAD_JOBS.values() for a in archs)
 #: that the ranks take 1, 2, 1 and 2 heads and two ranks read each KV head
 #: (as llama4's 40 heads on 8 KV heads do on 16)
 HEADS4 = ("qwen3-1.7b", dict(n_heads=6, n_kv_heads=2))
+
+
+#: the sharded serve step's runs: rows, prompt length, cache depth and
+#: greedy decode steps after the prefill
+SERVE = dict(rows=4, prompt=8, max_seq=24, steps=8)
+#: the smoke configs served on (1, 2), two to a job: qk-norm (from the
+#: reference's initial parameters, ``init_<arch>.pt`` beside the output)
+#: with Mamba channels, attention and experts; top-2 experts with
+#: cross-attention
+SERVE_JOBS = {"serve_heads": ("qwen3-1.7b", "jamba-v0.1-52b"),
+              "serve_cross": ("dbrx-132b", "llama-3.2-vision-11b")}
+SERVE_ARCHS = tuple(a for archs in SERVE_JOBS.values() for a in archs)
 
 
 def launch(job: str, world: int, tmp: Path) -> list:
@@ -242,6 +255,117 @@ def job_train4(rank, world, tmp):
     gathered over 'data' (a MoE's wi / wg moved over 'model' too) and the
     gradients averaged over it."""
     return _train((2, 2), arch=MOE_ARCHS[0])
+
+
+def serve_inputs(cfg):
+    """The serve runs' prompt (rows, prompt) tokens, from a seed, and the
+    rows' cross inputs."""
+    g = torch.Generator().manual_seed(21)
+    toks = torch.randint(0, cfg.vocab, (SERVE["rows"], SERVE["prompt"]),
+                         generator=g)
+    return toks, cross_inputs(cfg, SERVE["rows"])
+
+
+def serve_greedy(prefill, decode, tokens, cross):
+    """``prefill(tokens, cross)`` then SERVE["steps"] greedy
+    ``decode(token (B, 1), cache)`` steps: (the logits of each, (steps +
+    1, B, vocab); the tokens chosen (B, steps + 1); the last cache)."""
+    logits, cache = prefill(tokens, cross)
+    out, chosen = [logits], [logits.argmax(-1)]
+    for _ in range(SERVE["steps"]):
+        logits, cache = decode(chosen[-1][:, None], cache)
+        out.append(logits)
+        chosen.append(logits.argmax(-1))
+    return torch.stack(out), torch.stack(chosen, 1), cache
+
+
+def plain_serve(model, cfg, tokens, cross):
+    """``serve_greedy`` through ``lm.prefill`` / ``lm.decode_step``."""
+    from repro_torch.models import lm
+    return serve_greedy(
+        lambda t, c: lm.prefill(model, cfg, t, SERVE["max_seq"], **c),
+        lambda t, cache: lm.decode_step(model, cfg, t, cache), tokens,
+        cross)
+
+
+def sharded_serve(server, tokens, cross):
+    """``serve_greedy`` through ``server`` (a loaded ``ShardedServer``) on
+    its rows of ``tokens`` and ``cross``."""
+    return serve_greedy(
+        lambda t, c: server.prefill(t, SERVE["max_seq"], None,
+                                    c.get("frames"), c.get("patches")),
+        server.decode_step, server.rows(tokens),
+        {k: server.rows(x) for k, x in cross.items()})
+
+
+def _serve(mesh_shape, arch, init=None):
+    """``sharded_serve`` of ``arch``'s f32 smoke config on a ('data',
+    'model') mesh of ``mesh_shape``, from ``_model`` (or the parameters
+    saved in ``init``): this rank's rows, logits, tokens and cache shapes,
+    the regions, what each fill filled and at which shapes, and the MoE
+    calls' routing and drops."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve_mesh import ShardedServer
+    from repro_torch.models import lm, moe
+    cfg = _train_cfg(arch)
+    mesh = make_host_mesh(model=mesh_shape[1], data=mesh_shape[0],
+                          device="cpu")
+    model = _model(cfg)
+    if init is not None:
+        model = lm.LM(cfg, "cpu")
+        model.load_state_dict(torch.load(init))
+    server = ShardedServer(cfg, mesh, "cpu")
+    fills, fill = [], server._fill
+
+    def recording_fill(params, names, whole=False):
+        fill(params, names, whole)
+        fills.append({k: tuple(params[k].shape) for k in names})
+
+    server._fill = recording_fill
+    server.load(model)
+    tokens, cross = serve_inputs(cfg)
+    moe.ROUTING = []
+    try:
+        logits, chosen, cache = sharded_serve(server, tokens, cross)
+        routing = moe.ROUTING
+    finally:
+        moe.ROUTING = None
+    return {"rows": server.rows(torch.arange(SERVE["rows"])),
+            "logits": logits, "tokens": chosen,
+            "cache": {"k": tuple(cache.k.shape),
+                      **{k: tuple(t.shape) for k, t in cache.state.items()}},
+            "split": server.split, "resident": server.resident,
+            "stored": sorted(server.params), "fills": fills,
+            "tp_cleared": all(getattr(m, "tp", None) is None
+                              for m in model.modules()),
+            "routing": [(e, int(d)) for e, d in routing]}
+
+
+def _serve_job(job, tmp):
+    """``_serve`` of each of ``SERVE_JOBS[job]``'s smoke configs on (1,
+    2)."""
+    return {arch: _serve((1, 2), arch,
+                         init=(tmp / f"init_{arch}.pt"
+                               if (tmp / f"init_{arch}.pt").exists()
+                               else None))
+            for arch in SERVE_JOBS[job]}
+
+
+def job_serve_heads(rank, world, tmp):
+    return _serve_job("serve_heads", tmp)
+
+
+def job_serve_cross(rank, world, tmp):
+    return _serve_job("serve_cross", tmp)
+
+
+def job_serve4(rank, world, tmp):
+    """The llama4 smoke config served on (2, 2) with ``BIG_MODEL_B`` at 0,
+    so that its serve placements split over 'data' too and every step
+    fills the weights a period at a time (gathered over 'data')."""
+    from repro_torch.models import sharding
+    sharding.BIG_MODEL_B = 0
+    return _serve((2, 2), MOE_ARCHS[0])
 
 
 #: the optimizer job's leaves on (1, 2): {name: (shape, spec)}. "w" and
