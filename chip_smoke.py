@@ -230,11 +230,20 @@ that each print one JSON line (run in the order 1-5, 9, 13, 14, 6, 10, 7,
    a 16-wide 'model' axis holds ((1, 1), (2, 1), (3, 1); bf16, hd 128, B
    8, Smax 4,096, ragged kv_len, over one layer of a stacked cache at
    those KV heads, as a sharded decode reads it) against its plain
-   version; qwen3-1.7b at its published widths and full depth, a prefill
-   of B 4 x S 128 then 16 greedy decode steps, bit for bit against
-   ``lm.prefill`` + ``lm.decode_step`` on the same weights (logits,
-   tokens, every cache leaf), flash and decode launches equal to the
-   plain run's (28 and 28 x 16), every ``blocks.i.mixer`` and
+   version, and its partial mode there (o within 2e-2 and lse within
+   1e-3 of ``ref.gqa_decode_partial``, o rounded to bf16 bit for bit the
+   default mode's output, two default calls bit for bit); the
+   split-sequence decode on one card: a 16 / 8-head cache cut into 2 and
+   4 sequence blocks, the partial mode on each, merged by
+   ``tensor_parallel.merge``, against the default mode over the whole
+   cache within 2e-2 (rows of kv_len 0, on a block's edge, in one block
+   only, past Smax); qwen3-1.7b at its published widths and full depth,
+   a prefill of B 4 x S 128 then 16 greedy decode steps, bit for bit
+   against ``lm.prefill`` + ``lm.decode_step`` on the same weights
+   (logits, tokens, every cache leaf), flash and decode launches equal to
+   the plain run's (28 and 28 x 16; the mesh run's decode launches all
+   the partial mode's: its cache split over the sequence, its decode
+   merged over the ranks' (o, lse)), every ``blocks.i.mixer`` and
    ``blocks.i.ffn`` a region; and dbrx-132b at its published widths cut
    to 1 of 40 layers, the same check with ``BIG_MODEL_B`` at 0, so that
    its serve placements split over 'data' (of size 1) and every step
@@ -342,6 +351,12 @@ MESH_LOCAL_SHAPE = (4, 128, 128)
 # (layers, B, Smax, H_r, hd) bf16 cache, B rows of ragged kv_len
 MESH_DECODE_SHAPE = (8, 4096, 128)
 MESH_DECODE_LENS = (4096, 1, 1000, 4095, 17, 2048, 3333, 512)
+# the partial mode's lse against the plain log-sum-exp
+MESH_LSE_TOL = 1e-3
+# the split-and-merge check's kv_len over MESH_DECODE_SHAPE's cache cut in
+# 2 and 4 blocks: empty, on the edges 1,024 / 2,048 / 3,072, in the first
+# block only (17, 1,000), across an edge (2,049) and past Smax (5,000)
+MESH_SPLIT_LENS = (0, 1024, 2048, 3072, 17, 5000, 1000, 2049)
 # the sharded serve step on the world of one: a prefill of B x S prompt
 # tokens, then greedy decode steps, for qwen3-1.7b whole and dbrx-132b at
 # MESH_MOE_LAYERS layers with its per-period fills forced
@@ -686,11 +701,13 @@ def zero_launches():
     dominance.LAUNCHES = dominance.COUNTS_LAUNCHES = 0
     flash_attention.LAUNCHES = decode_attention.LAUNCHES = 0
     flash_attention.BWD_LAUNCHES = paged_attention.LAUNCHES = 0
+    decode_attention.PARTIAL_LAUNCHES = 0
 
 
 def launch_counts(**expected):
     """Every kernel's launch count since ``zero_launches``; a kernel not
-    named in ``expected`` must not have launched."""
+    named in ``expected`` must not have launched. The decode kernel's
+    partial mode counts among its launches and alone as well."""
     from repro_torch.kernels import (decode_attention, dominance,
                                      flash_attention, paged_attention)
     got = {"dominance_matrix": dominance.LAUNCHES,
@@ -698,6 +715,7 @@ def launch_counts(**expected):
            "flash_attention": flash_attention.LAUNCHES,
            "flash_attention_backward": flash_attention.BWD_LAUNCHES,
            "gqa_decode_attention": decode_attention.LAUNCHES,
+           "gqa_decode_partial": decode_attention.PARTIAL_LAUNCHES,
            "paged_gqa_decode_attention": paged_attention.LAUNCHES}
     want = {k: expected.get(k, 0) for k in got}
     assert got == want, f"launches {got}, want {want}"
@@ -3839,15 +3857,112 @@ def mesh_local_heads():
             "decode": mesh_local_decode()}
 
 
+def _bound(nbytes, ops_n):
+    """(bound_ms, bound_by) of bf16 work: bytes at HBM_BYTES_PER_S,
+    operations at BF16_OPS_PER_S."""
+    by_bytes = nbytes / HBM_BYTES_PER_S >= ops_n / BF16_OPS_PER_S
+    return (1e3 * max(nbytes / HBM_BYTES_PER_S, ops_n / BF16_OPS_PER_S),
+            "bytes" if by_bytes else "operations")
+
+
+def mesh_partial_decode(q, k, v, lens, default, case):
+    """The decode kernel's partial mode on the inputs of a default-mode
+    call whose output is ``default``: o within TOL["bfloat16"] and lse
+    within MESH_LSE_TOL of ``ref.gqa_decode_partial``; o rounded to q's
+    dtype bit for bit the default output, which a second default call
+    repeats bit for bit; its device time beside its bound (the cache rows
+    read once, q, and the f32 o and lse written), wrapper, plain and SDPA
+    (o alone: no library call returns the lse) times."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    B, Hq, D = q.shape
+    Hkv, Smax = k.shape[1], k.shape[2]
+    o, lse = ops.gqa_decode_partial(q, k, v, lens)
+    want_o, want_lse = ref.gqa_decode_partial(q, k, v, lens)
+    o_err = _check_close("decode partial at local heads", o, want_o,
+                         "bfloat16", case)
+    live = lens > 0
+    lse_err = _err(lse[live], want_lse[live])
+    assert lse_err <= MESH_LSE_TOL, (case, lse_err)
+    assert bool((lse[~live] == float("-inf")).all()), case
+    again = ops.gqa_decode_attention(q, k, v, lens)
+    bits = {"default_twice": _bits_equal(again, default),
+            "partial_rounded_is_default": _bits_equal(o.to(q.dtype),
+                                                      default)}
+    assert all(bits.values()), (case, bits)
+    n_read = int(lens.clamp(0, Smax).sum())
+    nbytes = (2 * B * Hq * D + 2 * 2 * n_read * Hkv * D + 4 * B * Hq * D
+              + 4 * B * Hq + 4 * B)
+    bound_ms, bound_by = _bound(nbytes, 4 * n_read * Hq * D)
+    mask = (torch.arange(Smax, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                              attn_mask=mask,
+                                              enable_gqa=True)
+
+    device = device_kernel_ms(ops.gqa_decode_partial, q, k, v, lens,
+                              name=DECODE_KERNEL)
+    return {"o_max_abs_err": o_err, "lse_max_abs_err": lse_err, **bits,
+            "device_us": device and 1e3 * device,
+            "bound_us": 1e3 * bound_ms, "bound_by": bound_by,
+            "ms": time_ms(ops.gqa_decode_partial, q, k, v, lens),
+            "plain_ms": time_ms(ref.gqa_decode_partial, q, k, v, lens),
+            "library_ms": time_ms(library),
+            "library_device_ms": device_total_ms(library)}
+
+
+def mesh_split_merge():
+    """The split-sequence decode on one card: a (B, Hkv, Smax, D) bf16
+    cache of MESH_DECODE_SHAPE at qwen3-1.7b's 16 / 8 heads, cut into 2
+    and 4 sequence blocks (``tensor_parallel.seq_range``), the partial
+    mode over each block (kv_len clamped to it), merged by the port's
+    ``tensor_parallel.merge``, against the default mode over the whole
+    cache within TOL["bfloat16"]; MESH_SPLIT_LENS hold a row of kv_len 0,
+    rows that end on a block's edge, rows in the first block only and a
+    row past Smax."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import tensor_parallel as TP
+    gen = torch.Generator().manual_seed(27)
+    B, Smax, D = MESH_DECODE_SHAPE
+    Hq, Hkv = 16, 8
+    q = torch.randn((B, Hq, D), generator=gen).to(torch.bfloat16).cuda()
+    k, v = (torch.randn((B, Smax, Hkv, D), generator=gen)
+            .to(torch.bfloat16).cuda().permute(0, 2, 1, 3) for _ in range(2))
+    lens = torch.tensor(MESH_SPLIT_LENS, dtype=torch.int32, device="cuda")
+    whole = ops.gqa_decode_attention(q, k, v, lens)
+    out = {"shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "Smax": Smax, "D": D,
+                     "dtype": "bfloat16", "kv_len": list(MESH_SPLIT_LENS)}}
+    for n in (2, 4):
+        parts = []
+        for r in range(n):
+            lo, hi = TP.seq_range(Smax, TP.Region(None, n, r))
+            parts.append(ops.gqa_decode_partial(
+                q, k[:, :, lo:hi], v[:, :, lo:hi],
+                (lens - lo).clamp(0, hi - lo)))
+        merged = TP.merge(torch.stack([o for o, _ in parts]),
+                          torch.stack([lse for _, lse in parts]))
+        out[f"{n}_blocks_max_abs_err"] = _check_close(
+            "split-and-merge decode", merged.to(q.dtype), whole, "bfloat16",
+            ("bfloat16", n, B, Hq, Hkv, D, Smax))
+    return out
+
+
 def mesh_local_decode():
     """The decode kernel at MESH_LOCAL_HEADS over layer 1 of a stacked
-    (2, B, Smax, H_r, hd) bf16 cache, viewed (B, H_r, Smax, hd) as
-    ``lm.decode_step`` reads a sharded cache, MESH_DECODE_LENS kv_len,
-    against its plain version (within TOL); the kernel's device time (its
-    profiled name) and wrapper time beside the plain version's and the
-    bound (the cache rows read once, q and the output)."""
+    (2, B, Smax, H_r, hd) bf16 cache, viewed (B, H_r, Smax, hd) as a
+    sharded decode reads a cache block, MESH_DECODE_LENS kv_len, against
+    its plain version (within TOL); the kernel's device time (its profiled
+    name) and wrapper time beside the plain version's and the bound (the
+    cache rows read once, q and the output); its partial mode at the same
+    inputs (``mesh_partial_decode``); and the split-and-merge check
+    (``mesh_split_merge``)."""
     import torch
     from repro_torch.kernels import ops, ref
+    t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(26)
     B, Smax, D = MESH_DECODE_SHAPE
     lens = torch.tensor(MESH_DECODE_LENS, dtype=torch.int32, device="cuda")
@@ -3863,7 +3978,11 @@ def mesh_local_decode():
         n_read = sum(MESH_DECODE_LENS)
         nbytes = 2 * (2 * B * Hq * D + 2 * n_read * Hkv * D) + 4 * B
         ops_n = 4 * n_read * Hq * D
+        t1 = time.perf_counter()
+        partial = mesh_partial_decode(q, k, v, lens, got, case)
+        partial["seconds"] = time.perf_counter() - t1
         out[f"{Hq}/{Hkv}"] = {
+            "partial": partial,
             "max_abs_err": _check_close("decode at local heads", got, want,
                                         "bfloat16", case),
             "ms": time_ms(ops.gqa_decode_attention, q, k, v, lens),
@@ -3874,10 +3993,14 @@ def mesh_local_decode():
                                   ops_n / BF16_OPS_PER_S),
             "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                          >= ops_n / BF16_OPS_PER_S else "operations")}
+    t1 = time.perf_counter()
+    split = mesh_split_merge()
+    split["seconds"] = time.perf_counter() - t1
     return {"shape": {"B": B, "Smax": Smax, "D": D, "dtype": "bfloat16",
                       "kv_len": list(MESH_DECODE_LENS),
                       "cache": "layer 1 of (2, B, Smax, H_r, D)"},
-            "heads": out}
+            "heads": out, "split_merge": split,
+            "seconds": time.perf_counter() - t0}
 
 
 def _serve_greedy(prefill, decode, tokens):
@@ -3965,7 +4088,10 @@ def _serve_vs_plain(cfg, mesh, per_period=False):
         runs["mesh"] = _serve_greedy(
             lambda t: server.prefill(server.rows(t), max_seq),
             server.decode_step, tokens)
-        launches_mesh = launch_counts(**want_launches)
+        # every decode launch of the split-sequence path is a partial one
+        launches_mesh = launch_counts(
+            **want_launches,
+            gqa_decode_partial=want_launches["gqa_decode_attention"])
     finally:
         sharding.BIG_MODEL_B = big
     (lp, tp, cp, wp), (lm_, tm, cm, wm) = runs["plain"], runs["mesh"]
@@ -4172,9 +4298,13 @@ def phase_mesh():
         if not all(r["cache_bit_equal"].values()) \
                 or len(r["cache_bit_equal"]) != r["cache_leaves_mesh"]:
             failures.append(("serve", run, "cache", r["cache_bit_equal"]))
-        if r["launches_mesh"] != r["launches_plain"] or not (
-                r["launches_mesh"]["flash_attention"] > 0
-                and r["launches_mesh"]["gqa_decode_attention"] > 0):
+        # the mesh run's decode launches are all the partial mode's
+        partial = r["launches_mesh"]["gqa_decode_partial"]
+        if {**r["launches_mesh"], "gqa_decode_partial": 0} \
+                != r["launches_plain"] \
+                or partial != r["launches_mesh"]["gqa_decode_attention"] \
+                or not (r["launches_mesh"]["flash_attention"] > 0
+                        and partial > 0):
             failures.append(("serve", run, "launches", r["launches_mesh"],
                              r["launches_plain"]))
         blocks = {f"blocks.{i}.{m}" for i in range(r["layers"])
@@ -4292,6 +4422,12 @@ def main():
         "launches_mesh_serve": {
             msh["serve"][r]["model"]:
                 msh["serve"][r]["launches_mesh"]["gqa_decode_attention"]
+            for r in ("dense", "moe")},
+        # the split-sequence decode: every mesh serve launch is the
+        # partial mode's (repro_gqa_decode_partial)
+        "launches_mesh_serve_partial": {
+            msh["serve"][r]["model"]:
+                msh["serve"][r]["launches_mesh"]["gqa_decode_partial"]
             for r in ("dense", "moe")},
         "mesh_local_heads": msh["local_heads"]["decode"],
         "cases": dec["cases"] + fam["kernel_shapes"]["cases"],

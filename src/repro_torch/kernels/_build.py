@@ -46,6 +46,8 @@ SYMBOLS = {
     "repro_flash_attention_bwd_dkdv": [_PTR] * 8 + [_INT] * 7 + [_I64] * 18
     + [_PTR],
     "repro_gqa_decode": [_PTR] * 7 + [_INT] * 8 + [_I64] * 10 + [_PTR],
+    "repro_gqa_decode_partial": [_PTR] * 8 + [_INT] * 8 + [_I64] * 10
+    + [_PTR],
     "repro_paged_gqa_decode": [_PTR] * 8 + [_INT] * 9 + [_I64] * 11 + [_PTR],
 }
 

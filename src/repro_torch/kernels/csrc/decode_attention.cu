@@ -16,10 +16,44 @@
 // are read through element strides, so one layer's slice of the engine's
 // (B, Smax, Hkv, D) cache is read in place: no transpose, no copy. The
 // design note (what bounds it, what the design does about it) is there.
+// Its partial mode (repro_gqa_decode_partial) is what a rank of the
+// sharded serve step runs over its block of a cache split by position.
 
 #include "split_decode.cuh"
 
 using namespace repro_split;
+
+namespace {
+
+template <bool Partial>
+int decode(const void* q, const void* k, const void* v, const void* kv_len,
+           void* o, float* lse, void* part, void* tickets, int B, int Hq,
+           int Hkv, int Smax, int D, int dtype, int span, int splits,
+           long long q_sb, long long q_sh, long long k_sb, long long k_sh,
+           long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+           long long o_sb, long long o_sh, void* stream) {
+  const Launch a{q, static_cast<const int*>(kv_len), o,
+                 static_cast<float*>(part), static_cast<int*>(tickets), B,
+                 Hkv, Hkv > 0 ? Hq / Hkv : 0, Smax, D, span, splits,
+                 Strides{q_sb, q_sh, 0}, Strides{o_sb, o_sh, 0}, lse};
+  if (!valid_launch(a, Hq)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch<float, ContiguousRows<float>, Partial>(
+        a, ContiguousRows<float>{static_cast<const float*>(k),
+                                 static_cast<const float*>(v),
+                                 Strides{k_sb, k_sh, k_ss},
+                                 Strides{v_sb, v_sh, v_ss}}, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, ContiguousRows<__nv_bfloat16>, Partial>(
+        a, ContiguousRows<__nv_bfloat16>{
+               static_cast<const __nv_bfloat16*>(k),
+               static_cast<const __nv_bfloat16*>(v),
+               Strides{k_sb, k_sh, k_ss}, Strides{v_sb, v_sh, v_ss}}, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
 
 // q: (B, Hq, D) with (batch, head) strides; k/v: (B, Hkv, Smax, D) with
 // (batch, head, position) strides; kv_len: (B,) int32; o: (B, Hq, D) with
@@ -40,20 +74,25 @@ extern "C" int repro_gqa_decode(const void* q, const void* k, const void* v,
                                 long long v_sh, long long v_ss,
                                 long long o_sb, long long o_sh,
                                 void* stream) {
-  const Launch a{q, static_cast<const int*>(kv_len), o,
-                 static_cast<float*>(part), static_cast<int*>(tickets), B,
-                 Hkv, Hkv > 0 ? Hq / Hkv : 0, Smax, D, span, splits,
-                 Strides{q_sb, q_sh, 0}, Strides{o_sb, o_sh, 0}};
-  if (!valid_launch(a, Hq)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch<float>(a, ContiguousRows<float>{
-        static_cast<const float*>(k), static_cast<const float*>(v),
-        Strides{k_sb, k_sh, k_ss}, Strides{v_sb, v_sh, v_ss}}, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(a, ContiguousRows<__nv_bfloat16>{
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), Strides{k_sb, k_sh, k_ss},
-        Strides{v_sb, v_sh, v_ss}}, s);
-  return (int)cudaErrorInvalidValue;
+  return decode<false>(q, k, v, kv_len, o, nullptr, part, tickets, B, Hq,
+                       Hkv, Smax, D, dtype, span, splits, q_sb, q_sh, k_sb,
+                       k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, stream);
+}
+
+// The partial mode, for a block of a cache whose positions are split over
+// ranks: as repro_gqa_decode, but o is f32 (the normalized result before
+// the default mode's rounding) and lse, (B, Hq) contiguous f32, gets each
+// (b, q head)'s log-sum-exp m + log(l) of the scaled scores (-inf where
+// kv_len <= 0).
+extern "C" int repro_gqa_decode_partial(
+    const void* q, const void* k, const void* v, const void* kv_len, void* o,
+    void* lse, void* part, void* tickets, int B, int Hq, int Hkv, int Smax,
+    int D, int dtype, int span, int splits, long long q_sb, long long q_sh,
+    long long k_sb, long long k_sh, long long k_ss, long long v_sb,
+    long long v_sh, long long v_ss, long long o_sb, long long o_sh,
+    void* stream) {
+  return decode<true>(q, k, v, kv_len, o, static_cast<float*>(lse), part,
+                      tickets, B, Hq, Hkv, Smax, D, dtype, span, splits,
+                      q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb,
+                      o_sh, stream);
 }

@@ -57,6 +57,14 @@
 //     resets the ticket to 0 for the next call. One launch per call: a
 //     second merge kernel would add a host launch per layer to a decode
 //     path that is bound by its host's launches.
+//
+// The partial mode (Partial = true, ContiguousRows only) is the same
+// kernel over one block of a cache whose positions are split over ranks:
+// the merging block writes the normalized result in f32, the very value
+// the default mode rounds to the input's type, and lse = m + log(l) per
+// (b, q head) (-inf for a row with kv_len <= 0, whose result is zeros), so
+// that the blocks' results merge by their lse (models/tensor_parallel.py:
+// merge_partials) and one block's result rounds to the default mode's bits.
 #pragma once
 
 #include "attention_tile.cuh"
@@ -192,14 +200,15 @@ struct PagedRows {
 // Block (split, kv head, b) over positions [split * span, split * span +
 // span) of row b, for the G query heads of the kv head, R of them per
 // pass. part holds, per (b, q head, split), D accumulator values, then m
-// and l (f32); tickets one int32 per (b, kv head), 0 between calls.
-template <typename T, int R, typename Rows>
+// and l (f32); tickets one int32 per (b, kv head), 0 between calls. With
+// Partial, o is f32 and lse (B, Hq) f32 gets each head's log-sum-exp.
+template <typename T, int R, typename Rows, bool Partial>
 __global__ void __launch_bounds__(kWarps * 32)
 split_decode_kernel(const T* __restrict__ q, const int* __restrict__ kv_len,
-                    T* __restrict__ o, float* __restrict__ part,
-                    int* __restrict__ tickets, int G, int cap, int D,
-                    int span, float scale, Strides qst, Strides ost,
-                    Rows rows) {
+                    T* __restrict__ o, float* __restrict__ lse,
+                    float* __restrict__ part, int* __restrict__ tickets,
+                    int G, int cap, int D, int span, float scale,
+                    Strides qst, Strides ost, Rows rows) {
   constexpr int E = Vec<T>::kChunk;     // elements per 16-byte copy
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int is_last;
@@ -403,8 +412,13 @@ split_decode_kernel(const T* __restrict__ q, const int* __restrict__ kv_len,
       }
     }
     // acc / max(l, 1e-30): zeros for a row with kv_len <= 0
-    o[b * ost.b + (hk * G + g) * ost.h + d] =
-        from_f32<T>(aa / fmaxf(ll, 1e-30f));
+    const float out = aa / fmaxf(ll, 1e-30f);
+    if constexpr (Partial) {
+      reinterpret_cast<float*>(o)[b * ost.b + (hk * G + g) * ost.h + d] = out;
+      if (d == 0) lse[b * Hq + hk * G + g] = mm + logf(ll);
+    } else {
+      o[b * ost.b + (hk * G + g) * ost.h + d] = from_f32<T>(out);
+    }
   }
 }
 
@@ -420,32 +434,34 @@ struct Launch {
   int* tickets;
   int B, Hkv, G, cap, D, span, splits;
   Strides qst, ost;
+  float* lse = nullptr;  // the partial mode's (B, Hq) log-sum-exps
 };
 
-template <typename T, int R, typename Rows>
+template <typename T, int R, typename Rows, bool Partial>
 int launch_r(const Launch& a, const Rows& rows, cudaStream_t stream) {
   static int smem_allowed = 48 * 1024;
   const int smem = (int)(R * a.D * sizeof(float) +
                          kWarps * kPos * (2 * a.D + Vec<T>::kChunk) *
                              sizeof(T) +
                          rows.table_ints(a.span) * sizeof(int));
-  cudaError_t e =
-      allow_smem(split_decode_kernel<T, R, Rows>, smem, &smem_allowed);
+  cudaError_t e = allow_smem(split_decode_kernel<T, R, Rows, Partial>, smem,
+                             &smem_allowed);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(a.splits, a.Hkv, a.B);
-  split_decode_kernel<T, R, Rows><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(a.q), a.kv_len, static_cast<T*>(a.o), a.part,
-      a.tickets, a.G, a.cap, a.D, a.span, (float)(1.0 / sqrt((double)a.D)),
-      a.qst, a.ost, rows);
+  split_decode_kernel<T, R, Rows, Partial>
+      <<<grid, kWarps * 32, smem, stream>>>(
+          static_cast<const T*>(a.q), a.kv_len, static_cast<T*>(a.o), a.lse,
+          a.part, a.tickets, a.G, a.cap, a.D, a.span,
+          (float)(1.0 / sqrt((double)a.D)), a.qst, a.ost, rows);
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename Rows>
+template <typename T, typename Rows, bool Partial = false>
 int launch(const Launch& a, const Rows& rows, cudaStream_t s) {
-  if (a.G <= 1) return launch_r<T, 1>(a, rows, s);
-  if (a.G <= 2) return launch_r<T, 2>(a, rows, s);
-  if (a.G <= 4) return launch_r<T, 4>(a, rows, s);
-  return launch_r<T, 8>(a, rows, s);
+  if (a.G <= 1) return launch_r<T, 1, Rows, Partial>(a, rows, s);
+  if (a.G <= 2) return launch_r<T, 2, Rows, Partial>(a, rows, s);
+  if (a.G <= 4) return launch_r<T, 4, Rows, Partial>(a, rows, s);
+  return launch_r<T, 8, Rows, Partial>(a, rows, s);
 }
 
 // The checks both entry points make of what the kernel takes: D % 8 == 0

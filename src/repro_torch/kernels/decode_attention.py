@@ -5,13 +5,17 @@ The kernel (``csrc/decode_attention.cu``) replaces the TPU kernel
 source note says what bounds it and how the design answers. The wrapper
 checks its inputs, picks how the positions are split over blocks
 (:func:`decode_split`), allocates the output and the blocks' f32 scratch,
-launches on PyTorch's current stream and counts the launch. It takes CUDA
-tensors only: the dispatch by device lives in ``kernels.ops``.
+launches on PyTorch's current stream and counts the launch. Its partial
+mode (:func:`gqa_decode_partial_cuda`) runs over one rank's block of a
+cache split by position and returns the f32 result with its log-sum-exp;
+its launches count among the kernel's and alone (``PARTIAL_LAUNCHES``).
+It takes CUDA tensors only: the dispatch by device lives in
+``kernels.ops``.
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -24,6 +28,8 @@ SPAN_STEP = 128
 
 #: kernel launches since the last reset (a run sets it to 0, then reads it)
 LAUNCHES = 0
+#: of those, the partial mode's
+PARTIAL_LAUNCHES = 0
 
 
 def check_attention_inputs(name: str, q, k, v, q_dims: int,
@@ -116,10 +122,36 @@ def gqa_decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     reads it in place. Positions >= min(kv_len, Smax) are never read; a row
     with kv_len <= 0 gives zeros. The cache's pointers and strides must be
     16-byte aligned and D a multiple of 8 (:func:`check_alignment`)."""
-    global LAUNCHES
-    check_attention_inputs("gqa_decode_attention_cuda", q, k_cache, v_cache,
-                           3)
-    check_alignment("gqa_decode_attention_cuda", k_cache, v_cache)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch("gqa_decode_attention_cuda", q, k_cache, v_cache, kv_len, out)
+    return out
+
+
+def gqa_decode_partial_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                            v_cache: torch.Tensor, kv_len: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The partial mode, over one block of a cache whose positions are
+    split: as :func:`gqa_decode_attention_cuda`, but returns (o (B, Hq, D)
+    f32, lse (B, Hq) f32): ``o`` the normalized result that the default
+    mode rounds to q's dtype, bit for bit, and lse = m + log(l) of the
+    scaled scores; a row with kv_len <= 0 gives o = 0 and lse = -inf.
+    ``tensor_parallel.merge_partials`` merges the blocks' results."""
+    B, Hq, D = q.shape
+    out = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
+    _launch("gqa_decode_partial_cuda", q, k_cache, v_cache, kv_len, out,
+            lse)
+    return out, lse
+
+
+def _launch(name: str, q: torch.Tensor, k_cache: torch.Tensor,
+            v_cache: torch.Tensor, kv_len: torch.Tensor, out: torch.Tensor,
+            lse: Optional[torch.Tensor] = None) -> None:
+    """Check the inputs, split the positions, launch the default mode
+    into ``out`` (or, with ``lse``, the partial mode) and count it."""
+    global LAUNCHES, PARTIAL_LAUNCHES
+    check_attention_inputs(name, q, k_cache, v_cache, 3)
+    check_alignment(name, k_cache, v_cache)
     B, Hq, D = q.shape
     Hkv, Smax = k_cache.shape[1], k_cache.shape[2]
     if kv_len.shape != (B,) or kv_len.device != q.device:
@@ -128,22 +160,25 @@ def gqa_decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     lens = kv_len
     if lens.dtype != torch.int32 or not lens.is_contiguous():
         lens = lens.to(torch.int32).contiguous()
-    out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
     span, splits = decode_split(B, Hkv, Smax, _build.n_sm(q.device))
     part = torch.empty(B * Hq * splits * (D + 2), dtype=torch.float32,
                        device=q.device)
     lib = _build.load()
     with _build.on_device(q.device):
         stream = _build.stream(q.device)
-        err = lib.repro_gqa_decode(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lens.data_ptr(), out.data_ptr(), part.data_ptr(),
-            _tickets(q.device, stream, B * Hkv).data_ptr(), B, Hq, Hkv,
-            Smax, D, DTYPES[q.dtype], span, splits, q.stride(0), q.stride(1),
-            *k_cache.stride()[:3], *v_cache.stride()[:3],
-            out.stride(0), out.stride(1), stream)
+        head = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                lens.data_ptr(), out.data_ptr())
+        args = (part.data_ptr(),
+                _tickets(q.device, stream, B * Hkv).data_ptr(), B, Hq, Hkv,
+                Smax, D, DTYPES[q.dtype], span, splits, q.stride(0),
+                q.stride(1), *k_cache.stride()[:3], *v_cache.stride()[:3],
+                out.stride(0), out.stride(1), stream)
+        if lse is None:
+            err = lib.repro_gqa_decode(*head, *args)
+        else:
+            err = lib.repro_gqa_decode_partial(*head, lse.data_ptr(), *args)
     if err != 0:
         raise RuntimeError(f"decode attention kernel launch failed: "
                            f"cudaError {err}")
     LAUNCHES += 1
-    return out
+    PARTIAL_LAUNCHES += lse is not None

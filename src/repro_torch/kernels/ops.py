@@ -6,7 +6,7 @@ fallback from one to the other and no mode that hides which path ran.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -62,6 +62,20 @@ def gqa_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cuda":
         return _dec.gqa_decode_attention_cuda(q, k_cache, v_cache, kv_len)
     raise ValueError(f"no gqa_decode_attention for device {q.device}")
+
+
+def gqa_decode_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, kv_len: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, Hq, D) over one block (B, Hkv, S_r, D) of a cache split by
+    position, filled to kv_len (B,) in the block: (o (B, Hq, D) f32, lse
+    (B, Hq) f32), merged across blocks by
+    ``tensor_parallel.merge_partials``."""
+    if q.device.type == "cpu":
+        return ref.gqa_decode_partial(q, k_cache, v_cache, kv_len)
+    if q.device.type == "cuda":
+        return _dec.gqa_decode_partial_cuda(q, k_cache, v_cache, kv_len)
+    raise ValueError(f"no gqa_decode_partial for device {q.device}")
 
 
 def flash_attention_extend(q: torch.Tensor, k_pre: torch.Tensor,

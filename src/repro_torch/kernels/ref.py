@@ -6,7 +6,7 @@ path never calls them on a CUDA tensor.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -105,6 +105,24 @@ def gqa_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     reference's ``ref.gqa_decode``: f32 scores scaled after the dot, softmax
     weights rounded to the cache's dtype before P·V. A row with kv_len <= 0
     gives zeros, as the TPU kernel does (the jnp oracle gives NaN there)."""
+    return _gqa_decode_f32(q, k_cache, v_cache, kv_len)[0].to(q.dtype)
+
+
+def gqa_decode_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, kv_len: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`gqa_decode` over one block of a cache whose positions are
+    split, before its rounding: (o (B, Hq, D) f32, lse (B, Hq) f32, the
+    log-sum-exp of the scaled scores over the block's first kv_len
+    positions). A row with kv_len <= 0 gives o = 0 and lse = -inf.
+    ``tensor_parallel.merge_partials`` merges the blocks' results."""
+    out, scores = _gqa_decode_f32(q, k_cache, v_cache, kv_len)
+    return out, torch.logsumexp(scores, dim=-1).reshape(q.shape[:2])
+
+
+def _gqa_decode_f32(q, k_cache, v_cache, kv_len):
+    """(:func:`gqa_decode`'s result in f32, the masked scaled scores (B,
+    Hkv, G, Smax))."""
     B, Hq, D = q.shape
     Hkv, Smax = k_cache.shape[1], k_cache.shape[2]
     kv_len = kv_len.to(device=q.device, dtype=torch.int64)
@@ -119,8 +137,7 @@ def gqa_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     vf = v_cache.to(torch.float32).masked_fill(~mask[:, None, :, None], 0.0)
     out = torch.einsum("bhgs,bhsd->bhgd", w.to(torch.float32),
                        vf).reshape(B, Hq, D)
-    out = torch.where((kv_len > 0)[:, None, None], out, 0.0)
-    return out.to(q.dtype)
+    return torch.where((kv_len > 0)[:, None, None], out, 0.0), scores
 
 
 def paged_gqa_decode(q: torch.Tensor, k_pool: torch.Tensor,

@@ -207,7 +207,7 @@ def _collectives(comm, moved, what: str) -> dict:
             "what": what}
 
 
-def _cache_bytes(cache, mesh=None, specs=None) -> int:
+def cache_bytes(cache, mesh=None, specs=None) -> int:
     """Bytes of a cache's K/V and state leaves (kv_len, 4 bytes a row,
     left out), or of a rank's blocks of them under ``specs``."""
     leaves = {"k": cache.k, "v": cache.v, **cache.state}
@@ -258,14 +258,17 @@ def _serve_record(cfg: ModelConfig, shape_name: str, mesh, batch) -> dict:
         "resident_params": len(server.resident),
         "filled_each_step_params": len(server.params),
         "filled_param_bytes_peak": server.peak_bytes["filled"],
-        "cache_bytes_per_rank": _cache_bytes(cache),
-        "cache_bytes_per_rank_reference_spec": _cache_bytes(
+        "cache_bytes_per_rank": cache_bytes(cache),
+        "cache_bytes_per_rank_reference_spec": cache_bytes(
             whole, mesh, shard.cache_specs(cfg, whole, mesh)),
         "cache_what": (
             "the K/V and state leaves of the rank's rows (kv_len's 4 bytes "
-            "a row left out): the port's at the rank's KV heads and Mamba "
-            "channels; the reference spec's with the sequence over "
-            "'model' (sharding.cache_specs on the whole batch)"),
+            "a row left out): the port's self-attention K/V with the "
+            "sequence over 'model' at every KV head, as the reference "
+            "spec's (sharding.cache_specs on the whole batch), so the two "
+            "are equal where the cache is only self K/V; the port's Mamba "
+            "state at the rank's channels, cross K/V at its KV heads, "
+            "mLSTM and sLSTM states whole"),
         "split": split_record(server, cfg),
         "flops_per_rank": float(flops.get_total_flops()),
         "collectives": _collectives(

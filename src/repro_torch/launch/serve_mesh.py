@@ -9,12 +9,22 @@ rank's blocks (``sharding.MeshParams``), and runs ``lm.prefill`` and
 ``lm.decode_step`` in the mesh's 'model'-parallel regions
 (``models.tensor_parallel``): the vocab-parallel embedding and head (the
 last logits gathered whole), the column- / row-parallel FFN, the experts,
-attention at the rank's query heads (the flash kernel in prefill, the
-decode kernel over the cache) and Mamba at its channels. The decode cache
-holds the rank's KV heads and Mamba channels (``make_cache``; mLSTM and
-sLSTM states whole), not the reference's sequence slice
-(``sharding.cache_specs``): attention then needs no collective beyond its
-output's sum.
+attention at the rank's query heads (the flash kernel in prefill) and
+Mamba at its channels. The decode cache is laid out as the reference's
+``sharding.cache_specs`` lays it out: the self-attention K/V hold every KV
+head at the rank's positions, the sequence split over 'model' in
+contiguous near-equal ranges (``make_cache``; ``tensor_parallel.
+seq_range``). Prefill sends each KV head's positions from its first
+holder to the rank whose block holds them (one all-to-all a layer). A
+decode step gathers the new token's q, k and v whole over 'model' (the
+reference's new-token all-gather), the rank whose block holds a row's
+position writes it, each rank runs the decode kernel's partial mode over
+its block for every query head, and one all-gather of the ranks' (o, lse)
+merges them; the rank's query heads then go through its rows of ``wo``.
+A self-attention module that is not a region (whisper-tiny's 6 heads on
+16 ranks) computes its q, k and v whole and holds its cache split all the
+same. Mamba's state holds the rank's channels; cross K/V the rank's KV
+heads; mLSTM and sLSTM states are whole.
 
 * A weight whose serve placement is whole over every mesh axis but
   'model', and which a region splits or is whole over 'model' too, gets
@@ -110,7 +120,9 @@ class ShardedServer(shard.MeshParams):
     def make_cache(self, batch: int, max_seq: int,
                    kv_len: Optional[torch.Tensor] = None,
                    cross_tokens: Optional[int] = None) -> lm.Cache:
-        """An empty cache of ``batch`` rows at this rank's widths."""
+        """An empty cache of ``batch`` rows: this rank's positions of
+        ``max_seq`` at every KV head, its Mamba channels and cross KV
+        heads."""
         return lm.make_cache(self.cfg, batch, max_seq, self.device,
                              kv_len=kv_len, cross_tokens=cross_tokens,
                              tp=self.region)
@@ -140,8 +152,8 @@ class ShardedServer(shard.MeshParams):
                 frames: Optional[torch.Tensor] = None,
                 patches: Optional[torch.Tensor] = None):
         """``lm.prefill`` on this rank's rows: (their last logits (B,
-        vocab) f32, whole over the vocabulary; their cache at this rank's
-        widths)."""
+        vocab) f32, whole over the vocabulary; their cache, this rank's
+        block of it)."""
         return self._step(lm.prefill, tokens, max_seq, length, frames,
                           patches)
 

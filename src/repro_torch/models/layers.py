@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from ..kernels import ops
 from . import tensor_parallel as TP
 from .config import ModelConfig
+from .sharding import head_split
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -130,11 +131,16 @@ def attention(p, cfg: ModelConfig, x: torch.Tensor, *,
 
 
 def attention_prefill_cache(p, cfg: ModelConfig, x: torch.Tensor,
-                            positions: torch.Tensor, causal: bool = True
+                            positions: torch.Tensor, causal: bool = True,
+                            seq: Optional[TP.Region] = None,
+                            max_seq: int = 0
                             ) -> Tuple[torch.Tensor,
                                        Tuple[torch.Tensor, torch.Tensor]]:
     """Like ``attention``, and also returns the (k, v) cache, each (B, S,
-    Hkv, D): in a region the rank's KV heads.
+    Hkv, D): in a region the rank's KV heads. In a sharded step (``seq``,
+    the step's region) it returns instead this rank's block of a
+    ``max_seq``-position cache: its positions (``TP.seq_range``) that the
+    prompt reaches, at every KV head (``TP.seq_block``).
 
     The reference computes this with its XLA einsum path
     (``_xla_attention``); the port runs the flash kernel here, the same
@@ -147,7 +153,15 @@ def attention_prefill_cache(p, cfg: ModelConfig, x: torch.Tensor,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     out = _self_attention(q, k, v, causal)
+    if seq is not None:
+        k, v = TP.seq_block(k, v, region and _head_split(p, region),
+                            max_seq, seq)
     return TP.reduce_from(out.flatten(2) @ p.wo, region), (k, v)
+
+
+def _head_split(p, region: TP.Region):
+    """The region's split of the attention module ``p``'s heads."""
+    return head_split(p.heads[0], p.heads[1], region.size)
 
 
 def attention_prefill_extend(p, cfg: ModelConfig, x: torch.Tensor,
@@ -184,22 +198,32 @@ def attention_prefill_extend(p, cfg: ModelConfig, x: torch.Tensor,
 
 def attention_decode(p, cfg: ModelConfig, x: torch.Tensor,
                      cache: Tuple[torch.Tensor, torch.Tensor],
-                     pos: torch.Tensor) -> torch.Tensor:
+                     pos: torch.Tensor, seq: Optional[TP.Region] = None,
+                     max_seq: int = 0) -> torch.Tensor:
     """One-token decode. x: (B, 1, d); cache: one layer's (k, v), each
-    (B, Smax, Hkv, D) (in a region, ``p.tp``, the rank's KV heads); pos:
-    (B,) current lengths. Returns y (B, 1, d), in a region summed over it.
+    (B, Smax, Hkv, D); pos: (B,) current lengths. Returns y (B, 1, d), in
+    a region (``p.tp``) summed over it.
 
     Writes the new k, v **in place** into the cache at ``pos``, clamped to
     Smax - 1: the reference's ``dynamic_update_slice`` clamps the same way,
     which is what an idle slot, whose length grows past Smax, meets. The
     kernel then attends over ``pos + 1`` positions (at most Smax), reading
-    the cache through a permuted view in place."""
+    the cache through a permuted view in place.
+
+    In a sharded step (``seq``, the step's region) the cache holds this
+    rank's positions [lo, hi) of a ``max_seq``-position cache at every KV
+    head (``TP.seq_range``), as the reference's ``cache_specs`` lays it
+    out: see :func:`_decode_split`."""
     region = getattr(p, "tp", None)
     x = TP.copy_to(x, region)
     B = x.shape[0]
     q, k_new, v_new = _qkv(p, cfg, x, x)
     q = rope(q, pos[:, None], cfg.rope_theta)
     k_new = rope(k_new, pos[:, None], cfg.rope_theta)
+    if seq is not None:
+        out = _decode_split(p, q[:, 0], k_new[:, 0], v_new[:, 0], cache, pos,
+                            seq, max_seq)
+        return TP.reduce_from(out.reshape(B, 1, -1) @ p.wo, region)
     k_cache, v_cache = cache
     rows = torch.arange(B, device=x.device)
     at = pos.clamp(max=k_cache.shape[1] - 1).to(torch.int64)
@@ -209,6 +233,44 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor,
         q[:, 0], k_cache.permute(0, 2, 1, 3), v_cache.permute(0, 2, 1, 3),
         pos + 1)
     return TP.reduce_from(out.reshape(B, 1, -1) @ p.wo, region)
+
+
+def _decode_split(p, q, k_new, v_new, cache, pos, seq: TP.Region,
+                  max_seq: int) -> torch.Tensor:
+    """Split-sequence decode attention of q (B, H_r, D) and the new k, v
+    (B, Hkv_r, D) at the rank's heads (all of them outside a region)
+    over a cache whose positions split over ``seq``: q, k and v gathered
+    whole (``TP.gather_heads``); the rank whose block holds ``pos``
+    (clamped to max_seq - 1) writes k and v there, the others write
+    nothing; the decode kernel's partial mode over the block for every
+    query head, with kv_len ``pos + 1 - lo`` clamped to the block; the
+    ranks' (o, lse) merged (``TP.merge_partials``). Returns the rank's
+    query heads' (B, H_r, D) in q's dtype."""
+    region = getattr(p, "tp", None)
+    heads = region and _head_split(p, region)
+    if heads is not None:
+        q, k_new, v_new = TP.gather_heads(q, k_new, v_new, heads, region)
+    k_cache, v_cache = cache
+    lo, hi = TP.seq_range(max_seq, seq)
+    B, n = q.shape[0], hi - lo
+    if n:
+        rows = torch.arange(B, device=q.device)
+        at = pos.to(torch.int64) - lo
+        other = ~((at >= 0) & ((at < n) | (hi == max_seq)))[:, None, None]
+        at = at.clamp(0, n - 1)
+        k_cache[rows, at] = torch.where(other, k_cache[rows, at], k_new)
+        v_cache[rows, at] = torch.where(other, v_cache[rows, at], v_new)
+        o, lse = ops.gqa_decode_partial(
+            q, k_cache.permute(0, 2, 1, 3), v_cache.permute(0, 2, 1, 3),
+            (pos + 1 - lo).clamp(0, n))
+    else:           # a block of no positions (max_seq < the region's size)
+        o = q.new_zeros(q.shape, dtype=torch.float32)
+        lse = o.new_full(q.shape[:2], float("-inf"))
+    out = TP.merge_partials(o, lse, seq).to(q.dtype)
+    if heads is not None:
+        a, b = heads.q[region.rank]
+        out = out[:, a:b]
+    return out
 
 
 # ---------------------------------------------------------------------------

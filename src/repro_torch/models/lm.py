@@ -42,10 +42,11 @@ The modules with ``SPLIT`` (the LM's embedding and head, ``FFN``, ``MoE``,
 step, and ``SPLIT`` names the dimension of each weight that a rank then
 holds a block of (``split_ranges``, where a module has it, which ranges of
 it: attention's heads, Mamba's channels). ``prefill`` and ``decode_step``
-run in those regions too: the cache then holds the rank's KV heads and
-Mamba channels (``make_cache(tp=)``), and the last logits are gathered
-whole over the vocabulary. ``prefill_extend`` (the engine's prefix reuse)
-runs on one card only.
+run in those regions too: the cache then holds every KV head at the
+rank's positions, as the reference's ``cache_specs`` lays it out, and the
+Mamba state at its channels (``make_cache(tp=)``), and the last logits are
+gathered whole over the vocabulary. ``prefill_extend`` (the engine's prefix
+reuse) runs on one card only.
 """
 from __future__ import annotations
 
@@ -89,11 +90,15 @@ class Cache(NamedTuple):
     H, dh) f32) and the cross-attention K/V ((n, B, T, Hkv, D)), under the
     keys of ``STATE_KEYS``. ``decode_step`` writes into ``k``, ``v`` and the
     recurrent state in place. (The reference's shared ``pos`` cursor is not
-    kept: no path reads it.)"""
+    kept: no path reads it.) ``max_seq`` is None where ``k`` and ``v`` hold
+    every position; in a sharded step (``make_cache(tp=)``) it is the
+    cache's positions, of which they hold the rank's block
+    (``tensor_parallel.seq_range``)."""
     k: torch.Tensor
     v: torch.Tensor
     kv_len: torch.Tensor
     state: Mapping[str, torch.Tensor] = _EMPTY
+    max_seq: Optional[int] = None
 
 
 class Layer(NamedTuple):
@@ -500,10 +505,12 @@ def _put_state(cache: Cache, layer: Layer, values) -> None:
 def _forward(cfg: ModelConfig, blocks, layers, x: torch.Tensor,
              positions: torch.Tensor, cross_x: Optional[torch.Tensor],
              cache: Optional[Cache] = None,
-             materialize: Optional[Callable] = None):
+             materialize: Optional[Callable] = None,
+             seq: Optional[TP.Region] = None):
     """The full-sequence pass of ``blocks`` (``layers`` their layout) over
     x (B, S, d); returns (x, the list of the MoE layers' aux losses). With
-    ``cache``, each layer's K/V (at positions 0..S-1), cross K/V and final
+    ``cache``, each layer's K/V (at positions 0..S-1; in a sharded step,
+    ``seq`` its region, the rank's block of them), cross K/V and final
     recurrent state are written into it. ``materialize(period's blocks)``,
     when given, is called before each period of the block pattern runs."""
     aux = []
@@ -515,8 +522,9 @@ def _forward(cfg: ModelConfig, blocks, layers, x: torch.Tensor,
         h = L.apply_norm(cfg, blk.norm1, x)
         if mixer in SELF_ATTN:
             if cache is not None:
-                y, (k, v) = L.attention_prefill_cache(blk.mixer, cfg, h,
-                                                      positions)
+                y, (k, v) = L.attention_prefill_cache(
+                    blk.mixer, cfg, h, positions, seq=seq,
+                    max_seq=cache.max_seq)
                 cache.k[layer.attn, :, :k.shape[1]] = k
                 cache.v[layer.attn, :, :v.shape[1]] = v
             else:
@@ -699,11 +707,12 @@ def loss_fn(model: LM, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
 
 def cache_widths(cfg: ModelConfig, tp: Optional[TP.Region] = None
                  ) -> Tuple[int, Optional[int]]:
-    """(KV heads, Mamba channels or None) that a cache holds: all of them,
-    or in the region ``tp`` the rank's, as its attention and Mamba modules
-    split them (``sharding.head_split``'s KV ranges, ``channel_ranges``):
-    read from the config, since a sharded step may size a cache while
-    its weights are empty."""
+    """(cross-attention KV heads, Mamba channels or None) that a cache
+    holds: all of them, or in the region ``tp`` the rank's, as its
+    attention and Mamba modules split them (``sharding.head_split``'s KV
+    ranges, ``channel_ranges``): read from the config, since a sharded step
+    may size a cache while its weights are empty. (The self-attention K/V
+    hold every KV head, at the rank's positions in a region.)"""
     Hkv, di = cfg.n_kv_heads, cfg.ssm and S.d_inner(cfg)
     if tp is not None:
         heads = SH.head_split(cfg.n_heads, cfg.n_kv_heads, tp.size)
@@ -725,14 +734,17 @@ def make_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
     """An empty decode cache (zeros; the stabilizers at the reference's
     -1e30), with ``kv_len`` marking the fill; cross K/V hold
     ``cross_tokens`` (default ``cfg.cross_kv_tokens``) positions. In the
-    region ``tp`` the K/V (self and cross) hold the rank's KV heads and
-    the Mamba state its channels (``cache_widths``); mLSTM and sLSTM
-    states are whole."""
+    region ``tp`` the self-attention K/V hold every KV head at the rank's
+    positions of ``max_seq`` (``tensor_parallel.seq_range``: the sequence
+    over 'model', as the reference's ``cache_specs``), the cross K/V the
+    rank's KV heads and the Mamba state its channels (``cache_widths``);
+    mLSTM and sLSTM states are whole."""
     dev = resolve(device)
     dt = L.dtype_of(cfg)
     B = batch_size
     Hkv, di = cache_widths(cfg, tp)
-    shp = (n_attn(cfg), B, max_seq, Hkv, cfg.hd)
+    lo, hi = TP.seq_range(max_seq, tp)
+    shp = (n_attn(cfg), B, hi - lo, cfg.n_kv_heads, cfg.hd)
     sizes = group_sizes(cfg)
     init = {"mamba": lambda: S.init_state(cfg, B, dt, dev, di),
             "mlstm": lambda: X.init_mlstm_state(cfg, B, dev),
@@ -752,7 +764,7 @@ def make_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
     return Cache(k=torch.zeros(shp, dtype=dt, device=dev),
                  v=torch.zeros(shp, dtype=dt, device=dev),
                  kv_len=kv_len.to(device=dev, dtype=torch.int32),
-                 state=state)
+                 state=state, max_seq=None if tp is None else max_seq)
 
 
 def group_sizes(cfg: ModelConfig) -> Dict[str, int]:
@@ -781,7 +793,7 @@ def prefill(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
     """Run the prompt (B, S); return (last-token logits (B, vocab) f32,
     Cache allocated at ``max_seq`` (default S) holding the prompt's K/V,
     cross K/V and recurrent state). In the regions of a sharded step the
-    cache holds the rank's widths (``make_cache(tp=)``) and the logits are
+    cache holds the rank's block (``make_cache(tp=)``) and the logits are
     gathered whole; ``materialize(blocks)``, when given, is called before
     each period of the block pattern runs.
 
@@ -798,15 +810,16 @@ def prefill(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
         raise ValueError(f"{cfg.name}: pattern {cfg.pattern} cannot pad a "
                          f"prompt ({fill} tokens padded to {Sq})")
     cross_x = _cross_input(model, cfg, frames, patches)
+    seq = _step_region(model)
     cache = make_cache(cfg, B, max_seq, tokens.device,
                        kv_len=torch.full((B,), fill, dtype=torch.int32),
                        cross_tokens=(None if cross_x is None
                                      else cross_x.shape[1]),
-                       tp=_step_region(model))
+                       tp=seq)
     x = L.embed(model.embed, tokens, model.tp)
     positions = torch.arange(Sq, device=tokens.device)[None]
     x, _ = _forward(cfg, model.blocks, layout(cfg), x, positions, cross_x,
-                    cache, materialize)
+                    cache, materialize, seq)
     return _last_logits(model, cfg, x[:, fill - 1:fill]), cache
 
 
@@ -877,8 +890,14 @@ def decode_step(model: LM, cfg: ModelConfig, token: torch.Tensor,
     live or not, and every row's kv_len grows by one, as in the reference;
     K/V and recurrent state are updated in place and returned in the new
     Cache. In the regions of a sharded step ``cache`` holds the rank's
-    widths and the logits are gathered whole; ``materialize(blocks)``,
-    when given, is called before each period of the block pattern runs."""
+    block (``make_cache(tp=)``), attention runs split over its positions
+    (``layers.attention_decode``) and the logits are gathered whole;
+    ``materialize(blocks)``, when given, is called before each period of
+    the block pattern runs."""
+    seq = _step_region(model)
+    if (seq is None) != (cache.max_seq is None):
+        raise ValueError("a sharded step decodes a cache of the rank's "
+                         "positions (make_cache(tp=)), and only it")
     x = L.embed(model.embed, token, model.tp)
     P = len(cfg.pattern)
     for li, (blk, layer) in enumerate(zip(model.blocks, layout(cfg))):
@@ -889,7 +908,8 @@ def decode_step(model: LM, cfg: ModelConfig, token: torch.Tensor,
         if mixer in SELF_ATTN:
             x = x + L.attention_decode(blk.mixer, cfg, h,
                                        (cache.k[layer.attn],
-                                        cache.v[layer.attn]), cache.kv_len)
+                                        cache.v[layer.attn]), cache.kv_len,
+                                       seq, cache.max_seq)
             if mixer == "attn_cross":
                 x = x + L.cross_attention_cached(
                     blk.mixer2, cfg, L.apply_norm(cfg, blk.norm1b, x),

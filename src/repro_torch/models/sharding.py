@@ -48,15 +48,16 @@ norms, routers). The optimizer updates the stored blocks in place
 rank's local tensors, whole over 'model' between regions: :func:`constrain`
 is a no-op.
 
-The KV cache of the port's sharded server holds each rank's KV heads (the
-heads its attention region reads), not the sequence slice that
-:func:`cache_specs` gives (the reference's GSPMD layout): attention then
-needs no collective beyond its output's sum, and the kernels run on
-local tensors; ranks that share a KV head each hold it.
+The self-attention KV cache of the port's sharded server is laid out as
+:func:`cache_specs` lays it out (the reference's GSPMD layout): every KV
+head at the rank's positions, the sequence over 'model'
+(``tensor_parallel.seq_range``; contiguous near-equal ranges where the
+axis does not divide it, where the reference falls back to the head dim).
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import re
 from typing import (Dict, Iterable, Mapping, NamedTuple, Optional, Sequence,
                     Tuple, Union)
@@ -344,6 +345,7 @@ class HeadSplit(NamedTuple):
     kv: Tuple[Tuple[int, int], ...]
 
 
+@functools.lru_cache(maxsize=None)
 def head_split(n_heads: int, n_kv_heads: int, n: int
                ) -> Optional[HeadSplit]:
     """Attention's heads over n 'model' ranks, or None (kept whole): a

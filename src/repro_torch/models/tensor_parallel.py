@@ -27,9 +27,18 @@ the group (the rows of one data-parallel rank):
   step gathers the ranks' logit slices whole (:func:`gather_vocab`);
 * attention: :func:`copy_to` at the input (and at the cross-attention's
   encoder or patch input), the rank's query heads and the KV heads they
-  read, the flash kernels (prefill) or the decode kernel (over a cache
-  held at those KV heads) on those local heads, its rows of ``wo`` and
-  :func:`reduce_from`;
+  read, the flash kernels on those local heads (training, prefill), its
+  rows of ``wo`` and :func:`reduce_from`;
+* the self-attention K/V cache of a serving step, as the reference's
+  ``cache_specs`` lays it out: every KV head at the rank's positions
+  (:func:`seq_range`). Prefill moves each KV head's positions from its
+  first holder to the rank whose block holds them (:func:`seq_block`, one
+  all-to-all); a decode step gathers the new token's q, k and v whole
+  (:func:`gather_heads`, one all-gather: the reference's new-token
+  all-gather), the rank whose block holds the position writes it, every
+  rank runs the decode kernel's partial mode over its block for all query
+  heads, and :func:`merge_partials` merges the ranks' (o, lse) (one
+  all-gather);
 * Mamba: :func:`copy_to`, the rank's channels through in_proj, the conv,
   the Δt path and the scan, ``x_proj``'s partial sums through
   :func:`reduce_from` then :func:`copy_to` (every rank reads all of Δt's,
@@ -45,13 +54,14 @@ is the plain computation's bit for bit.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-from .sharding import Split, even_ranges
+from .sharding import HeadSplit, Split, even_ranges
 
 
 class Region(NamedTuple):
@@ -234,6 +244,127 @@ def storage_grad(g: torch.Tensor, src: Optional[int], split: Split,
     for q, piece in enumerate(_exchange(pieces, shapes, region, g)):
         add(piece, ranges[q])
     return out
+
+
+def seq_range(max_seq: int, region: Optional[Region]) -> Tuple[int, int]:
+    """This rank's positions [lo, hi) of a ``max_seq``-position cache:
+    rank r's contiguous near-equal range (``even_ranges``; the last rank's
+    ends at ``max_seq``), all of them outside a region."""
+    if region is None:
+        return 0, max_seq
+    (lo, hi), = even_ranges(max_seq, region.size)[region.rank]
+    return lo, hi
+
+
+def _first_held(heads: HeadSplit) -> List[Tuple[int, int]]:
+    """The KV heads [lo, hi) of which each rank is the first holder (the
+    ranks that share a KV head hold the same values of it)."""
+    out, done = [], 0
+    for a, b in heads.kv:
+        out.append((max(a, done), max(b, done)))
+        done = max(b, done)
+    return out
+
+
+def seq_block(k: torch.Tensor, v: torch.Tensor, heads: Optional[HeadSplit],
+              max_seq: int, region: Region
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A prefill's (k, v), each (B, S, H, D), at this rank's KV heads
+    (``heads`` the region's split of them; None: all of them, the same on
+    every rank) -> this rank's positions [lo, min(hi, S)) of every KV
+    head (:func:`seq_range`), each (B, L, Hkv, D). Each KV head's
+    positions come from its first holder, in one ``all_to_all_single``
+    (no gradient); a rank whose block starts at or past S gets (B, 0,
+    Hkv, D)."""
+    lo, hi = seq_range(max_seq, region)
+    B, S, _, D = k.shape
+    if heads is None:
+        return k[:, lo:min(hi, S)], v[:, lo:min(hi, S)]
+    n, r = region.size, region.rank
+    held = _first_held(heads)
+    a, _ = heads.kv[r]
+    h0, h1 = held[r]
+    pieces = [[t[:, min(x, S):min(y, S), h0 - a:h1 - a] for t in (k, v)]
+              for (x, y), in even_ranges(max_seq, n)]
+    L = max(0, min(hi, S) - lo)
+    shapes = [(2, B, L, y - x, D) for x, y in held]
+    got = [t for t in _exchange(pieces, shapes, region, k) if t is not None]
+    Hkv = held[-1][1]
+    if not got:
+        empty = k.new_empty((B, L, Hkv, D))
+        return empty, empty
+    kv = torch.cat(got, dim=3)
+    return kv[0], kv[1]
+
+
+@functools.lru_cache(maxsize=64)
+def _head_index(heads: HeadSplit, width: int, n_kv: int,
+                device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ranks, slots) of the gathered (n, B, width + 2 n_kv, D) buffer that
+    hold the query heads, then the KV heads' k, then their v, each from
+    its first holder."""
+    ranks, slots = [], []
+    for q, (a, b) in enumerate(heads.q):
+        ranks += [q] * (b - a)
+        slots += range(b - a)
+    for off in (width, width + n_kv):
+        for q, (a, b) in enumerate(_first_held(heads)):
+            ranks += [q] * (b - a)
+            slots += range(off + a - heads.kv[q][0], off + b - heads.kv[q][0])
+    return (torch.tensor(ranks, device=device),
+            torch.tensor(slots, device=device))
+
+
+def gather_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 heads: HeadSplit, region: Region
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A decode step's q (B, Hq_r, D) and new k, v (B, Hkv_r, D) at this
+    rank's heads -> whole (B, Hq, D), (B, Hkv, D), (B, Hkv, D), the same
+    on every rank: one all-gather of each rank's q (padded to the most
+    query heads a rank holds), k and v, a KV head that ranks share taken
+    from its first holder (no gradient)."""
+    width = max(b - a for a, b in heads.q)
+    if q.shape[1] < width:
+        q = torch.cat([q, q.new_zeros((q.shape[0], width - q.shape[1],
+                                       q.shape[2]))], dim=1)
+    send = torch.cat([q, k, v], dim=1)
+    out = _all_gather(send, region)
+    ranks, slots = _head_index(heads, width, k.shape[1], send.device)
+    whole = out[ranks, :, slots].transpose(0, 1)       # (B, heads, D)
+    Hq, Hkv = heads.q[-1][1], _first_held(heads)[-1][1]
+    return whole[:, :Hq], whole[:, Hq:Hq + Hkv], whole[:, Hq + Hkv:]
+
+
+def merge(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """Blocks' partial results o (n, B, H, D) f32 and their log-sum-exps
+    lse (n, B, H) -> the attention over all the blocks, (B, H, D) f32:
+    m = max lse, w = exp(lse - m), sum w o / sum w, over the blocks in
+    order; zeros where every block was empty (lse -inf). One block gives
+    its o bit for bit (w = exp(0) = 1)."""
+    m = lse.amax(0)
+    w = torch.exp(lse - torch.where(m == float("-inf"), 0.0, m))
+    den = w.sum(0)[..., None]
+    num = (w[..., None] * o).sum(0)
+    return torch.where(den > 0, num / den, 0.0)
+
+
+def merge_partials(o: torch.Tensor, lse: torch.Tensor, region: Region
+                   ) -> torch.Tensor:
+    """Each rank's partial decode result over its block of the cache, o
+    (B, H, D) f32 and lse (B, H) f32 (``ops.gqa_decode_partial``) -> the
+    attention over the whole cache (B, H, D) f32, the same on every rank:
+    one all-gather of (B, H, D + 1) a rank, then :func:`merge` in rank
+    order (its bits do not depend on a collective's reduction order)."""
+    out = _all_gather(torch.cat([o, lse[..., None]], dim=-1), region)
+    return merge(out[..., :-1], out[..., -1])
+
+
+def _all_gather(x: torch.Tensor, region: Region) -> torch.Tensor:
+    """Each rank's contiguous ``x`` stacked in rank order, (n,) +
+    x.shape."""
+    out = x.new_empty((region.size * x.shape[0],) + x.shape[1:])
+    dist.all_gather_into_tensor(out, x, group=region.group)
+    return out.unflatten(0, (region.size, -1))
 
 
 def copy_to(x: torch.Tensor, region: Optional[Region]) -> torch.Tensor:

@@ -26,12 +26,16 @@ CLI) while the qwen3 cells run. Held per rank:
 * the serving cells run the sharded server itself (``ShardedServer``):
   it holds every weight as the blocks it computes on (the train fill's
   blocks, every weight resident, nothing filled in a step, 0.27 GB a
-  rank); its cache holds the rank's KV head, 939,524,096 bytes at
-  prefill_32k and 3,758,096,384 at decode_32k, beside the reference
-  spec's sequence slice (half that); its collectives are the embedding's
-  and each layer's attention and FFN sums (57 all-reduces of the rows'
-  (B, S, 2048) bf16) and one all-gather of the (B, 151,936) f32 logits,
-  no all-to-all;
+  rank); its cache holds every KV head at the rank's 1/16 of the
+  positions, the reference spec's sequence slice, 469,762,048 bytes at
+  prefill_32k and 1,879,048,192 at decode_32k; its collectives are the
+  embedding's and each layer's attention and FFN sums (57 all-reduces of
+  the rows' (B, S, 2048) bf16) and one all-gather of the (B, 151,936) f32
+  logits; prefill moves each layer's K/V to the ranks whose positions
+  they are (28 all-to-alls, receiving the rank's cache block), and a
+  decode step gathers each layer's new-token q, k and v (16 ranks x 8
+  rows x 3 heads of 128 bf16) and the decode kernel's partial (o, lse)
+  (16 x 8 x 16 heads x 129 f32): 57 all-gathers;
 * FLOPs against ``model_flops_per_token()`` x the rank's tokens, within
   the factor the step's structure gives. Train runs the forward, the remat
   recompute of every period (not the head) and the backward: at least
@@ -172,17 +176,34 @@ def test_dryrun_records_each_kind(cells):
         "c10d.alltoall_base_"}
     # the serving step: the embedding's and each layer's attention and FFN
     # sums of the rows' activations, the logits gathered; blocks filled
-    # at load, so no all-to-all
+    # at load. Prefill sends each layer's K/V to the ranks whose positions
+    # they are: one all-to-all a layer, receiving the rank's cache block.
+    # Decode gathers each layer's new-token q, k and v (1 + 1 + 1 heads a
+    # rank) and the ranks' partial (o, lse): two all-gathers a layer
     cfg = get(ARCH).config()
+    n, L, hd = N_MODEL, cfg.n_layers, cfg.hd
     for s, rows, S in (("prefill_32k", 2, 32768), ("decode_32k", 8, 1)):
         got = cells[s]["collectives"]
-        sums = 1 + 2 * cfg.n_layers
-        assert got["count"] == {"c10d.allreduce_": sums,
-                                "c10d._allgather_base_": 1}
+        sums = 1 + 2 * L
+        logits = rows * cfg.vocab * 4
+        if s == "prefill_32k":
+            block = 2 * rows * (S // n) * cfg.n_kv_heads * hd * 2
+            count = {"c10d.allreduce_": sums, "c10d._allgather_base_": 1,
+                     "c10d.alltoall_base_": L}
+            moved = {"c10d._allgather_base_": logits,
+                     "c10d.alltoall_base_": L * block}
+            assert L * block == cells[s]["cache_bytes_per_rank"]
+        else:
+            qkv = n * rows * 3 * hd * 2
+            partial = n * rows * cfg.n_heads * (hd + 1) * 4
+            assert (qkv, partial) == (98_304, 1_056_768)
+            count = {"c10d.allreduce_": sums,
+                     "c10d._allgather_base_": 1 + 2 * L}
+            moved = {"c10d._allgather_base_": logits + L * (qkv + partial)}
+        assert got["count"] == count
         assert got["bytes"] == {
-            "c10d.allreduce_": sums * rows * S * cfg.d_model * 2,
-            "c10d._allgather_base_": rows * cfg.vocab * 4}
-        assert got["total_count"] == sums + 1
+            "c10d.allreduce_": sums * rows * S * cfg.d_model * 2, **moved}
+        assert got["total_count"] == sum(count.values())
     skipped = cells["long_500k"]
     assert skipped["status"] == "skipped"
     assert skipped["reason"].startswith("full-attention arch")
@@ -213,12 +234,12 @@ def test_dryrun_bytes_per_rank(cells, shape):
         assert rec["filled_param_bytes_peak"] == held
         assert rec["filled_each_step_params"] == 0
         assert rec["resident_params"] == len(specs)
-        # the cache at rank 0's KV head (1 of 8); the reference spec's
-        # sequence slice (S / 16) is half that
-        cache = {"prefill_32k": 939_524_096,
-                 "decode_32k": 3_758_096_384}[shape]
+        # the cache at every KV head and the rank's S / 16 positions: the
+        # reference spec's sequence slice
+        cache = {"prefill_32k": 469_762_048,
+                 "decode_32k": 1_879_048_192}[shape]
         assert rec["cache_bytes_per_rank"] == cache
-        assert rec["cache_bytes_per_rank_reference_spec"] == cache // 2
+        assert rec["cache_bytes_per_rank_reference_spec"] == cache
         assert rec["split"] == {"query_heads": {"min": 1, "max": 1,
                                                 "rank_0": 1},
                                 "kv_heads": {"min": 1, "max": 1,

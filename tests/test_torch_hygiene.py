@@ -203,6 +203,7 @@ def test_kernel_build_targets_hopper_and_reports_failures(tmp_path,
                                    "repro_flash_attention_bwd_dq",
                                    "repro_flash_attention_bwd_dkdv",
                                    "repro_gqa_decode",
+                                   "repro_gqa_decode_partial",
                                    "repro_paged_gqa_decode"}
     for name in _build.SYMBOLS:   # every C symbol is defined in a source
         assert any(f'extern "C" int {name}(' in s.read_text() for s in srcs)

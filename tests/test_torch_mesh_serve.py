@@ -18,9 +18,13 @@ Held:
   attention, experts), dbrx (top-2 experts) and llama-3.2-vision
   (cross-attention) smoke configs in f32, each rank's greedy tokens equal
   to one rank's without a mesh and its logits within 1e-5 x max|logit|,
-  every MoE call's choices and drops equal; each rank's cache at its KV
-  heads (one of two) and Mamba channels (half), every weight resident and
-  filled at the rank's block;
+  every MoE call's choices and drops equal; each rank's self-attention
+  K/V at every KV head and its half of the positions (rank 1's block
+  starts empty, and the decode steps cross the blocks' edge), the two
+  blocks together equal to one rank's cache within 1e-5 x max|k|, and the
+  cache's bytes those of the reference's ``cache_specs``; its Mamba
+  channels (half) and cross K/V at its KV heads; every weight resident
+  and filled at the rank's block;
 * the (1, 2) qwen3 run's logits against the reference's ``lm.prefill`` /
   ``lm.decode_step`` (JAX, CPU) from the same initial parameters, fed the
   same tokens, within ``tests/test_torch_model.py``'s f32 tolerance;
@@ -234,16 +238,33 @@ def test_serve_1x2_matches_one_rank(serve_runs, arch):
                 assert shape[sp.dim] == sum(b - a for a, b in sp.ranges[r])
             else:
                 assert shape == tuple(names[k].shape), k
-        # the cache at the rank's widths: 1 of 2 KV heads, half the Mamba
-        # channels, cross K/V at the rank's KV heads
+        # the self-attention K/V: every KV head at the rank's 12 of the 24
+        # positions (the prompt's 8 in rank 0's; the decode steps write
+        # 8..15, across the edge), as the reference's cache_specs; half the
+        # Mamba channels, cross K/V at the rank's KV heads
+        S, half = workers.SERVE["max_seq"], workers.SERVE["max_seq"] // 2
+        assert workers.SERVE["prompt"] < half < (
+            workers.SERVE["prompt"] + workers.SERVE["steps"])
+        assert run["cache"]["k"] == (lm.n_attn(cfg), workers.SERVE["rows"],
+                                     half, cfg.n_kv_heads, cfg.hd)
+        assert run["cache_max_seq"] == S
+        assert run["cache_bytes"]["port"] == run["cache_bytes"]["spec"]
+        assert sum(t.nbytes for t in run["cache_kv"]) == \
+            run["cache_bytes"]["kv_spec"]
         Hkv, di = lm.cache_widths(cfg, Region(None, 2, r))
-        assert run["cache"]["k"][3] == Hkv == cfg.n_kv_heads // 2
         if "mamba.h" in run["cache"]:
             assert run["cache"]["mamba.h"][2] == di
             assert run["cache"]["mamba.conv"][3] == di
             assert 2 * di == cfg.ssm.expand * cfg.d_model
         if "cross.k" in run["cache"]:
             assert run["cache"]["cross.k"][3] == Hkv
+    # the ranks' blocks, in rank order, are the one-rank cache
+    cache = want[2]
+    for i, whole in enumerate((cache.k, cache.v)):
+        got = torch.cat([ranks[arch]["cache_kv"][i] for ranks in serve_runs],
+                        dim=2)
+        assert got.shape == whole.shape
+        assert _rel_err(got, whole) <= 1e-5
 
 
 def test_serve_1x2_matches_reference(serve_runs):

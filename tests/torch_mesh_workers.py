@@ -43,7 +43,9 @@ HEADS4 = ("qwen3-1.7b", dict(n_heads=6, n_kv_heads=2))
 
 
 #: the sharded serve step's runs: rows, prompt length, cache depth and
-#: greedy decode steps after the prefill
+#: greedy decode steps after the prefill. On (1, 2) each rank holds 12 of
+#: the 24 positions: rank 1's block starts empty for every row, and the
+#: decode steps write positions 8..15, across the blocks' edge at 12
 SERVE = dict(rows=4, prompt=8, max_seq=24, steps=8)
 #: the smoke configs served on (1, 2), two to a job: qk-norm (from the
 #: reference's initial parameters, ``init_<arch>.pt`` beside the output)
@@ -304,9 +306,11 @@ def _serve(mesh_shape, arch, init=None):
     saved in ``init``): this rank's rows, logits, tokens and cache shapes,
     the regions, what each fill filled and at which shapes, and the MoE
     calls' routing and drops."""
+    from repro_torch.launch.dryrun import cache_bytes
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.serve_mesh import ShardedServer
     from repro_torch.models import lm, moe
+    from repro_torch.models import sharding
     cfg = _train_cfg(arch)
     mesh = make_host_mesh(model=mesh_shape[1], data=mesh_shape[0],
                           device="cpu")
@@ -330,10 +334,21 @@ def _serve(mesh_shape, arch, init=None):
         routing = moe.ROUTING
     finally:
         moe.ROUTING = None
+    whole = lm.make_cache(cfg, SERVE["rows"], SERVE["max_seq"], "cpu",
+                          cross_tokens=(cache.state["cross.k"].shape[2]
+                                        if "cross.k" in cache.state
+                                        else None))
+    specs = sharding.cache_specs(cfg, whole, mesh)
     return {"rows": server.rows(torch.arange(SERVE["rows"])),
             "logits": logits, "tokens": chosen,
             "cache": {"k": tuple(cache.k.shape),
                       **{k: tuple(t.shape) for k, t in cache.state.items()}},
+            "cache_kv": (cache.k, cache.v), "cache_max_seq": cache.max_seq,
+            "cache_bytes": {
+                "port": cache_bytes(cache),
+                "spec": cache_bytes(whole, mesh, specs),
+                "kv_spec": cache_bytes(whole._replace(state={}), mesh,
+                                       specs._replace(state={}))},
             "split": server.split, "resident": server.resident,
             "stored": sorted(server.params), "fills": fills,
             "tp_cleared": all(getattr(m, "tp", None) is None
