@@ -361,6 +361,13 @@ MESH_SPLIT_LENS = (0, 1024, 2048, 3072, 17, 5000, 1000, 2049)
 # tokens, then greedy decode steps, for qwen3-1.7b whole and dbrx-132b at
 # MESH_MOE_LAYERS layers with its per-period fills forced
 MESH_SERVE = dict(rows=4, prompt=128, steps=16)
+# the same against the cache leaves that cache_specs splits beyond the self
+# K/V, at published widths: the cross K/V of llama-3.2-vision-11b (1 of 8
+# periods: 5 of 40 layers; 1,600 patch tokens) and whisper-tiny (whole;
+# 1,504 frames through its 4 encoder layers), and xLSTM's states
+# (xlstm-1.3b at 1 of 6 periods: 8 of 48 layers); (model, layers or None)
+MESH_SERVE_STATE = (("llama-3.2-vision-11b", 5), ("whisper-tiny", None),
+                    ("xlstm-1.3b", 8))
 # the backward kernel against its plain version: gradients within this
 # times max|g| of each of dq, dk, dv
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -4039,13 +4046,16 @@ def _host_ops(fn, top=8):
             "top": [(e.key, e.count, e.self_cpu_time_total) for e in worst]}
 
 
-def _serve_vs_plain(cfg, mesh, per_period=False):
+def _serve_vs_plain(cfg, mesh, per_period=False, profile=False):
     """``lm.prefill`` + ``lm.decode_step``, then a ``ShardedServer`` on
-    ``mesh`` loaded with the same weights, over MESH_SERVE's prompt: logits,
-    tokens and every cache leaf compared bit for bit, launches, the
-    regions, the fills and walls. ``per_period``: ``BIG_MODEL_B`` at 0,
-    so that the serve placements split over 'data' and every step fills
-    the weights a period at a time."""
+    ``mesh`` loaded with the same weights, over MESH_SERVE's prompt (and
+    seeded bf16 frames or patches of ``cfg.cross_kv_tokens`` for the
+    audio and vision families): logits, tokens and every cache leaf
+    compared bit for bit, launches (the encoder's layers counted), the
+    regions, xLSTM's state layout, the fills and walls. ``per_period``:
+    ``BIG_MODEL_B`` at 0, so that the serve placements split over 'data'
+    and every step fills the weights a period at a time. ``profile``: one
+    more decode step each way under the host profiler."""
     import torch
     from repro_torch.launch.serve_mesh import ShardedServer
     from repro_torch.models import lm
@@ -4058,14 +4068,19 @@ def _serve_vs_plain(cfg, mesh, per_period=False):
         MESH_SERVE["steps"]
     tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
                            device="cuda")
+    key = {"audio": "frames", "vlm": "patches"}.get(cfg.family)
+    cross = ({key: torch.randn((B, cfg.cross_kv_tokens, cfg.d_model),
+                               generator=gen, device="cuda").to(
+        torch.bfloat16)} if key else {})
     max_seq = S + steps
     n_attn = lm.n_attn(cfg)
-    want_launches = {"flash_attention": n_attn,
+    n_enc = cfg.encoder.n_layers if cfg.encoder is not None else 0
+    want_launches = {"flash_attention": n_attn + n_enc,
                      "gqa_decode_attention": n_attn * steps}
     runs = {}
     zero_launches()
     runs["plain"] = _serve_greedy(
-        lambda t: lm.prefill(model, cfg, t, max_seq),
+        lambda t: lm.prefill(model, cfg, t, max_seq, **cross),
         lambda t, c: lm.decode_step(model, cfg, t, c), tokens)
     launches_plain = launch_counts(**want_launches)
     big = sharding.BIG_MODEL_B
@@ -4086,7 +4101,9 @@ def _serve_vs_plain(cfg, mesh, per_period=False):
         load_s = time.perf_counter() - t0
         zero_launches()
         runs["mesh"] = _serve_greedy(
-            lambda t: server.prefill(server.rows(t), max_seq),
+            lambda t: server.prefill(
+                server.rows(t), max_seq,
+                **{k: server.rows(x) for k, x in cross.items()}),
             server.decode_step, tokens)
         # every decode launch of the split-sequence path is a partial one
         launches_mesh = launch_counts(
@@ -4099,7 +4116,7 @@ def _serve_vs_plain(cfg, mesh, per_period=False):
               "kv_len": (cp.kv_len, cm.kv_len),
               **{k: (t, cm.state[k]) for k, t in cp.state.items()}}
     cache_equal = {k: _bits_equal(a, b) for k, (a, b) in leaves.items()}
-    if not per_period:
+    if profile:
         # one more decode step each way, profiled on the host (the plain
         # model's weights are the server's resident blocks: whole on a
         # world of one); after the comparison, since it writes the caches
@@ -4109,6 +4126,8 @@ def _serve_vs_plain(cfg, mesh, per_period=False):
                    "mesh": _host_ops(lambda: server.decode_step(t, cm))}
     row = {"model": cfg.name, "layers": cfg.n_layers,
            "prompt": [B, S], "decode_steps": steps,
+           "cross_tokens": cfg.cross_kv_tokens if key else None,
+           "encoder_layers": n_enc, "tp_friendly": cfg.tp_friendly,
            "logits_bit_equal": _bits_equal(lp, lm_),
            "tokens_bit_equal": _bits_equal(tp, tm),
            "cache_bit_equal": cache_equal,
@@ -4116,6 +4135,13 @@ def _serve_vs_plain(cfg, mesh, per_period=False):
            "launches_plain": launches_plain, "launches_mesh": launches_mesh,
            "regions": sorted(server.split),
            "region_size": server.region and server.region.size,
+           # xLSTM: its states split over 'model' (a region of one here)
+           "states_split": server.split_states,
+           "state_region_size": (server.state_region
+                                 and server.state_region.size),
+           "cache_blocks": {k: list(b) for k, b in lm.cache_widths(
+               cfg, server.cache_region(), cfg.cross_kv_tokens or None
+           ).items()},
            "tp_cleared": all(getattr(m, "tp", None) is None
                              for m in model.modules()),
            "per_period_fills": per_period,
@@ -4128,9 +4154,9 @@ def _serve_vs_plain(cfg, mesh, per_period=False):
            "wall_s_mesh": sum(wm),
            # the prefill's wall, then each decode step's
            "step_walls_s_plain": wp, "step_walls_s_mesh": wm}
-    if not per_period:
+    if profile:
         row["host_ops_one_decode_step"] = row_ops
-    del server, model, runs, lp, tp, cp, lm_, tm, cm, leaves
+    del server, model, runs, lp, tp, cp, lm_, tm, cm, leaves, cross
     _free_cuda()
     row["seconds"] = time.perf_counter() - t_all
     return row
@@ -4138,12 +4164,25 @@ def _serve_vs_plain(cfg, mesh, per_period=False):
 
 def mesh_serve(mesh):
     """The sharded serve step against the plain one: qwen3-1.7b whole,
-    then dbrx-132b at MESH_MOE_LAYERS layers with its fills forced."""
+    dbrx-132b at MESH_MOE_LAYERS layers with its fills forced, then
+    MESH_SERVE_STATE's models (cross K/V and xLSTM's states)."""
     from repro_torch.configs import get
     moe_cfg = dataclasses.replace(get(MESH_MOE_MODEL).config(),
                                   n_layers=MESH_MOE_LAYERS)
-    return {"dense": _serve_vs_plain(_train_cfg(), mesh),
-            "moe": _serve_vs_plain(moe_cfg, mesh, per_period=True)}
+    out = {"dense": _serve_vs_plain(_train_cfg(), mesh, profile=True),
+           "moe": _serve_vs_plain(moe_cfg, mesh, per_period=True)}
+    for name, layers in MESH_SERVE_STATE:
+        cfg = get(name).config()
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        out[name] = _serve_vs_plain(cfg, mesh)
+    return out
+
+
+def serve_runs(msh):
+    """Phase 18's sharded serve rows (its ``serve`` without the phase's
+    seconds)."""
+    return {k: r for k, r in msh["serve"].items() if k != "seconds"}
 
 
 def mesh_launches(train, kernel):
@@ -4290,28 +4329,35 @@ def phase_mesh():
         if not attention <= set(r["regions"]):
             failures.append((run, "attention outside the regions",
                              r["regions"]))
-    for run in ("dense", "moe"):
-        r = serve[run]
+    for run, r in serve.items():
+        if run == "seconds":
+            continue
         for key in ("logits_bit_equal", "tokens_bit_equal", "tp_cleared"):
             if not r[key]:
                 failures.append(("serve", run, key))
         if not all(r["cache_bit_equal"].values()) \
                 or len(r["cache_bit_equal"]) != r["cache_leaves_mesh"]:
             failures.append(("serve", run, "cache", r["cache_bit_equal"]))
-        # the mesh run's decode launches are all the partial mode's
+        # the mesh run's decode launches are all the partial mode's (the
+        # counts themselves held by launch_counts: prefill and encoder
+        # layers, self-attention layers x steps)
         partial = r["launches_mesh"]["gqa_decode_partial"]
         if {**r["launches_mesh"], "gqa_decode_partial": 0} \
                 != r["launches_plain"] \
-                or partial != r["launches_mesh"]["gqa_decode_attention"] \
-                or not (r["launches_mesh"]["flash_attention"] > 0
-                        and partial > 0):
+                or partial != r["launches_mesh"]["gqa_decode_attention"]:
             failures.append(("serve", run, "launches", r["launches_mesh"],
                              r["launches_plain"]))
-        blocks = {f"blocks.{i}.{m}" for i in range(r["layers"])
-                  for m in ("mixer", "ffn")}
-        if r["region_size"] != 1 or not blocks | {""} <= set(r["regions"]):
-            failures.append(("serve", run, "regions", r["regions"]))
-        forced = r["per_period_fills"]
+        if r["tp_friendly"]:
+            blocks = {f"blocks.{i}.{m}" for i in range(r["layers"])
+                      for m in ("mixer", "ffn")}
+            if r["region_size"] != 1 \
+                    or not blocks | {""} <= set(r["regions"]):
+                failures.append(("serve", run, "regions", r["regions"]))
+        elif r["regions"] or not r["states_split"] \
+                or r["state_region_size"] != 1:
+            failures.append(("serve", run, "xLSTM states", r["regions"],
+                             r["states_split"]))
+        forced = r["per_period_fills"] or not r["tp_friendly"]
         if forced != (r["fills_in_steps"] > 0) or forced == (
                 r["filled_each_step_params"] == 0):
             failures.append(("serve", run, "fills", r["fills_in_steps"]))
@@ -4420,15 +4466,13 @@ def main():
         "launches_cluster": clu["launches"]["gqa_decode_attention"],
         "launches_families": fam["launches"]["gqa_decode_attention"],
         "launches_mesh_serve": {
-            msh["serve"][r]["model"]:
-                msh["serve"][r]["launches_mesh"]["gqa_decode_attention"]
-            for r in ("dense", "moe")},
+            r["model"]: r["launches_mesh"]["gqa_decode_attention"]
+            for r in serve_runs(msh).values()},
         # the split-sequence decode: every mesh serve launch is the
         # partial mode's (repro_gqa_decode_partial)
         "launches_mesh_serve_partial": {
-            msh["serve"][r]["model"]:
-                msh["serve"][r]["launches_mesh"]["gqa_decode_partial"]
-            for r in ("dense", "moe")},
+            r["model"]: r["launches_mesh"]["gqa_decode_partial"]
+            for r in serve_runs(msh).values()},
         "mesh_local_heads": msh["local_heads"]["decode"],
         "cases": dec["cases"] + fam["kernel_shapes"]["cases"],
         "max_abs_err": max(dec["max_abs_err"].values()),
@@ -4450,9 +4494,8 @@ def main():
         "launches_families": fam["launches"]["flash_attention"],
         "launches_mesh": mesh_launches(msh["train"], "flash_attention"),
         "launches_mesh_serve": {
-            msh["serve"][r]["model"]:
-                msh["serve"][r]["launches_mesh"]["flash_attention"]
-            for r in ("dense", "moe")},
+            r["model"]: r["launches_mesh"]["flash_attention"]
+            for r in serve_runs(msh).values()},
         "mesh_local_heads": {k: v for k, v in msh["local_heads"].items()
                              if k != "decode"},
         "cases": fa["cases"] + attn["flash_extend"]["cases"],

@@ -24,11 +24,11 @@ memory allocated. As rank 0 of that mesh it records
     (``launch.serve_mesh.ShardedServer``, the parameters stored in the
     serve placements) on the rank's rows: the parameter bytes it holds
     between steps (its resident compute blocks and the blocks it fills
-    from) and the most it fills at once; the cache's bytes at the rank's
-    KV heads and Mamba channels, beside what the reference's
-    ``cache_specs`` (the sequence over 'model') would give the rank; the
-    heads and channels a rank holds; the step's FLOPs on the rank's blocks
-    and its collectives, counted as for train;
+    from) and the most it fills at once; the cache's bytes, the rank's
+    block of every leaf, beside what the reference's ``cache_specs`` gives
+    the rank, and the blocks' ranges; the heads and channels a rank holds;
+    the step's FLOPs on the rank's blocks and its collectives, counted as
+    for train;
   * the batch bytes of the rank's rows (split over the DP axes).
 
 XLA's ``memory_analysis`` and ``cost_analysis`` have no torch
@@ -230,6 +230,8 @@ def _serve_record(cfg: ModelConfig, shape_name: str, mesh, batch) -> dict:
     server = ShardedServer(cfg, mesh, "cpu")
     server.load(lm.LM(cfg, "cpu"))
     B = batch["tokens"].shape[0]
+    # the global batch's rows: they fix xLSTM's state layout
+    assert server.rows(torch.empty(cell.global_batch)).shape[0] == B
     cross = {k: batch[k] for k in ("frames", "patches") if k in batch}
     if cell.kind == "decode":
         cache = server.make_cache(B, cell.seq_len, kv_len=torch.full(
@@ -241,10 +243,8 @@ def _serve_record(cfg: ModelConfig, shape_name: str, mesh, batch) -> dict:
             _, cache = server.prefill(batch["tokens"], **cross)
         else:
             server.decode_step(batch["tokens"], cache)
-    cross_tokens = (cache.state["cross.k"].shape[2]
-                    if "cross.k" in cache.state else None)
-    whole = lm.make_cache(cfg, cell.global_batch, cell.seq_len, "cpu",
-                          cross_tokens=cross_tokens)
+    whole = lm.make_cache(cfg, cell.global_batch, cell.seq_len, "cpu")
+    region = server.cache_region()
     return {
         "optimizer": None, "opt_state_bytes_per_rank": 0,
         "param_bytes_per_rank": server.stored_bytes(),
@@ -263,12 +263,17 @@ def _serve_record(cfg: ModelConfig, shape_name: str, mesh, batch) -> dict:
             whole, mesh, shard.cache_specs(cfg, whole, mesh)),
         "cache_what": (
             "the K/V and state leaves of the rank's rows (kv_len's 4 bytes "
-            "a row left out): the port's self-attention K/V with the "
-            "sequence over 'model' at every KV head, as the reference "
-            "spec's (sharding.cache_specs on the whole batch), so the two "
-            "are equal where the cache is only self K/V; the port's Mamba "
-            "state at the rank's channels, cross K/V at its KV heads, "
-            "mLSTM and sLSTM states whole"),
+            "a row left out), each the rank's block as the reference spec "
+            "(sharding.cache_specs on the whole batch) lays it out: the "
+            "self- and cross-attention K/V every KV head at the rank's "
+            "positions of the sequence / the cross tokens, the Mamba state "
+            "at its channels, the xLSTM states on the spec's axis where "
+            "the 'model' ranks share the rows (whole for rows of the "
+            "rank's own); cache_blocks gives each state leaf's [dim of one "
+            "layer's leaf, lo, hi]"),
+        "cache_blocks": {k: list(b) for k, b in lm.cache_widths(
+            cfg, region, cfg.cross_kv_tokens or None).items()},
+        "split_states": server.split_states,
         "split": split_record(server, cfg),
         "flops_per_rank": float(flops.get_total_flops()),
         "collectives": _collectives(

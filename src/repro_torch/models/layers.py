@@ -8,7 +8,9 @@ the model's dtype. Self-attention goes through ``kernels.ops``: the plain
 version for CPU tensors, the hand-written kernel for CUDA tensors.
 Cross-attention over cached encoder / patch K/V is plain torch on both, as
 the reference computes it outside its kernels (``_xla_attention`` with
-``causal=False``), casts included. The reference's sharding constraints
+``causal=False``), casts included; in a sharded decode step each rank
+attends its block of the cached positions and the blocks' partial results
+are merged. The reference's sharding constraints
 (``constrain``) are not called: activations are each rank's local tensors
 (``models.sharding``); the FFN runs column- then row-parallel, and
 attention on the rank's heads, when its module carries a
@@ -283,6 +285,16 @@ def _plain_attention(q: torch.Tensor, k: torch.Tensor,
     reference's ``_xla_attention(causal=False)``, casts included (q scaled
     in its own dtype, f32 scores and softmax, the weights rounded to v's
     dtype before P·V, the result in q's dtype)."""
+    return _attention_partial(q, k, v, lse=False)[0].to(q.dtype)
+
+
+def _attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       lse: bool = True):
+    """:func:`_plain_attention` before its cast to q's dtype: (out (B, Sq,
+    Hq, D) f32, the scores' log-sum-exp (B, Sq, Hq) f32, or None without
+    ``lse``). Over a block of the positions it is that block's partial
+    result for ``tensor_parallel.merge``: one block gives
+    ``_plain_attention``'s bits after the cast."""
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     qh = (q.transpose(1, 2) * D ** -0.5).reshape(B, Hkv, Hq // Hkv, Sq, D)
@@ -291,7 +303,9 @@ def _plain_attention(q: torch.Tensor, k: torch.Tensor,
     w = torch.softmax(s, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqk,bhkd->bhgqd", w.to(torch.float32),
                        v.transpose(1, 2).to(torch.float32))
-    return out.reshape(B, Hq, Sq, D).transpose(1, 2).to(q.dtype)
+    return (out.reshape(B, Hq, Sq, D).transpose(1, 2),
+            torch.logsumexp(s, dim=-1).reshape(B, Hq, Sq).transpose(1, 2)
+            if lse else None)
 
 
 def cross_kv(p, cfg: ModelConfig, kv_x: torch.Tensor
@@ -309,17 +323,49 @@ def cross_kv(p, cfg: ModelConfig, kv_x: torch.Tensor
 
 
 def cross_attention_cached(p, cfg: ModelConfig, x: torch.Tensor,
-                           kv: Tuple[torch.Tensor, torch.Tensor]
-                           ) -> torch.Tensor:
+                           kv: Tuple[torch.Tensor, torch.Tensor],
+                           seq: Optional[TP.Region] = None) -> torch.Tensor:
     """x (B, S, d) attends all of the cached (k, v), each (B, T, Hkv, D);
     no rope. Returns (B, S, d); in a region over the rank's heads (``kv``
-    from ``cross_kv`` in the same region), summed over it."""
+    from ``cross_kv`` in the same region), summed over it.
+
+    In a sharded decode step (``seq``, the step's region) ``kv`` is the
+    rank's block of the T positions at every KV head (:func:`cross_block`):
+    q is gathered whole over the region (``TP.gather_query``), every rank
+    attends its block for all query heads (:func:`_attention_partial`),
+    the ranks' (o, lse) are merged (``TP.merge_partials``), and the rank's
+    query heads go through its rows of ``wo``."""
     region = getattr(p, "tp", None)
     q = _heads(TP.copy_to(x, region), p.wq, cfg.hd)
     if cfg.qk_norm:
         q = rms_norm(p.qnorm, q, cfg.norm_eps)
-    out = _plain_attention(q, *kv)
+    if seq is None:
+        out = _plain_attention(q, *kv)
+    else:
+        heads = region and _head_split(p, region)
+        if heads is not None:
+            q = TP.gather_query(q, heads, region)
+        out = TP.merge_partials(*_attention_partial(q, *kv), seq
+                                ).to(q.dtype)
+        if heads is not None:
+            a, b = heads.q[region.rank]
+            out = out[:, :, a:b]
     return TP.reduce_from(out.flatten(2) @ p.wo, region)
+
+
+def cross_block(p, kv: Tuple[torch.Tensor, torch.Tensor],
+                seq: Optional[TP.Region]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What a cache keeps of the cross K/V that :func:`cross_kv` computed
+    for the module ``p``, each (B, T, Hkv_r, D): all of it, or in a sharded
+    step (``seq``) every KV head at the rank's positions of T
+    (``TP.seq_block`` with T as the cache's depth: one all-to-all where
+    the KV heads split, else a slice)."""
+    if seq is None:
+        return kv
+    region = getattr(p, "tp", None)
+    return TP.seq_block(*kv, region and _head_split(p, region),
+                        kv[0].shape[1], seq)
 
 
 # ---------------------------------------------------------------------------

@@ -42,10 +42,13 @@ The modules with ``SPLIT`` (the LM's embedding and head, ``FFN``, ``MoE``,
 step, and ``SPLIT`` names the dimension of each weight that a rank then
 holds a block of (``split_ranges``, where a module has it, which ranges of
 it: attention's heads, Mamba's channels). ``prefill`` and ``decode_step``
-run in those regions too: the cache then holds every KV head at the
-rank's positions, as the reference's ``cache_specs`` lays it out, and the
-Mamba state at its channels (``make_cache(tp=)``), and the last logits are
-gathered whole over the vocabulary. ``prefill_extend`` (the engine's prefix
+run in those regions too: the cache then holds its leaves as the
+reference's ``cache_specs`` lays them out (``make_cache(tp=)``): the self-
+and cross-attention K/V every KV head at the rank's positions, the Mamba
+state at its channels, the xLSTM states in their blocks (the region set on
+the ``MLSTM`` / ``SLSTM`` modules by a sharded server whose batch rows the
+'model' ranks share); the last logits are gathered whole over the
+vocabulary. ``prefill_extend`` (the engine's prefix
 reuse) runs on one card only.
 """
 from __future__ import annotations
@@ -73,8 +76,7 @@ SELF_ATTN = ("attn", "attn_bidir", "attn_cross")
 #: the Cache.state leaves of each state group, in the order the mixers
 #: return them; each leaf is stacked over the group's layers: (n, B, ...)
 STATE_KEYS = {"mamba": ("mamba.h", "mamba.conv"),
-              "mlstm": ("mlstm.C", "mlstm.n", "mlstm.m"),
-              "slstm": ("slstm.c", "slstm.n", "slstm.h", "slstm.m"),
+              "mlstm": X.MLSTM_KEYS, "slstm": X.SLSTM_KEYS,
               "cross": ("cross.k", "cross.v")}
 _EMPTY: Mapping[str, torch.Tensor] = MappingProxyType({})
 
@@ -297,10 +299,14 @@ def channel_ranges(di: int, n: int):
 
 
 class MLSTM(nn.Module):
+    """Weights whole in every step (``tp_friendly=False``); ``tp``, where a
+    sharded server sets it, splits the decode state
+    (``xlstm.state_blocks``)."""
     RANDOM = ("up", "wq", "wk", "wv", "wi", "wf", "down")
     REF = {"up": ("up", "w"), "wq": ("wq", "w"), "wk": ("wk", "w"),
            "wv": ("wv", "w"), "wi": ("wi", "w"), "wf": ("wf", "w"),
            "norm": ("norm", "g"), "down": ("down", "w")}
+    tp: Optional[TP.Region] = None
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -320,10 +326,12 @@ class MLSTM(nn.Module):
 
 
 class SLSTM(nn.Module):
+    """As :class:`MLSTM`: ``tp`` splits the decode state alone."""
     RANDOM = ("wx", "rz", "ri", "rf", "ro", "ff_up", "ff_down")
     REF = {"wx": ("wx", "w"), "rz": ("rz",), "ri": ("ri",), "rf": ("rf",),
            "ro": ("ro",), "norm": ("norm", "g"), "ff_up": ("ff_up", "w"),
            "ff_down": ("ff_down", "w")}
+    tp: Optional[TP.Region] = None
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -487,8 +495,10 @@ def _ffn(blk: Block, cfg: ModelConfig, ffn: str, x: torch.Tensor
 
 _FULL = {"mamba": S.mamba_forward, "mlstm": X.mlstm_forward,
          "slstm": X.slstm_forward}
-_STEP = {"mamba": S.mamba_decode, "mlstm": X.mlstm_forward,
-         "slstm": X.slstm_forward}
+#: decode steps: each on the rank's blocks of its state where its module
+#: carries a region
+_STEP = {"mamba": S.mamba_decode, "mlstm": X.mlstm_step,
+         "slstm": X.slstm_step}
 
 
 def _state(cache: Cache, layer: Layer) -> Tuple[torch.Tensor, ...]:
@@ -502,6 +512,18 @@ def _put_state(cache: Cache, layer: Layer, values) -> None:
         dst.copy_(src)
 
 
+def _kept(cfg: ModelConfig, group: str, seq: Optional[TP.Region], values):
+    """A prefill's final state of a layer of ``group`` as the cache keeps
+    it: in a sharded step (``seq``) xLSTM's, computed whole, narrowed to
+    the rank's blocks (``xlstm.state_blocks``); Mamba's is the rank's
+    channels already."""
+    if seq is None or group not in ("mlstm", "slstm"):
+        return values
+    blocks = X.state_blocks(cfg, seq.size, seq.rank)
+    return tuple(TP.narrow(t, blocks[k])
+                 for k, t in zip(STATE_KEYS[group], values))
+
+
 def _forward(cfg: ModelConfig, blocks, layers, x: torch.Tensor,
              positions: torch.Tensor, cross_x: Optional[torch.Tensor],
              cache: Optional[Cache] = None,
@@ -509,10 +531,11 @@ def _forward(cfg: ModelConfig, blocks, layers, x: torch.Tensor,
              seq: Optional[TP.Region] = None):
     """The full-sequence pass of ``blocks`` (``layers`` their layout) over
     x (B, S, d); returns (x, the list of the MoE layers' aux losses). With
-    ``cache``, each layer's K/V (at positions 0..S-1; in a sharded step,
-    ``seq`` its region, the rank's block of them), cross K/V and final
-    recurrent state are written into it. ``materialize(period's blocks)``,
-    when given, is called before each period of the block pattern runs."""
+    ``cache``, each layer's K/V (at positions 0..S-1), cross K/V and final
+    recurrent state are written into it (in a sharded step, ``seq`` its
+    region, the rank's block of each, ``make_cache(tp=)``).
+    ``materialize(period's blocks)``, when given, is called before each
+    period of the block pattern runs."""
     aux = []
     P = len(cfg.pattern)
     for i, (blk, layer) in enumerate(zip(blocks, layers)):
@@ -536,17 +559,18 @@ def _forward(cfg: ModelConfig, blocks, layers, x: torch.Tensor,
                 x = x + L.cross_attention_cached(
                     blk.mixer2, cfg, L.apply_norm(cfg, blk.norm1b, x), kv)
                 if cache is not None:
-                    _put_state(cache, layer, kv)
+                    _put_state(cache, layer, L.cross_block(blk.mixer2, kv,
+                                                           seq))
         elif mixer == "cross":
             kv = L.cross_kv(blk.mixer, cfg, cross_x)
             x = x + L.cross_attention_cached(blk.mixer, cfg, h, kv)
             if cache is not None:
-                _put_state(cache, layer, kv)
+                _put_state(cache, layer, L.cross_block(blk.mixer, kv, seq))
         else:
             y, st = _FULL[mixer](blk.mixer, cfg, h)
             x = x + y
             if cache is not None:
-                _put_state(cache, layer, st)
+                _put_state(cache, layer, _kept(cfg, layer.group, seq, st))
         x, a = _ffn(blk, cfg, layer.ffn, x)
         if a is not None:
             aux.append(a)
@@ -705,25 +729,37 @@ def loss_fn(model: LM, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
     return loss + aux_weight * aux, {"nll": loss, "aux": aux}
 
 
-def cache_widths(cfg: ModelConfig, tp: Optional[TP.Region] = None
-                 ) -> Tuple[int, Optional[int]]:
-    """(cross-attention KV heads, Mamba channels or None) that a cache
-    holds: all of them, or in the region ``tp`` the rank's, as its
-    attention and Mamba modules split them (``sharding.head_split``'s KV
-    ranges, ``channel_ranges``): read from the config, since a sharded step
-    may size a cache while its weights are empty. (The self-attention K/V
-    hold every KV head, at the rank's positions in a region.)"""
-    Hkv, di = cfg.n_kv_heads, cfg.ssm and S.d_inner(cfg)
-    if tp is not None:
-        heads = SH.head_split(cfg.n_heads, cfg.n_kv_heads, tp.size)
-        if heads is not None:
-            a, b = heads.kv[tp.rank]
-            Hkv = b - a
-        ch = di and channel_ranges(di, tp.size)
-        if ch:
-            (a, b), = ch[tp.rank]
-            di = b - a
-    return Hkv, di
+def cache_widths(cfg: ModelConfig, tp: Optional[TP.Region] = None,
+                 cross_tokens: Optional[int] = None
+                 ) -> Dict[str, TP.Block]:
+    """{``Cache.state`` key: the rank's block of one layer's leaf (B,
+    ...)} in the region ``tp``, as the reference's ``cache_specs`` lays the
+    stacked leaves out over 'model': the Mamba state's channels (where its
+    module splits them, ``channel_ranges``); the cross K/V's positions of
+    their ``cross_tokens`` (default ``cfg.cross_kv_tokens``) T at every KV
+    head (``tensor_parallel.seq_range``); the xLSTM states on the axis the
+    rule picks (``xlstm.state_blocks``: mLSTM's C over heads or its value
+    axis, n over its last axis, m over heads or whole, the sLSTM's over
+    dh). A leaf absent is whole; all of them outside a region. Read from
+    the config, since a sharded step may size a cache while its weights
+    are empty. (The self-attention K/V hold every KV head at the rank's
+    positions, ``make_cache``.)"""
+    if tp is None:
+        return {}
+    groups = group_sizes(cfg)
+    out: Dict[str, TP.Block] = {}
+    ch = cfg.ssm and channel_ranges(S.d_inner(cfg), tp.size)
+    if ch and "mamba" in groups:
+        (a, b), = ch[tp.rank]
+        out.update({"mamba.h": TP.Block(1, a, b),
+                    "mamba.conv": TP.Block(2, a, b)})
+    if "cross" in groups:
+        lo, hi = TP.seq_range(cross_tokens or cfg.cross_kv_tokens, tp)
+        out.update({k: TP.Block(1, lo, hi) for k in STATE_KEYS["cross"]})
+    if "mlstm" in groups or "slstm" in groups:
+        out.update((k, b) for k, b in X.state_blocks(
+            cfg, tp.size, tp.rank).items() if b is not None)
+    return out
 
 
 def make_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
@@ -734,31 +770,30 @@ def make_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
     """An empty decode cache (zeros; the stabilizers at the reference's
     -1e30), with ``kv_len`` marking the fill; cross K/V hold
     ``cross_tokens`` (default ``cfg.cross_kv_tokens``) positions. In the
-    region ``tp`` the self-attention K/V hold every KV head at the rank's
-    positions of ``max_seq`` (``tensor_parallel.seq_range``: the sequence
-    over 'model', as the reference's ``cache_specs``), the cross K/V the
-    rank's KV heads and the Mamba state its channels (``cache_widths``);
-    mLSTM and sLSTM states are whole."""
+    region ``tp`` every leaf is the rank's block of it as the reference's
+    ``cache_specs`` lays it out: the self-attention K/V every KV head at
+    the rank's positions of ``max_seq`` (``tensor_parallel.seq_range``:
+    the sequence over 'model'), the state leaves as ``cache_widths``
+    gives them."""
     dev = resolve(device)
     dt = L.dtype_of(cfg)
     B = batch_size
-    Hkv, di = cache_widths(cfg, tp)
+    T = cross_tokens or cfg.cross_kv_tokens
+    blocks = cache_widths(cfg, tp, T)
     lo, hi = TP.seq_range(max_seq, tp)
     shp = (n_attn(cfg), B, hi - lo, cfg.n_kv_heads, cfg.hd)
     sizes = group_sizes(cfg)
-    init = {"mamba": lambda: S.init_state(cfg, B, dt, dev, di),
-            "mlstm": lambda: X.init_mlstm_state(cfg, B, dev),
-            "slstm": lambda: X.init_slstm_state(cfg, B, dev)}
+    # one row of each group's whole state, narrowed to the rank's block
+    init = {"mamba": lambda: S.init_state(cfg, 1, dt, dev),
+            "mlstm": lambda: X.init_mlstm_state(cfg, 1, dev),
+            "slstm": lambda: X.init_slstm_state(cfg, 1, dev),
+            "cross": lambda: (torch.zeros((1, T, cfg.n_kv_heads, cfg.hd),
+                                          dtype=dt, device=dev),) * 2}
     state: Dict[str, torch.Tensor] = {}
     for group, n in sizes.items():
-        if group == "cross":
-            T = cross_tokens or cfg.cross_kv_tokens
-            one = torch.zeros((B, T, Hkv, cfg.hd), dtype=dt, device=dev)
-            leaves = (one, one)
-        else:
-            leaves = init[group]()
-        for key, t in zip(STATE_KEYS[group], leaves):
-            state[key] = t[None].repeat((n,) + (1,) * t.dim())
+        for key, t in zip(STATE_KEYS[group], init[group]()):
+            t = TP.narrow(t, blocks.get(key))
+            state[key] = t[None].repeat((n, B) + (1,) * (t.dim() - 1))
     if kv_len is None:
         kv_len = torch.zeros((B,), dtype=torch.int32, device=dev)
     return Cache(k=torch.zeros(shp, dtype=dt, device=dev),
@@ -890,8 +925,11 @@ def decode_step(model: LM, cfg: ModelConfig, token: torch.Tensor,
     live or not, and every row's kv_len grows by one, as in the reference;
     K/V and recurrent state are updated in place and returned in the new
     Cache. In the regions of a sharded step ``cache`` holds the rank's
-    block (``make_cache(tp=)``), attention runs split over its positions
-    (``layers.attention_decode``) and the logits are gathered whole;
+    block (``make_cache(tp=)``), attention and cross-attention run split
+    over its positions (``layers.attention_decode``,
+    ``layers.cross_attention_cached``), xLSTM on its state's blocks
+    (``xlstm.mlstm_step``, ``slstm_step``) and the logits are gathered
+    whole;
     ``materialize(blocks)``, when given, is called before each period of
     the block pattern runs."""
     seq = _step_region(model)
@@ -913,10 +951,10 @@ def decode_step(model: LM, cfg: ModelConfig, token: torch.Tensor,
             if mixer == "attn_cross":
                 x = x + L.cross_attention_cached(
                     blk.mixer2, cfg, L.apply_norm(cfg, blk.norm1b, x),
-                    _state(cache, layer))
+                    _state(cache, layer), seq)
         elif mixer == "cross":
             x = x + L.cross_attention_cached(blk.mixer, cfg, h,
-                                             _state(cache, layer))
+                                             _state(cache, layer), seq)
         else:
             y, st = _STEP[mixer](blk.mixer, cfg, h, _state(cache, layer))
             _put_state(cache, layer, st)

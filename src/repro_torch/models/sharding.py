@@ -48,11 +48,15 @@ norms, routers). The optimizer updates the stored blocks in place
 rank's local tensors, whole over 'model' between regions: :func:`constrain`
 is a no-op.
 
-The self-attention KV cache of the port's sharded server is laid out as
-:func:`cache_specs` lays it out (the reference's GSPMD layout): every KV
-head at the rank's positions, the sequence over 'model'
+The port's sharded server lays out its whole decode cache as
+:func:`cache_specs` does (the reference's GSPMD layout): the self- and
+cross-attention K/V hold every KV head at the rank's positions, the
+sequence (or the T encoder / patch tokens) over 'model'
 (``tensor_parallel.seq_range``; contiguous near-equal ranges where the
-axis does not divide it, where the reference falls back to the head dim).
+axis does not divide it, where the reference falls back to the head dim);
+Mamba's state holds the rank's channels; xLSTM's states split on the axis
+:func:`cache_model_axis` gives, exactly when the batch's rows do not split
+over 'model' (``launch.serve_mesh.ShardedServer.rows``).
 """
 from __future__ import annotations
 
@@ -250,24 +254,36 @@ def cache_specs(cfg: ModelConfig, cache, mesh):
     dp = dp_axes(mesh) or None
 
     def leaf_spec(x) -> Spec:
-        shape = tuple(x.shape)
-        if len(shape) == 5:          # (n, B, S, Hkv, hd) KV cache
-            spec = _fit(mesh, (None, dp, "model", None, None), shape)
-            if spec[2] is None:      # S not divisible: fall back to hd
-                spec = _fit(mesh, (None, dp, None, None, "model"), shape)
-            return spec
-        if len(shape) == 4:
-            return _fit(mesh, (None, dp, None, "model"), shape)
-        if len(shape) == 3:
-            return _fit(mesh, (None, dp, "model"), shape)
-        if len(shape) in (1, 2):
-            return _fit(mesh, (dp,), shape) if shape[0] > 1 else ()
-        return ()
+        return _cache_leaf_spec(mesh, tuple(x.shape), dp)
 
     return type(cache)(k=leaf_spec(cache.k), v=leaf_spec(cache.v),
                        kv_len=leaf_spec(cache.kv_len),
                        state={k: leaf_spec(t)
                               for k, t in cache.state.items()})
+
+
+def _cache_leaf_spec(mesh, shape, dp: Axis) -> Spec:
+    """:func:`cache_specs`' rule for one leaf of ``shape``."""
+    if len(shape) == 5:          # (n, B, S, Hkv, hd) KV cache, mLSTM's C
+        spec = _fit(mesh, (None, dp, "model", None, None), shape)
+        if spec[2] is None:      # S not divisible: fall back to hd
+            spec = _fit(mesh, (None, dp, None, None, "model"), shape)
+        return spec
+    if len(shape) == 4:
+        return _fit(mesh, (None, dp, None, "model"), shape)
+    if len(shape) == 3:
+        return _fit(mesh, (None, dp, "model"), shape)
+    if len(shape) in (1, 2):
+        return _fit(mesh, (dp,), shape) if shape[0] > 1 else ()
+    return ()
+
+
+def cache_model_axis(shape, n: int) -> Optional[int]:
+    """The axis of a stacked cache leaf of ``shape`` ((layers, B, ...))
+    that :func:`cache_specs` splits over a 'model' axis of n ranks, or
+    None where it keeps the leaf whole."""
+    spec = _cache_leaf_spec(AbstractMesh({"model": n}), tuple(shape), None)
+    return spec.index("model") if "model" in spec else None
 
 
 def batch_specs(cfg: ModelConfig, batch: Mapping[str, torch.Tensor], mesh
@@ -527,10 +543,7 @@ class MeshParams:
                            for n, p in model.named_parameters()}
             if cfg.tp_friendly and "model" in mesh.mesh_dim_names:
                 self.split = model_split(model, mesh)
-                self.region = TP.Region(
-                    mesh.get_group("model"),
-                    mesh.size(mesh.mesh_dim_names.index("model")),
-                    mesh.get_local_rank("model"))
+                self.region = TP.model_region(mesh)
         #: each region parameter's Split (the rest is whole)
         self.splits = {k: sp for ds in self.split.values()
                        for k, sp in ds.items()}

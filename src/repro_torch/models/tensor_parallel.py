@@ -39,6 +39,16 @@ the group (the rows of one data-parallel rank):
   rank runs the decode kernel's partial mode over its block for all query
   heads, and :func:`merge_partials` merges the ranks' (o, lse) (one
   all-gather);
+* the cross-attention K/V of a serving step, every KV head at the rank's
+  positions of the encoder / patch tokens T (:func:`seq_range` of T):
+  prefill moves them as it moves the self K/V (:func:`seq_block`); a
+  decode step gathers the query whole (:func:`gather_query`), every rank
+  attends its block for all query heads, and :func:`merge_partials`
+  merges;
+* xLSTM's recurrent states of a serving step, each on the axis the
+  reference's ``cache_specs`` splits (a :class:`Block` of it): the blocks
+  that a step needs whole are all-gathered (:func:`gather_dim`), the mLSTM
+  matrix C never;
 * Mamba: :func:`copy_to`, the rank's channels through in_proj, the conv,
   the Δt path and the scan, ``x_proj``'s partial sums through
   :func:`reduce_from` then :func:`copy_to` (every rank reads all of Δt's,
@@ -70,6 +80,28 @@ class Region(NamedTuple):
     group: Any
     size: int
     rank: int
+
+
+def model_region(mesh) -> Region:
+    """The 'model' axis of the ``DeviceMesh`` ``mesh`` as this rank's
+    :class:`Region`."""
+    return Region(mesh.get_group("model"),
+                  mesh.size(mesh.mesh_dim_names.index("model")),
+                  mesh.get_local_rank("model"))
+
+
+class Block(NamedTuple):
+    """A rank's block of a tensor: the range [lo, hi) of its axis
+    ``dim``."""
+    dim: int
+    lo: int
+    hi: int
+
+
+def narrow(t: torch.Tensor, block: Optional[Block]) -> torch.Tensor:
+    """``t``'s ``block`` (a view), or ``t`` where it is None."""
+    return t if block is None else t.narrow(block.dim, block.lo,
+                                            block.hi - block.lo)
 
 
 def all_reduce(x: torch.Tensor, groups, op=dist.ReduceOp.SUM
@@ -247,9 +279,13 @@ def storage_grad(g: torch.Tensor, src: Optional[int], split: Split,
 
 
 def seq_range(max_seq: int, region: Optional[Region]) -> Tuple[int, int]:
-    """This rank's positions [lo, hi) of a ``max_seq``-position cache:
-    rank r's contiguous near-equal range (``even_ranges``; the last rank's
-    ends at ``max_seq``), all of them outside a region."""
+    """This rank's positions [lo, hi) of a ``max_seq``-position cache
+    (the self K/V's, or the T tokens of the cross K/V): rank r's
+    contiguous near-equal range (``even_ranges``; the last rank's ends at
+    ``max_seq``), all of them outside a region. Where the axis does not
+    divide ``max_seq`` the reference falls back to splitting the head dim;
+    the port keeps the near-equal ranges, which move the same bytes and
+    keep every rank's (o, lse) a partial over whole heads."""
     if region is None:
         return 0, max_seq
     (lo, hi), = even_ranges(max_seq, region.size)[region.rank]
@@ -302,12 +338,12 @@ def _head_index(heads: HeadSplit, width: int, n_kv: int,
                 device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ranks, slots) of the gathered (n, B, width + 2 n_kv, D) buffer that
     hold the query heads, then the KV heads' k, then their v, each from
-    its first holder."""
+    its first holder (``n_kv`` 0: the query heads alone)."""
     ranks, slots = [], []
     for q, (a, b) in enumerate(heads.q):
         ranks += [q] * (b - a)
         slots += range(b - a)
-    for off in (width, width + n_kv):
+    for off in ((width, width + n_kv) if n_kv else ()):
         for q, (a, b) in enumerate(_first_held(heads)):
             ranks += [q] * (b - a)
             slots += range(off + a - heads.kv[q][0], off + b - heads.kv[q][0])
@@ -324,15 +360,31 @@ def gather_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     query heads a rank holds), k and v, a KV head that ranks share taken
     from its first holder (no gradient)."""
     width = max(b - a for a, b in heads.q)
-    if q.shape[1] < width:
-        q = torch.cat([q, q.new_zeros((q.shape[0], width - q.shape[1],
-                                       q.shape[2]))], dim=1)
-    send = torch.cat([q, k, v], dim=1)
+    send = torch.cat([_padded(q, width), k, v], dim=1)
     out = _all_gather(send, region)
     ranks, slots = _head_index(heads, width, k.shape[1], send.device)
     whole = out[ranks, :, slots].transpose(0, 1)       # (B, heads, D)
     Hq, Hkv = heads.q[-1][1], _first_held(heads)[-1][1]
     return whole[:, :Hq], whole[:, Hq:Hq + Hkv], whole[:, Hq + Hkv:]
+
+
+def _padded(q: torch.Tensor, width: int) -> torch.Tensor:
+    """``q`` (..., H_r, D) padded with zero heads to ``width``."""
+    pad = width - q.shape[-2]
+    return q if not pad else torch.cat(
+        [q, q.new_zeros(q.shape[:-2] + (pad, q.shape[-1]))], dim=-2)
+
+
+def gather_query(q: torch.Tensor, heads: HeadSplit, region: Region
+                 ) -> torch.Tensor:
+    """A cross-attention decode step's q (..., Hq_r, D) at this rank's
+    query heads -> whole (..., Hq, D), the same on every rank: one
+    all-gather (padded to the most query heads a rank holds; no gradient).
+    Cross-attention writes no k or v at decode."""
+    width = max(b - a for a, b in heads.q)
+    out = _all_gather(_padded(q, width).contiguous(), region)
+    ranks, slots = _head_index(heads, width, 0, q.device)
+    return torch.movedim(out[ranks, ..., slots, :], 0, -2).contiguous()
 
 
 def merge(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
@@ -351,10 +403,12 @@ def merge(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
 def merge_partials(o: torch.Tensor, lse: torch.Tensor, region: Region
                    ) -> torch.Tensor:
     """Each rank's partial decode result over its block of the cache, o
-    (B, H, D) f32 and lse (B, H) f32 (``ops.gqa_decode_partial``) -> the
-    attention over the whole cache (B, H, D) f32, the same on every rank:
-    one all-gather of (B, H, D + 1) a rank, then :func:`merge` in rank
-    order (its bits do not depend on a collective's reduction order)."""
+    (..., H, D) f32 and lse (..., H) f32 (``ops.gqa_decode_partial``, or
+    ``layers._attention_partial`` over a block of cross K/V) -> the
+    attention over the whole cache (..., H, D) f32, the same on every
+    rank: one all-gather of (..., H, D + 1) a rank, then :func:`merge` in
+    rank order (its bits do not depend on a collective's reduction
+    order)."""
     out = _all_gather(torch.cat([o, lse[..., None]], dim=-1), region)
     return merge(out[..., :-1], out[..., -1])
 
@@ -379,18 +433,18 @@ def reduce_from(x: torch.Tensor, region: Optional[Region]) -> torch.Tensor:
     return x if region is None else _ReduceFrom.apply(x, region)
 
 
+def gather_dim(x: torch.Tensor, dim: int, region: Region) -> torch.Tensor:
+    """Each rank's block ``x`` concatenated along ``dim`` in rank order,
+    the same on every rank: one all-gather (forward only)."""
+    return torch.cat(_all_gather(x.contiguous(), region).unbind(0), dim)
+
+
 def gather_vocab(logits: torch.Tensor, region: Optional[Region]
                  ) -> torch.Tensor:
     """The whole (..., V) logits from each rank's (..., V / size) slice
     of the vocabulary (rank r's columns the r-th), all-gathered; forward
     only (a serving step takes no gradient)."""
-    if region is None:
-        return logits
-    out = logits.new_empty((region.size * logits.shape[0],)
-                           + logits.shape[1:])
-    dist.all_gather_into_tensor(out, logits.contiguous(), group=region.group)
-    return torch.movedim(out.unflatten(0, (region.size, -1)), 0,
-                         -2).flatten(-2)
+    return logits if region is None else gather_dim(logits, -1, region)
 
 
 def gather(x: torch.Tensor, region: Optional[Region]) -> torch.Tensor:

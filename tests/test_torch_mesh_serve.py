@@ -23,8 +23,8 @@ Held:
   starts empty, and the decode steps cross the blocks' edge), the two
   blocks together equal to one rank's cache within 1e-5 x max|k|, and the
   cache's bytes those of the reference's ``cache_specs``; its Mamba
-  channels (half) and cross K/V at its KV heads; every weight resident
-  and filled at the rank's block;
+  channels (half) and cross K/V at every KV head and its half of the
+  patch tokens; every weight resident and filled at the rank's block;
 * the (1, 2) qwen3 run's logits against the reference's ``lm.prefill`` /
   ``lm.decode_step`` (JAX, CPU) from the same initial parameters, fed the
   same tokens, within ``tests/test_torch_model.py``'s f32 tolerance;
@@ -241,7 +241,8 @@ def test_serve_1x2_matches_one_rank(serve_runs, arch):
         # the self-attention K/V: every KV head at the rank's 12 of the 24
         # positions (the prompt's 8 in rank 0's; the decode steps write
         # 8..15, across the edge), as the reference's cache_specs; half the
-        # Mamba channels, cross K/V at the rank's KV heads
+        # Mamba channels, cross K/V every KV head at the rank's half of the
+        # patch tokens
         S, half = workers.SERVE["max_seq"], workers.SERVE["max_seq"] // 2
         assert workers.SERVE["prompt"] < half < (
             workers.SERVE["prompt"] + workers.SERVE["steps"])
@@ -251,13 +252,17 @@ def test_serve_1x2_matches_one_rank(serve_runs, arch):
         assert run["cache_bytes"]["port"] == run["cache_bytes"]["spec"]
         assert sum(t.nbytes for t in run["cache_kv"]) == \
             run["cache_bytes"]["kv_spec"]
-        Hkv, di = lm.cache_widths(cfg, Region(None, 2, r))
+        blocks = lm.cache_widths(cfg, Region(None, 2, r))
         if "mamba.h" in run["cache"]:
+            di = blocks["mamba.h"].hi - blocks["mamba.h"].lo
             assert run["cache"]["mamba.h"][2] == di
             assert run["cache"]["mamba.conv"][3] == di
             assert 2 * di == cfg.ssm.expand * cfg.d_model
         if "cross.k" in run["cache"]:
-            assert run["cache"]["cross.k"][3] == Hkv
+            T = cfg.cross_kv_tokens
+            assert blocks["cross.k"] == (1, r * T // 2, (r + 1) * T // 2)
+            assert run["cache"]["cross.k"][2:] == (T // 2, cfg.n_kv_heads,
+                                                   cfg.hd)
     # the ranks' blocks, in rank order, are the one-rank cache
     cache = want[2]
     for i, whole in enumerate((cache.k, cache.v)):

@@ -54,6 +54,15 @@ SERVE = dict(rows=4, prompt=8, max_seq=24, steps=8)
 SERVE_JOBS = {"serve_heads": ("qwen3-1.7b", "jamba-v0.1-52b"),
               "serve_cross": ("dbrx-132b", "llama-3.2-vision-11b")}
 SERVE_ARCHS = tuple(a for archs in SERVE_JOBS.values() for a in archs)
+#: the runs whose rows the 'model' ranks share, so that xLSTM's states
+#: split over 'model' ({job: (mesh shape, rows, smoke configs)}): on (1,
+#: 4) xlstm's C (2 heads) splits its value axis and m stays whole, and
+#: whisper's attention (2 heads) is no region while its cross K/V split
+#: their 64 frames; on (1, 2) C and m split their heads. xlstm starts
+#: from the reference's initial parameters where ``init_<arch>.pt`` lies
+#: beside the output
+STATE_JOBS = {"serve_state4": ((1, 4), 2, ("xlstm-1.3b", "whisper-tiny")),
+              "serve_state2": ((1, 2), 3, ("xlstm-1.3b",))}
 
 
 def launch(job: str, world: int, tmp: Path) -> list:
@@ -259,13 +268,13 @@ def job_train4(rank, world, tmp):
     return _train((2, 2), arch=MOE_ARCHS[0])
 
 
-def serve_inputs(cfg):
+def serve_inputs(cfg, rows=SERVE["rows"]):
     """The serve runs' prompt (rows, prompt) tokens, from a seed, and the
     rows' cross inputs."""
     g = torch.Generator().manual_seed(21)
-    toks = torch.randint(0, cfg.vocab, (SERVE["rows"], SERVE["prompt"]),
+    toks = torch.randint(0, cfg.vocab, (rows, SERVE["prompt"]),
                          generator=g)
-    return toks, cross_inputs(cfg, SERVE["rows"])
+    return toks, cross_inputs(cfg, rows)
 
 
 def serve_greedy(prefill, decode, tokens, cross):
@@ -300,12 +309,13 @@ def sharded_serve(server, tokens, cross):
         {k: server.rows(x) for k, x in cross.items()})
 
 
-def _serve(mesh_shape, arch, init=None):
+def _serve(mesh_shape, arch, init=None, rows=SERVE["rows"]):
     """``sharded_serve`` of ``arch``'s f32 smoke config on a ('data',
     'model') mesh of ``mesh_shape``, from ``_model`` (or the parameters
-    saved in ``init``): this rank's rows, logits, tokens and cache shapes,
-    the regions, what each fill filled and at which shapes, and the MoE
-    calls' routing and drops."""
+    saved in ``init``), over ``rows`` rows: this rank's rows, logits,
+    tokens and cache (its state leaves, each leaf's shape beside its
+    ``cache_specs`` block's), the regions, what each fill filled and at
+    which shapes, and the MoE calls' routing and drops."""
     from repro_torch.launch.dryrun import cache_bytes
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.serve_mesh import ShardedServer
@@ -327,23 +337,27 @@ def _serve(mesh_shape, arch, init=None):
 
     server._fill = recording_fill
     server.load(model)
-    tokens, cross = serve_inputs(cfg)
+    tokens, cross = serve_inputs(cfg, rows)
     moe.ROUTING = []
     try:
         logits, chosen, cache = sharded_serve(server, tokens, cross)
         routing = moe.ROUTING
     finally:
         moe.ROUTING = None
-    whole = lm.make_cache(cfg, SERVE["rows"], SERVE["max_seq"], "cpu",
-                          cross_tokens=(cache.state["cross.k"].shape[2]
-                                        if "cross.k" in cache.state
-                                        else None))
+    whole = lm.make_cache(cfg, rows, SERVE["max_seq"], "cpu")
     specs = sharding.cache_specs(cfg, whole, mesh)
-    return {"rows": server.rows(torch.arange(SERVE["rows"])),
+    return {"rows": server.rows(torch.arange(rows)),
             "logits": logits, "tokens": chosen,
             "cache": {"k": tuple(cache.k.shape),
                       **{k: tuple(t.shape) for k, t in cache.state.items()}},
             "cache_kv": (cache.k, cache.v), "cache_max_seq": cache.max_seq,
+            "cache_state": dict(cache.state),
+            "spec_shapes": {
+                k: sharding.local_shape(t.shape, mesh, spec)
+                for k, t, spec in [("k", whole.k, specs.k)] + [
+                    (k, t, specs.state[k]) for k, t in whole.state.items()]},
+            "cache_specs": {"k": specs.k, **specs.state},
+            "split_states": server.split_states,
             "cache_bytes": {
                 "port": cache_bytes(cache),
                 "spec": cache_bytes(whole, mesh, specs),
@@ -372,6 +386,24 @@ def job_serve_heads(rank, world, tmp):
 
 def job_serve_cross(rank, world, tmp):
     return _serve_job("serve_cross", tmp)
+
+
+def _state_job(job, tmp):
+    """``_serve`` of each of ``STATE_JOBS[job]``'s smoke configs."""
+    mesh_shape, rows, archs = STATE_JOBS[job]
+    return {arch: _serve(mesh_shape, arch, rows=rows,
+                         init=(tmp / f"init_{arch}.pt"
+                               if (tmp / f"init_{arch}.pt").exists()
+                               else None))
+            for arch in archs}
+
+
+def job_serve_state4(rank, world, tmp):
+    return _state_job("serve_state4", tmp)
+
+
+def job_serve_state2(rank, world, tmp):
+    return _state_job("serve_state2", tmp)
 
 
 def job_serve4(rank, world, tmp):
